@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Where a fused serving step of the PyTorch port spends its time.
+
+    python3 scripts/torch_serving_profile.py [--seed 0] [--steps 20]
+
+Builds qwen2.5-coder-1.5b at full width (random weights from --seed) on
+one CUDA card, submits the chip_smoke.py serving mix (32 requests,
+prompts 128-1024 tokens, 128 new tokens, SampleParams()), runs 60 fused
+steps to warm up, then records ``--steps`` steps under torch.profiler.
+Prints the host wall time of the window, the summed device time of all
+kernels, the device idle share (1 - busy / wall; one stream, so kernel
+times do not overlap), and the kernels with the most device time. The
+profiler slows the host, so the window's wall time (and idle share) is
+an upper bound on the unprofiled run's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=20)
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from senweaver_ide_tpu_torch.models import (init_params,
+                                                qwen2_5_coder_1_5b)
+    from senweaver_ide_tpu_torch.rollout import RolloutEngine
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = qwen2_5_coder_1_5b()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        args.seed), device="cuda")
+    engine = RolloutEngine(params, cfg, num_slots=16, max_len=2048,
+                           seed=args.seed, device="cuda")
+    rng = np.random.default_rng(args.seed)
+    for n in rng.integers(128, 1025, size=32):
+        engine.submit(rng.integers(0, cfg.vocab_size, size=int(n)).tolist(),
+                      max_new_tokens=128)
+    for _ in range(60):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if _device_us(e) > 0 and e.device_type.name == "CUDA"]
+    busy_us = sum(_device_us(e) for e in events)
+    print(f"window: {args.steps} fused steps, wall {wall_us / 1e3:.2f} ms "
+          f"({wall_us / 1e3 / args.steps:.2f} ms/step), device busy "
+          f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}")
+    events.sort(key=_device_us, reverse=True)
+    for e in events[:15]:
+        print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  "
+              f"{_device_us(e) / busy_us:6.3f}  {e.key[:90]}")
+    paged = sum(_device_us(e) for e in events if "pfd_kernel" in e.key)
+    gemm = sum(_device_us(e) for e in events
+               if any(w in e.key.lower() for w in ("gemm", "nvjet",
+                                                    "cutlass")))
+    print(f"paged_flash_decode kernel {paged / 1e3:.2f} ms "
+          f"({paged / busy_us:.3f} of busy), matmul kernels "
+          f"{gemm / 1e3:.2f} ms ({gemm / busy_us:.3f} of busy)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

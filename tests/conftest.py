@@ -25,6 +25,12 @@ jax.config.update("jax_platforms", "cpu")
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's CUDA kernels); "
+        "skips without one")
+
+
 @pytest.fixture
 def rng():
     import numpy as np

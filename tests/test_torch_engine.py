@@ -1,0 +1,203 @@
+"""The PyTorch port's paged RolloutEngine against the JAX engine on the
+same weights: greedy token streams must be identical and behaviour
+log-probs within 1e-4 (fp32 tiny-test config, block_size 4), through
+slot contention, mid-stream submits, eos, pool-exhaustion preemption and
+the int8 KV ladder. Shared stats() counters must agree."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from senweaver_ide_tpu import obs
+from senweaver_ide_tpu.models import init_params as jax_init_params
+from senweaver_ide_tpu.models import tiny_test as jax_tiny_test
+from senweaver_ide_tpu.rollout import EngineConfig as JaxEngineConfig
+from senweaver_ide_tpu.rollout import RolloutEngine as JaxEngine
+from senweaver_ide_tpu.rollout.sampler import SampleParams as JaxSample
+from senweaver_ide_tpu_torch.models import params_from_numpy, tiny_test
+from senweaver_ide_tpu_torch.rollout import (EngineConfig, RolloutEngine,
+                                             SampleParams)
+
+LOGP_ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _fresh_obs():
+    obs._reset_for_tests()
+    yield
+    obs._reset_for_tests()
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = jax_tiny_test()
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.device_get(jparams), device="cpu")
+    return jparams, jcfg, tparams, tiny_test()
+
+
+def _engines(weights, num_slots=2, max_len=64, eos_id=None, **ec):
+    jparams, jcfg, tparams, tcfg = weights
+    jeng = JaxEngine(jparams, jcfg, num_slots=num_slots, max_len=max_len,
+                     sample=JaxSample(0.0, 0, 1.0), eos_id=eos_id,
+                     engine_config=JaxEngineConfig(kv_layout="paged",
+                                                   block_size=4, **ec))
+    teng = RolloutEngine(tparams, tcfg, num_slots=num_slots,
+                         max_len=max_len, sample=SampleParams(0.0, 0, 1.0),
+                         eos_id=eos_id,
+                         engine_config=EngineConfig(block_size=4, **ec),
+                         device="cpu")
+    return jeng, teng
+
+
+def _assert_same(jeng, teng, rids):
+    for rid in rids:
+        assert teng.result(rid) == jeng.result(rid), rid
+        np.testing.assert_allclose(teng.result_logps(rid),
+                                   jeng.result_logps(rid), atol=LOGP_ATOL)
+        assert teng.is_done(rid) and jeng.is_done(rid)
+    js, ts = jeng.stats(), teng.stats()
+    shared = sorted(set(js) & set(ts))
+    assert "kv_preemptions" in shared and "tokens_emitted" in shared
+    assert {k: ts[k] for k in shared} == {k: js[k] for k in shared}
+    teng._alloc.check_leaks()
+    jeng._alloc.check_leaks()
+
+
+def _submit_both(jeng, teng, prompt, **kw):
+    rj = jeng.submit(prompt, **kw)
+    rt = teng.submit(prompt, **kw)
+    assert rj == rt
+    return rt
+
+
+PROMPTS = [[5, 9, 2], [11, 3, 8, 1, 7, 7, 40, 2, 9],
+           list(range(20, 40)), [300], [6, 6, 6, 6, 6, 6]]
+
+
+def test_more_requests_than_slots(weights):
+    jeng, teng = _engines(weights, num_slots=2)
+    rids = [_submit_both(jeng, teng, p, max_new_tokens=4 + i)
+            for i, p in enumerate(PROMPTS)]
+    jeng.run()
+    teng.run()
+    _assert_same(jeng, teng, rids)
+
+
+def test_mid_stream_submits(weights):
+    jeng, teng = _engines(weights, num_slots=3,
+                          step_tokens=8)
+    rids = [_submit_both(jeng, teng, p, max_new_tokens=10)
+            for p in PROMPTS[:2]]
+    for _ in range(3):
+        assert jeng.step() == teng.step()
+    rids += [_submit_both(jeng, teng, p, max_new_tokens=6)
+             for p in PROMPTS[2:]]
+    while jeng.has_work or teng.has_work:
+        assert jeng.step() == teng.step()
+    _assert_same(jeng, teng, rids)
+
+
+def test_eos_stops_both(weights):
+    jeng, _ = _engines(weights)
+    probe = jeng.submit(PROMPTS[1], max_new_tokens=8)
+    eos = jeng.run()[probe][2]
+    jeng, teng = _engines(weights, eos_id=eos)
+    rids = [_submit_both(jeng, teng, p, max_new_tokens=8)
+            for p in PROMPTS[:3]]
+    jeng.run()
+    teng.run()
+    assert teng.result(rids[1])[-1] == eos
+    assert len(teng.result(rids[1])) == 3
+    _assert_same(jeng, teng, rids)
+
+
+def test_pool_exhaustion_preempts_like_jax(weights):
+    """The preemption scenario of tests/test_paged_kv.py: 6 blocks of 4
+    cannot hold two 16-token rollouts at once."""
+    jeng, teng = _engines(weights, num_slots=2, num_blocks=6)
+    rids = [_submit_both(jeng, teng, p, max_new_tokens=12)
+            for p in ([5, 9, 2, 7], [11, 3, 8, 1])]
+    jeng.run()
+    teng.run()
+    assert teng.stats()["kv_preemptions"] >= 1
+    assert teng.stats()["kv_exhaustions"] >= 1
+    _assert_same(jeng, teng, rids)
+
+
+def test_int8_ladder_matches(weights):
+    jeng, teng = _engines(weights, num_slots=2, kv_dtype="int8")
+    rids = [_submit_both(jeng, teng, p, max_new_tokens=8)
+            for p in PROMPTS[:4]]
+    jeng.run()
+    teng.run()
+    _assert_same(jeng, teng, rids)
+
+
+def test_sampled_run_invariants(weights):
+    """temperature > 0 cannot match JAX's random stream; check what must
+    hold: budgets, vocabulary range, finite log-probs ≤ 0, and that a
+    fixed seed reproduces the stream."""
+    _, _, tparams, tcfg = weights
+
+    def run(seed):
+        eng = RolloutEngine(tparams, tcfg, num_slots=2, max_len=64,
+                            seed=seed,
+                            engine_config=EngineConfig(block_size=4),
+                            device="cpu")
+        rids = [eng.submit(p, max_new_tokens=7) for p in PROMPTS[:3]]
+        eng.run()
+        eng._alloc.check_leaks()
+        return [(eng.result(r), eng.result_logps(r)) for r in rids]
+
+    a = run(3)
+    assert a == run(3)
+    for toks, logps in a:
+        assert len(toks) == 7 and len(logps) == 7
+        assert all(0 <= t < tcfg.vocab_size for t in toks)
+        assert all(np.isfinite(lp) and lp <= 0.0 for lp in logps)
+
+
+@pytest.mark.parametrize("kw", [
+    {"engine_config": EngineConfig(kv_layout="slots")},
+    {"mesh": object()},
+])
+def test_slot_layout_requests_raise(weights, kw):
+    _, _, tparams, tcfg = weights
+    with pytest.raises(ValueError, match="slot-layout slice"):
+        RolloutEngine(tparams, tcfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("override", [{"kv_quant": True},
+                                      {"sliding_window": 8}])
+def test_slot_only_configs_raise(weights, override):
+    import dataclasses
+    _, _, tparams, tcfg = weights
+    with pytest.raises(ValueError, match="slot-layout slice"):
+        RolloutEngine(tparams, dataclasses.replace(tcfg, **override),
+                      device="cpu")
+
+
+def test_kernel_on_cpu_and_out_of_slice_submits_raise(weights):
+    _, _, tparams, tcfg = weights
+    with pytest.raises(ValueError, match="CUDA"):
+        RolloutEngine(tparams, tcfg, device="cpu",
+                      engine_config=EngineConfig(paged_kernel=True))
+    eng = RolloutEngine(tparams, tcfg, device="cpu")
+    for kw in ({"prefix_id": 0}, {"hold_slot": True},
+               {"continue_from": 0}, {"adapter_id": "t"}):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            eng.submit([1, 2], **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        RolloutEngine(tparams, tcfg, device="cpu", adapter_pool=object())
+
+
+def test_params_on_wrong_device_raise(weights):
+    _, _, tparams, tcfg = weights
+    assert tparams["embed"].device.type == "cpu"
+    eng = RolloutEngine(tparams, tcfg, device="cpu")
+    eng.update_params(tparams)
+    meta = {"embed": torch.empty(1, device="meta")}
+    with pytest.raises(ValueError, match="params live on"):
+        eng.update_params(meta)
