@@ -6,19 +6,35 @@
 Phases, each fatal on failure:
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
-2. Build: compile every CUDA kernel of the serving path with nvcc
-   (in parallel) and print nvcc's register / shared-memory report.
-3. Kernel vs plain: paged_flash_decode at Qwen2.5-Coder-1.5B attention
+2. Build: compile every CUDA kernel library with nvcc (one process per
+   source, in parallel) and print nvcc's register / shared-memory report.
+3. Kernel vs plain, K1: paged_flash_decode at Qwen2.5-Coder-1.5B attention
    shapes on bf16, int8 and fp8 pools: ragged lengths, aliased tables
    and poisoned dead blocks against the plain PyTorch version, then
    kernel / plain times with CUDA events beside the bytes bound.
 4. Serving: RolloutEngine at full qwen2.5-coder-1.5b width (random
    weights from --seed) answers 32 sampled requests on the bf16 pool,
    then short greedy runs on the int8 and fp8 ladders; the kernel's
-   launch count must equal layers x fused steps in every run. One fused
-   step's logits with the kernel are held against the plain path and
-   against the no-cache forward over each entry's whole sequence.
-5. A JSON line with every kernel's numbers, the card line, and last the
+   launch count must equal layers x fused steps in every run.
+5. Logits: one fused step's logits with the kernel are held against the
+   plain path and against the no-cache forward over each entry's whole
+   sequence.
+6. Kernel vs plain, K2: the flash-attention forward, dK/dV and dQ
+   kernels at the model's attention shapes (Hq 12, Hkv 2, D 128, bf16):
+   causal at S=1024, a ragged S=1000, kv_mask padding and a sliding
+   window, out / lse / dq / dk / dv against the plain versions; then
+   kernel, plain and SDPA (yardstick only) times at the training shape
+   beside the flop and byte bounds.
+7. Training: one GRPO round at full width with attn_impl="flash" and
+   remat: the engine samples 4 prompts x 4 completions with behaviour
+   log-probs, a stand-in reward, make_batch / make_batch_logps, three
+   train_steps (accum_steps 4), update_params, one more served group.
+   Checks finite metrics, |ratio_mean - 1| at the first step, moved
+   params and engine logits, and each K2 launch count against layers x
+   accum x steps (x2 for the remat recompute of the forward). Prints
+   step seconds, trained tokens/s, peak memory and an analytic
+   model-FLOPs share, as smoke figures.
+8. A JSON line with every kernel's numbers, the card line, and last the
    JSON ok line.
 
 Exits non-zero, printing no result, without CUDA or without the
@@ -46,6 +62,35 @@ KERNEL_ATOL = KERNEL_RTOL = 1e-2
 # of different shapes round differently, and the difference rides 28
 # layers. Logits of this random-weight model reach about 4.
 LOGITS_ATOL = 0.25
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+# K2 kernels vs their plain versions on fp32 copies of the same bf16
+# inputs. Per element |kernel - plain| <= atol + rtol*|plain| +
+# scaled*max|plain|, and the whole tensor's RMS error <= FA_RMS_TOL of its
+# RMS (a misplaced element breaks this at once). The bf16 kernels run on
+# the tensor cores: out, dq, dk and dv round to bf16 (2**-9 relative), and
+# P and dS round to bf16 before the second products, as SDPA's and
+# FlashAttention-2's do, so one gradient element can carry ~2**-8 of the
+# largest terms that meet in it (observed: RMS error 0.25%, worst element
+# 0.027 where max|dk| is 6.6); lse stays fp32. (atol, rtol, scaled).
+FA_TOL = {"out": (1e-2, 1e-2, 0.0), "lse": (1e-3, 1e-4, 0.0),
+          "dq": (1e-2, 1e-2, 5e-3), "dk": (1e-2, 1e-2, 5e-3),
+          "dv": (1e-2, 1e-2, 5e-3)}
+FA_TOL_F32 = (1e-4, 1e-4, 0.0)  # f32 instances: summation order only
+FA_RMS_TOL = 1e-2
+FA_ERR_OF = {"fwd": ("out", "lse"), "dkdv": ("dk", "dv"), "dq": ("dq",)}
+# The GRPO round (phase 7)
+TRAIN_PROMPTS, TRAIN_GROUP, TRAIN_NEW_TOKENS = 4, 4, 128
+TRAIN_STEPS, TRAIN_ACCUM, TRAIN_REMAT = 3, 4, True
+# The trainer's default rate. On bf16 params most Adam steps of 1e-5 round
+# away (an ulp at the weights' typical 0.025 is 1.2e-4); the weights
+# below ~2.5e-3 in magnitude still move, which the phase checks.
+TRAIN_LR = 1e-5
+# First step, mean importance ratio over the completion tokens: behaviour
+# log-probs from the serving path (paged K1, bf16 matmuls over the flat
+# token batch) against the trainer's (no-cache forward, K2) on the same
+# weights. Per-token log-prob differences of a few 1e-2 from bf16
+# rounding average out; E[exp(d)] - 1 ~ E[d] + var(d) / 2.
+RATIO_TOL = 0.02
 
 
 def fail(msg: str) -> None:
@@ -278,6 +323,191 @@ def _sdpa_pregathered_ms(torch, timer, args, hkv, bs):
         qq, k, v, attn_mask=mask))
 
 
+def _fa_err(out, ref, atol, rtol, scaled):
+    """(max |kernel - plain_fp32|, whether every element is within atol +
+    rtol * |plain| + scaled * max|plain| and the RMS error within
+    FA_RMS_TOL of the plain version's RMS)"""
+    diff = (out.float() - ref).abs()
+    bound = atol + rtol * ref.abs() + scaled * ref.abs().max()
+    rms_ok = diff.pow(2).mean().sqrt() <= FA_RMS_TOL * ref.pow(2).mean(
+    ).sqrt() + 1e-12
+    return float(diff.max()), bool((diff <= bound).all() and rms_ok)
+
+
+def _fa_tol_text(tol):
+    atol, rtol, scaled = tol
+    text = f"{atol} + {rtol} * |plain|"
+    if scaled:
+        text += f" + {scaled} * max|plain|"
+    return text + f", RMS error <= {FA_RMS_TOL} * RMS(plain)"
+
+
+def _fa_case(torch, fa, g, b, s, hq, hkv, d, window=None, pad_from=None,
+             dtype=None, skv=None, causal=True, q_offset=0, kv_offset=0):
+    """q, k, v, dO (std 1, bf16 unless ``dtype``) and an optional kv_mask
+    whose positions at or past ``pad_from[row]`` are invalid."""
+    dtype = dtype or torch.bfloat16
+    skv = skv or s
+
+    def rnd(n, h):
+        return torch.randn(b, n, h, d, generator=g, device="cuda").to(dtype)
+    q, k, v, gout = rnd(s, hq), rnd(skv, hkv), rnd(skv, hkv), rnd(s, hq)
+    bias = None
+    if pad_from is not None:
+        valid = (torch.arange(skv, device="cuda")[None, :]
+                 < torch.tensor(pad_from, device="cuda")[:, None])
+        bias = fa._bias_of(valid)
+    return q, k, v, gout, bias, dict(q_offset=q_offset, kv_offset=kv_offset,
+                                     causal=causal, window=window)
+
+
+def _fa_run(fa, q, k, v, gout, bias, kw):
+    """The three kernels on one case: (out, lse, dq, dk, dv)."""
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, **kw)
+    delta = fa._delta(gout, out)
+    dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, bias, gout, lse, delta,
+                                         **kw)
+    dq = fa.flash_attention_bwd_dq(q, k, v, bias, gout, lse, delta, **kw)
+    return out, lse, dq, dk, dv
+
+
+def _fa_plain(fa, q, k, v, gout, bias, kw):
+    """The plain versions on fp32 copies of the same inputs."""
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, gout))
+    out, lse = fa.flash_attention_fwd_plain(qf, kf, vf, bias, **kw)
+    dq, dk, dv = fa._bwd_plain(qf, kf, vf, bias, gf, lse,
+                               fa._delta(gf, out), **kw)
+    return out, lse, dq, dk, dv
+
+
+def _visible_pairs(s, window=None):
+    """(query, key) pairs a causal (windowed) S x S attention computes."""
+    if window is None:
+        return s * (s + 1) // 2
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def phase_flash(torch, cfg, timer):
+    """The K2 kernels (flash-attention forward, dK/dV, dQ) against their
+    plain versions at qwen2.5-coder-1.5b attention shapes, bf16, then
+    their times at the training path's shape beside the bounds and SDPA."""
+    import torch.nn.functional as F
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(3)
+    names = ("out", "lse", "dq", "dk", "dv")
+    worst = dict.fromkeys(names, 0.0)
+    cases = [("causal B=4 S=1024", dict(b=4, s=1024)),
+             ("ragged B=2 S=1000", dict(b=2, s=1000)),
+             ("kv_mask padding B=2 S=768", dict(b=2, s=768,
+                                                pad_from=[768, 517])),
+             ("window 256 B=2 S=1000", dict(b=2, s=1000, window=256))]
+    # the other instances the kernels build, off the training path: f32
+    # (exact products: summation order only, so 1e-4), D=64
+    # (qwen2.5-coder-0.5b heads 14/2), offsets and the non-causal path
+    f32 = torch.float32
+    others = [
+        ("f32 causal B=2 S=300", dict(b=2, s=300, dtype=f32)),
+        ("f32 offsets q 40 kv -25, Skv 333", dict(
+            b=1, s=300, skv=333, q_offset=40, kv_offset=-25, dtype=f32)),
+        ("f32 non-causal kv_mask", dict(b=2, s=200, causal=False,
+                                        pad_from=[200, 77], dtype=f32)),
+        ("bf16 D=64 window 37", dict(b=2, s=500, hq=14, hkv=2, d=64,
+                                     window=37))]
+    path_cases = {label for label, _ in cases}
+    for label, spec in cases + others:
+        spec = {"hq": hq, "hkv": hkv, "d": d, **spec}
+        args = _fa_case(torch, fa, g, **spec)
+        got = _fa_run(fa, *args)
+        torch.cuda.synchronize()
+        ref = _fa_plain(fa, *args)
+        errs = []
+        for name, a, r in zip(names, got, ref):
+            tol = FA_TOL_F32 if spec.get("dtype") == f32 else FA_TOL[name]
+            e, ok = _fa_err(a, r, *tol)
+            if not ok:
+                fail(f"flash {label}: {name} kernel vs plain max err {e} "
+                     f"(tol {_fa_tol_text(tol)})")
+            if label in path_cases:      # the JSON line's max_abs_err
+                worst[name] = max(worst[name], e)
+            errs.append(f"{name} {e:.3g}")
+        log(f"[flash] {label}: max |kernel - plain| " + ", ".join(errs))
+
+    # timing at the training path's shape: microbatch 4 x (1024 - 1)
+    b, s = 4, 1023
+    q, k, v, gout, bias, kw = _fa_case(torch, fa, g, b, s, hq, hkv, d)
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, **kw)
+    delta = fa._delta(gout, out)
+    t = {
+        "fwd": timer.ms(lambda: fa.flash_attention_fwd(q, k, v, **kw)),
+        "dkdv": timer.ms(lambda: fa.flash_attention_bwd_dkdv(
+            q, k, v, None, gout, lse, delta, **kw)),
+        "dq": timer.ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, None, gout, lse, delta, **kw)),
+        "plain_fwd": timer.ms(lambda: fa.flash_attention_fwd_plain(
+            q, k, v, **kw), iters=10),
+        "plain_bwd": timer.ms(lambda: fa._bwd_plain(
+            q, k, v, None, gout, lse, delta, **kw), iters=5),
+    }
+    # yardstick only, never called by the port: SDPA on (B, H, S, D)
+    qt, kt_, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                   for x in (q, k, v))
+    try:
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt_, vt, is_causal=True, enable_gqa=True)
+        sdpa()
+        gqa_note = "enable_gqa=True"
+    except TypeError:
+        kt_, vt = (x.detach().repeat_interleave(hq // hkv, 1)
+                   .requires_grad_() for x in (kt_, vt))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt_, vt, is_causal=True)
+        gqa_note = "K/V expanded to Hq heads"
+    with torch.no_grad():
+        t["sdpa_fwd"] = timer.ms(sdpa)
+    o_lib = sdpa()
+    gt = gout.transpose(1, 2).contiguous()
+    t["sdpa_bwd"] = timer.ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt_, vt), gt, retain_graph=True))
+    t["sdpa_fwd_bwd"] = timer.ms(lambda: torch.autograd.grad(
+        sdpa(), (qt, kt_, vt), gt))
+
+    pairs = _visible_pairs(s)
+    el = 2                                     # bf16 bytes
+    qb = b * s * hq * d * el
+    kvb = b * s * hkv * d * el
+    rowb = b * hq * s * 4                      # one f32 (B, Hq, S) array
+    work = {   # flops the function needs on this run's data, and bytes
+        "fwd": (4 * b * hq * d * pairs, qb + 2 * kvb + qb + rowb),
+        "dkdv": (8 * b * hq * d * pairs, 2 * qb + 2 * kvb + 2 * rowb
+                 + 2 * kvb),
+        "dq": (6 * b * hq * d * pairs, 2 * qb + 2 * kvb + 2 * rowb + qb),
+    }
+    results = {}
+    for kname, (flops, nbytes) in work.items():
+        ops_ms = flops / BF16_FLOPS * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        lib = t["sdpa_fwd"] if kname == "fwd" else t["sdpa_bwd"]
+        plain = t["plain_fwd"] if kname == "fwd" else t["plain_bwd"]
+        results[kname] = {
+            "max_abs_err": max(worst[n] for n in FA_ERR_OF[kname]),
+            "kernel_ms": t[kname], "plain_ms": plain,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": nbytes, "library_ms": lib}
+        log(f"[flash] {kname} at B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 "
+            f"causal: kernel {t[kname]:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{max(ops_ms, bytes_ms):.4f} ms ({flops} flops at "
+            f"{BF16_FLOPS:.3g}/s, {nbytes} bytes at {HBM_BYTES_PER_S:.3g}/s)"
+            f", SDPA {'fwd' if kname == 'fwd' else 'bwd'} {lib:.4f} ms")
+    log(f"[flash] SDPA yardstick ({gqa_note}; reference only): fwd "
+        f"{t['sdpa_fwd']:.4f} ms, bwd {t['sdpa_bwd']:.4f} ms, fwd+bwd "
+        f"{t['sdpa_fwd_bwd']:.4f} ms; plain bwd (all three grads) "
+        f"{t['plain_bwd']:.4f} ms")
+    return results
+
+
 def _drive(torch, engine, launches_of):
     """Run the engine to completion; returns (wall s, per-step ms,
     launches) with the launch count zeroed just before."""
@@ -442,9 +672,181 @@ def phase_logits(torch, cfg, params):
         fail(f"paged step vs no-cache forward logits differ by {ref_diff}")
 
 
+def _engine_logits(torch, engine, prompt):
+    """Last-position logits of ``prompt`` through the engine's params and
+    the paged path it serves with (a private pool, kernel K1)."""
+    from senweaver_ide_tpu_torch.models import forward_paged
+    from senweaver_ide_tpu_torch.rollout import init_paged_pool
+    bs, n = 16, len(prompt)
+    nb = -(-n // bs)
+    pool = init_paged_pool(engine.config, nb, bs, device="cuda")
+    pos = torch.arange(n)
+    with torch.no_grad():
+        logits, _ = forward_paged(
+            engine.params, engine.config, torch.tensor(prompt), pool=pool,
+            tables=torch.arange(nb, dtype=torch.int32)[None],
+            seq_row=torch.zeros(n, dtype=torch.long), positions=pos,
+            write_block=pos // bs, write_off=pos % bs, use_kernel=True)
+    return logits[-1].clone()
+
+
+def _stand_in_reward(tokens):
+    """Stand-in for the trace reward head (sessions slice): the share of
+    even token ids in the completion."""
+    return sum(1 for t in tokens if t % 2 == 0) / max(len(tokens), 1)
+
+
+def phase_train(torch, cfg, params, seed, smi):
+    """One GRPO round at full width with attn_impl="flash": the engine
+    samples 4 prompts x 4 completions with behaviour log-probs (K1), three
+    train_steps run the flash-attention kernels forward and backward (K2),
+    update_params publishes the weights and the engine serves again."""
+    import dataclasses
+
+    import numpy as np
+    from senweaver_ide_tpu_torch.models.transformer import count_params
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    from senweaver_ide_tpu_torch.rollout import RolloutEngine
+    from senweaver_ide_tpu_torch.training import (Trajectory, make_batch,
+                                                  make_batch_logps,
+                                                  make_optimizer,
+                                                  make_train_state,
+                                                  train_step)
+    tcfg = dataclasses.replace(cfg, attn_impl="flash", remat=TRAIN_REMAT)
+    layers = tcfg.num_layers
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(256, 769, size=TRAIN_PROMPTS)]
+
+    # 1. rollout: a group of completions per prompt, behaviour log-probs
+    engine = RolloutEngine(params, tcfg, num_slots=16, max_len=2048,
+                           seed=seed, device="cuda")
+    probe_before = _engine_logits(torch, engine, prompts[0])
+    subs = [(gi, engine.submit(p, max_new_tokens=TRAIN_NEW_TOKENS))
+            for gi, p in enumerate(prompts) for _ in range(TRAIN_GROUP)]
+    paged_flash_decode.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
+    k1 = paged_flash_decode.launches
+    steps = engine.stats()["decode_steps"]
+    if k1 != layers * steps:
+        fail(f"rollout: K1 launches {k1} != {layers} x {steps} fused steps")
+    # 2. stand-in reward; 3. the batch
+    trajs = []
+    for gi, rid in subs:
+        toks, logps = engine.result(rid), engine.result_logps(rid)
+        if len(toks) != TRAIN_NEW_TOKENS or not np.all(np.isfinite(logps)):
+            fail(f"rollout request {rid}: {len(toks)} tokens, finite "
+                 f"log-probs {bool(np.all(np.isfinite(logps)))}")
+        trajs.append(Trajectory(prompt_ids=prompts[gi], completion_ids=toks,
+                                reward=_stand_in_reward(toks), group_id=gi,
+                                behavior_logp=logps))
+    tokens, mask, rewards, gids = make_batch(trajs, pad_id=0)
+    old_logp = make_batch_logps(trajs, tokens, mask)
+    b, s = tokens.shape
+    log(f"[train] rollout: {len(subs)} completions ({TRAIN_PROMPTS} prompts "
+        f"x {TRAIN_GROUP}, prompts {min(map(len, prompts))}.."
+        f"{max(map(len, prompts))} tokens, {TRAIN_NEW_TOKENS} new, "
+        f"SampleParams()) in {roll_s:.2f} s, {steps} fused steps, K1 "
+        f"launches {k1} = {layers} x {steps}; stand-in reward (share of "
+        f"even token ids, not the trace reward head) mean "
+        f"{float(rewards.mean()):.4f}; batch tokens {b} x {s}")
+
+    # 4. three train_steps with the flash kernels
+    state = make_train_state(tcfg, params=params,
+                             optimizer=make_optimizer(TRAIN_LR))
+    watch = {k: params["layers"][k].clone() for k in ("wq", "w_down")}
+    for w in (fa.flash_attention_fwd, fa.flash_attention_bwd_dkdv,
+              fa.flash_attention_bwd_dq):
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_s, hist = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, tcfg, None, tokens, mask,
+                                    rewards, gids, old_logp=old_logp,
+                                    num_groups=TRAIN_PROMPTS,
+                                    accum_steps=TRAIN_ACCUM)
+        m = {k: float(v) for k, v in metrics.items()}   # syncs the step
+        step_s.append(time.perf_counter() - t0)
+        hist.append(m)
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            fail(f"train step {i + 1}: non-finite {bad}")
+        log(f"[train] step {i + 1}: {step_s[-1]:.3f} s, " + ", ".join(
+            f"{k} {v:.6g}" for k, v in sorted(m.items())))
+    launches = {"fwd": fa.flash_attention_fwd.launches,
+                "dkdv": fa.flash_attention_bwd_dkdv.launches,
+                "dq": fa.flash_attention_bwd_dq.launches}
+    per_pass = layers * TRAIN_ACCUM * TRAIN_STEPS
+    expect = {"fwd": per_pass * (2 if TRAIN_REMAT else 1),
+              "dkdv": per_pass, "dq": per_pass}
+    if launches != expect:
+        fail(f"K2 launches {launches} != expected {expect} ({layers} layers "
+             f"x accum {TRAIN_ACCUM} x {TRAIN_STEPS} steps, forward x2 "
+             f"under remat)")
+    ratio_err = abs(hist[0]["ratio_mean"] - 1.0)
+    if not ratio_err < RATIO_TOL:
+        fail(f"first step |ratio_mean - 1| = {ratio_err} >= {RATIO_TOL}: "
+             f"behaviour log-probs (K1 serving path) and training log-probs "
+             f"(K2) disagree")
+    moved = {k: float((params["layers"][k].float() - v.float()).abs().max())
+             for k, v in watch.items()}
+    if not all(d > 0 for d in moved.values()):
+        fail(f"params did not change: max |delta| {moved}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # 5. publish, check the engine's logits moved, serve one more group
+    engine.update_params(state.params)
+    probe_after = _engine_logits(torch, engine, prompts[0])
+    dlogit = float((probe_after - probe_before).abs().max())
+    if not dlogit > 0:
+        fail("engine logits did not change after update_params")
+    rids = [engine.submit(prompts[0], max_new_tokens=TRAIN_NEW_TOKENS)
+            for _ in range(TRAIN_GROUP)]
+    engine.run()
+    for rid in rids:
+        lp = engine.result_logps(rid)
+        if len(lp) != TRAIN_NEW_TOKENS or not np.all(np.isfinite(lp)):
+            fail(f"post-update request {rid} did not finish cleanly")
+    engine._alloc.check_leaks()
+
+    n_params = count_params(params)
+    tok = b * (s - 1)
+    comp = int(mask[:, 1:].sum())
+    pairs = _visible_pairs(s - 1)
+    attn = 12 * b * tcfg.num_heads * tcfg.head_dim * pairs * layers
+    model_flops = 6 * n_params * tok + attn
+    med = statistics.median(step_s)
+    log(f"[train] {tcfg.name}, {layers} layers, {tcfg.dtype}, attn_impl=flash, "
+        f"remat={TRAIN_REMAT}, accum_steps {TRAIN_ACCUM}, lr {TRAIN_LR}, "
+        f"{smi}. Smoke figures, not a benchmark: step seconds "
+        f"{', '.join(f'{x:.3f}' for x in step_s)} (median {med:.3f}), "
+        f"{tok / med:.0f} trained tokens/s ({tok} positions a step, {comp} "
+        f"of them completion tokens), peak max_memory_allocated {peak} "
+        f"bytes, analytic model-FLOPs share {model_flops / med / BF16_FLOPS:.4f}"
+        f" (6 x {n_params} params x {tok} tokens + {attn} attention flops "
+        f"a step, over {BF16_FLOPS:.3g} FLOP/s bf16)")
+    log(f"[train] first step |ratio_mean - 1| {ratio_err:.3g} (tol "
+        f"{RATIO_TOL}); params moved (max |delta| {moved}); engine logits "
+        f"max |delta| after update_params {dlogit:.4g}; K2 launches "
+        f"{launches} = expected")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build the kernels and hold them against their "
+                         "plain versions, then stop: no serving or "
+                         "training run and no ok line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -467,6 +869,10 @@ def main(argv=None) -> int:
     cfg = qwen2_5_coder_1_5b()
     timer = Timer(torch)
     kern = phase_kernel(torch, cfg, timer)
+    if args.kernels_only:
+        phase_flash(torch, cfg, timer)
+        log(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s")
+        return 0
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     params = init_params(cfg, g, device="cuda")
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers, hidden "
@@ -475,6 +881,8 @@ def main(argv=None) -> int:
         f"(seed {args.seed})")
     launches = phase_serve(torch, cfg, params, args.seed, smi)
     phase_logits(torch, cfg, params)
+    flash = phase_flash(torch, cfg, timer)
+    train_launches = phase_train(torch, cfg, params, args.seed, smi)
     kernels = []
     for variant, r in kern.items():
         kernels.append({
@@ -492,6 +900,28 @@ def main(argv=None) -> int:
             "library_note": "no single PyTorch call reads KV through a "
                             "block table",
             "sdpa_pregathered_ms": r["sdpa_pregathered_ms"]})
+    replaces = {"fwd": "senweaver_ide_tpu/ops/flash_attention.py:48",
+                "dkdv": "senweaver_ide_tpu/ops/flash_attention.py:177",
+                "dq": "senweaver_ide_tpu/ops/flash_attention.py:177"}
+    for kname, r in flash.items():
+        kernels.append({
+            "name": {"fwd": "flash_attention_fwd",
+                     "dkdv": "flash_attention_bwd_dkdv",
+                     "dq": "flash_attention_bwd_dq"}[kname],
+            "route": "cuda",
+            "source": "senweaver_ide_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces[kname],
+            "launches": train_launches[kname],
+            "max_abs_err": r["max_abs_err"],
+            "tolerance": _fa_tol_text(FA_TOL[FA_ERR_OF[kname][0]]),
+            "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "flops": r["flops"],
+            "bytes": r["bytes"], "library_ms": r["library_ms"],
+            "library_note": ("torch.nn.functional.scaled_dot_product_"
+                             "attention(is_causal=True) " +
+                             ("forward" if kname == "fwd" else
+                              "backward (all three gradients)"))})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

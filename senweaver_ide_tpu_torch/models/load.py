@@ -2,7 +2,9 @@
 
 :func:`params_from_numpy` takes the JAX ``init_params`` tree as host
 arrays (``jax.device_get``) and returns the dict of stacked tensors that
-``models/transformer.py`` consumes. The layout is unchanged: projection
+``models/transformer.py`` consumes; a LoRA adapter tree from the JAX
+``init_lora`` (``{"layers": {"wq_lora_a": (L, in, r), ...}}``) converts
+the same way, for ``training/lora.py``. The layout is unchanged: projection
 weights stay ``(in, out)`` and layer tensors keep their leading L axis,
 so no transpose happens and ``x @ W`` computes what the JAX einsums do.
 Loading HF safetensors checkpoints comes with a later slice.

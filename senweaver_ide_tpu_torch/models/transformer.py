@@ -7,10 +7,15 @@ each other on the same weights: a plain dict of layer-STACKED tensors
 is the JAX ``einsum("bsd,de->bse")``. The layer loop is a Python loop
 over views of the stacked tensors (the JAX version scans).
 
+The no-cache forward is also the training forward: ``attn_impl="flash"``
+runs the flash-attention kernels (``ops/flash_attention.py``, forward and
+backward), ``remat`` recomputes each layer in the backward, and merged
+LoRA adapters (``training/lora.py``) ride in the layer dict.
+
 Out of this slice, and raising ``NotImplementedError`` where reached:
-mixture-of-experts FFNs, int8 weights, LoRA adapters (later slices), the
-contiguous KV-cache path (the slot-layout slice) and the flash/ring/
-ulysses no-cache kernels (the training and parallel-layout slices).
+mixture-of-experts FFNs, int8 weights (later slices), the contiguous
+KV-cache path (the slot-layout slice) and the ring/ulysses attention
+(the parallel-layout slice).
 """
 
 from __future__ import annotations
@@ -18,9 +23,11 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.attention import attention
+from ..ops.flash_attention import flash_attention
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import (paged_flash_decode,
                                    paged_flash_decode_plain)
@@ -130,17 +137,20 @@ def _layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
 
 def _dense(h: torch.Tensor, lp: Dict[str, torch.Tensor],
            name: str) -> torch.Tensor:
-    """``h @ lp[name]`` for an ``(in, out)`` weight."""
+    """``h @ lp[name]`` for an ``(in, out)`` weight, plus ``(h @ A) @ B``
+    when a merged LoRA adapter (``name + "_lora_a"``/``"_lora_b"``) is
+    present: the factored order never materialises the (in, out) delta,
+    and the alpha/rank scale is already baked into A."""
     w = lp[name]
     if w.dtype == torch.int8:
         raise NotImplementedError(
             "int8 weights (models/quantize.py) arrive with a later slice "
             "of the PyTorch port")
-    if name + "_lora_a" in lp:
-        raise NotImplementedError(
-            "merged LoRA adapters arrive with the training slice of the "
-            "PyTorch port")
-    return h @ w
+    out = h @ w
+    la = lp.get(name + "_lora_a")
+    if la is not None:
+        out = out + (h @ la) @ lp[name + "_lora_b"]
+    return out
 
 
 def _qkv(c: ModelConfig, lp: Dict[str, torch.Tensor], h: torch.Tensor,
@@ -192,37 +202,90 @@ def _logits(params: Params, c: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits.float()
 
 
+def _self_attention(c: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor,
+                    kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """No-cache attention per ``c.attn_impl``. q (B,S,Hq,Dh), k/v
+    (B,S,Hkv,Dh) → (B,S,Hq,Dh)."""
+    if c.attn_impl == "einsum":
+        return attention(q, k, v, q_offset=0, kv_mask=kv_mask, causal=True,
+                         window=c.sliding_window)
+    if c.attn_impl == "flash":
+        return flash_attention(q, k, v, q_offset=0, kv_mask=kv_mask,
+                               causal=True, window=c.sliding_window)
+    if c.attn_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl={c.attn_impl!r} shards the sequence over a mesh; it "
+            f"arrives with the parallel-layout slice of the PyTorch port")
+    raise ValueError(f"unknown attn_impl {c.attn_impl!r}; expected "
+                     f"einsum|flash|ring|ulysses")
+
+
+def _layer(c: ModelConfig, lp: Dict[str, torch.Tensor], x: torch.Tensor,
+           cos: torch.Tensor, sin: torch.Tensor,
+           attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """One no-cache transformer block. x: (B, S, D)."""
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["attn_norm"], c.rms_norm_eps)
+    q, k, v = _qkv(c, lp, h, cos, sin)
+    out = _self_attention(c, q, k, v, attn_mask)
+    x = x + _dense(out.reshape(b, s, c.q_dim), lp, "wo")
+    return _mlp(c, lp, x)
+
+
 def forward(params: Params, config: ModelConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
             attn_mask: Optional[torch.Tensor] = None,
-            cache=None) -> torch.Tensor:
+            with_aux: bool = False, cache=None):
     """Full causal self-attention over ``tokens`` (B, S) → fp32 logits
-    (B, S, V). The no-cache path of the JAX ``forward``, which returns
-    ``(logits, None)`` there; ``attn_mask`` (B, S) marks valid keys."""
+    (B, S, V): the no-cache path of the JAX ``forward`` (which returns
+    ``(logits, None)`` there). ``positions`` (B, S) are the absolute
+    RoPE positions (default ``0..S-1``); ``attn_mask`` (B, S) marks valid
+    keys. ``with_aux=True`` returns ``(logits, None, aux)`` as JAX does,
+    ``aux`` being the MoE load-balance loss, a zero scalar for dense
+    models.
+
+    A truthy ``config.remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant) instead of holding its
+    activations; ``"dots"`` behaves as ``True`` (the port keeps no
+    per-op save policy). The recompute runs the layer's attention
+    forward a second time."""
     c = config
     if cache is not None:
         raise NotImplementedError(
             "the contiguous KV-cache forward belongs to the slot-layout "
             "slice of the PyTorch port; serve through forward_paged")
-    if c.attn_impl != "einsum":
-        raise NotImplementedError(
-            f"attn_impl={c.attn_impl!r} arrives with a later slice of the "
-            f"PyTorch port (flash: training; ring/ulysses: parallel "
-            f"layouts); use 'einsum'")
     b, s = tokens.shape
     x = params["embed"][tokens]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device)[None, :].expand(b, s)
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device)[None, :].expand(b, s)
     cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta,
                             scaling=c.rope_scaling)
+    remat = bool(c.remat) and torch.is_grad_enabled()
+    # One unbind per stacked tensor: its backward stacks the L per-layer
+    # gradients once, where a view per layer (v[i]) would have autograd
+    # build and add a full (L, ...) zero-padded gradient for every layer.
+    layers = {k: torch.unbind(v) for k, v in params["layers"].items()}
     for i in range(c.num_layers):
-        lp = _layer_params(params, i)
-        h = rms_norm(x, lp["attn_norm"], c.rms_norm_eps)
-        q, k, v = _qkv(c, lp, h, cos, sin)
-        out = attention(q, k, v, q_offset=0, kv_mask=attn_mask, causal=True,
-                        window=c.sliding_window)
-        x = x + _dense(out.reshape(b, s, c.q_dim), lp, "wo")
-        x = _mlp(c, lp, x)
-    return _logits(params, c, x)
+        lp = {k: v[i] for k, v in layers.items()}
+        if remat:
+            x = checkpoint(_layer, c, lp, x, cos, sin, attn_mask,
+                           use_reentrant=False)
+        else:
+            x = _layer(c, lp, x, cos, sin, attn_mask)
+    logits = _logits(params, c, x)
+    if with_aux:
+        return logits, None, torch.zeros((), dtype=torch.float32,
+                                         device=logits.device)
+    return logits
+
+
+def count_params(params: Params) -> int:
+    """Total element count of a (nested) parameter dict."""
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    return sum(count_params(v) for v in params.values())
 
 
 def _paged_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],

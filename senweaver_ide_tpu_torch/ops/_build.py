@@ -27,6 +27,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # kernel library name -> source path relative to the package
 SOURCES = {
     "paged_attention": "csrc/paged_attention.cu",
+    "flash_attention": "csrc/flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -86,6 +87,15 @@ def _bind(name: str, cdll: ctypes.CDLL) -> None:
         sm = cdll.swi_paged_flash_decode_smem
         sm.argtypes = [i, i, i]
         sm.restype = ctypes.c_longlong
+    elif name == "flash_attention":
+        ll = ctypes.POINTER(ctypes.c_longlong)
+        # tensor pointers, then the dims and strides arrays, dtype, stream
+        for fn, n_ptrs in (("swi_flash_attention_fwd", 6),
+                           ("swi_flash_attention_bwd_dkdv", 9),
+                           ("swi_flash_attention_bwd_dq", 8)):
+            f = getattr(cdll, fn)
+            f.argtypes = [p] * n_ptrs + [ll, ll, i, p]
+            f.restype = i
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> List[BuiltLibrary]:

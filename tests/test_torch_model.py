@@ -96,6 +96,48 @@ def test_forward_matches_jax(weights, rng, masked):
                                atol=LOGITS_ATOL, rtol=LOGITS_ATOL)
 
 
+@pytest.mark.parametrize("variant", ["flash", "positions", "lora",
+                                     "remat_with_aux"])
+def test_forward_variants_match_jax(weights, rng, variant):
+    """The training forward's options: flash attention (the plain path on
+    the CPU), explicit RoPE positions, a merged LoRA adapter and
+    per-layer remat with the aux output."""
+    from senweaver_ide_tpu.training import lora as jax_lora
+    jparams, jcfg, tparams, tcfg = weights
+    tokens = rng.integers(0, jcfg.vocab_size, size=(2, 13)).astype(np.int32)
+    kw_j, kw_t = {}, {}
+    if variant == "flash":
+        jcfg = dataclasses.replace(jcfg, attn_impl="flash")
+        tcfg = dataclasses.replace(tcfg, attn_impl="flash")
+        mask = np.ones((2, 13), bool)
+        mask[0, 9:] = False
+        kw_j["attn_mask"], kw_t["attn_mask"] = (jnp.asarray(mask),
+                                                torch.from_numpy(mask))
+    elif variant == "positions":
+        pos = (np.arange(13)[None, :] + np.array([[5], [40]])).astype(
+            np.int32)
+        kw_j["positions"], kw_t["positions"] = (jnp.asarray(pos),
+                                                torch.from_numpy(pos))
+    elif variant == "lora":
+        lora = jax_lora.init_lora(jcfg, jax.random.PRNGKey(2), rank=4,
+                                  targets=("wq", "wo", "w_down"))
+        # a nonzero B, so the adapter changes the function
+        lora["layers"] = {k: (v + 0.05 if k.endswith("_lora_b") else v)
+                          for k, v in lora["layers"].items()}
+        jparams = jax_lora.merge_lora(jparams, lora)
+        tparams = params_from_numpy(jax.device_get(jparams), device="cpu")
+    else:
+        tcfg = dataclasses.replace(tcfg, remat=True)
+    want = jax_tf.forward(jparams, jcfg, jnp.asarray(tokens), with_aux=True,
+                          **kw_j)
+    with torch.enable_grad():
+        got = t_tf.forward(tparams, tcfg, torch.from_numpy(tokens),
+                           with_aux=True, **kw_t)
+    assert got[1] is None and float(got[2]) == 0.0
+    np.testing.assert_allclose(got[0].detach().numpy(), np.asarray(want[0]),
+                               atol=LOGITS_ATOL, rtol=LOGITS_ATOL)
+
+
 def _pool_arrays(rng, jcfg, nb, bs, kv_dtype, per_layer):
     """Random full-width contents for every pool tensor, quantized
     through the JAX quantizer where the rung stores payloads."""
@@ -192,8 +234,8 @@ def test_out_of_slice_paths_raise(weights):
     with pytest.raises(NotImplementedError, match="slot-layout slice"):
         t_tf.forward(tparams, tcfg, torch.zeros(1, 2, dtype=torch.long),
                      cache=object())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t_tf.forward(tparams, dataclasses.replace(tcfg, attn_impl="flash"),
+    with pytest.raises(NotImplementedError, match="parallel-layout slice"):
+        t_tf.forward(tparams, dataclasses.replace(tcfg, attn_impl="ring"),
                      torch.zeros(1, 2, dtype=torch.long))
     with pytest.raises(NotImplementedError, match="parallel-layout slice"):
         t_tf.init_params(t_config.tiny_moe_test(), torch.Generator(),

@@ -30,7 +30,8 @@ def _banned(module: str) -> bool:
 
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "torch_serving_profile.py")]
+           os.path.join(ROOT, "scripts", "torch_serving_profile.py"),
+           os.path.join(ROOT, "scripts", "torch_train_profile.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
