@@ -34,8 +34,28 @@ Phases, each fatal on failure:
    accum x steps (x2 for the remat recompute of the forward). Prints
    step seconds, trained tokens/s, peak memory and an analytic
    model-FLOPs share, as smoke figures.
-8. A JSON line with every kernel's numbers, the card line, and last the
-   JSON ok line.
+8. Kernel vs plain, K3 (runs in phase 3's slot, before serving):
+   flash_decode over the contiguous slot cache at the head shapes of
+   qwen2.5-coder-1.5b (12/2, D 128), mistral-7b (32/8, D 128) and
+   qwen2.5-coder-0.5b (14/2, D 64), bf16 and f32, lengths 0..Smax on a
+   tile-aligned, a ragged and a strided cache; poisoned positions past
+   each length must leave the output bit-identical; kernel, plain and
+   SDPA (yardstick only) times at 16 Mistral slots x 4096 beside the
+   bytes bound.
+9. The int8 slot cache (kv_quant) at full qwen2.5-coder-1.5b width: 8
+   greedy requests, K3 launches = layers x decode steps; greedy token
+   match vs the bf16 paged engine printed (runs before phase 6).
+10. Slot serving at full mistral-7b width (random weights from --seed,
+    after the 1.5B weights are freed): the 4096-position ring cache, 16
+    slots, 24 sampled requests (short prompts, prompts that decode past
+    the window, prompts longer than the ring); every request finishes
+    with finite log-probs <= 0 and K3 launches = layers x (decode steps
+    + one-token chunks).
+11. Mistral logits: one ring decode step, K3 vs einsum; prefill_chunked
+    of 4096 tokens then 64 decode steps past the window vs the no-cache
+    forward with the window.
+12. A JSON line with every kernel's numbers, the card line, and last the
+    JSON ok line.
 
 Exits non-zero, printing no result, without CUDA or without the
 ``senweaver_ide_tpu_torch`` package beside this file.
@@ -44,6 +64,7 @@ Exits non-zero, printing no result, without CUDA or without the
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -91,6 +112,15 @@ TRAIN_LR = 1e-5
 # weights. Per-token log-prob differences of a few 1e-2 from bf16
 # rounding average out; E[exp(d)] - 1 ~ E[d] + var(d) / 2.
 RATIO_TOL = 0.02
+# The slot layout's main path (mistral-7b, ring cache): 16 slots, max_len
+# 8192 clamps to the 4096-position ring. Traffic: (min prompt, max prompt,
+# count, new tokens): short prompts; prompts just under the window that
+# decode past it (the ring wraps in decode); prompts longer than the ring
+# (the chunk chain, chunks that wrap).
+SLOTS_NUM, SLOTS_MAX_LEN = 16, 8192
+SLOTS_TRAFFIC = ((256, 1024, 20, 128), (3900, 4000, 2, 256),
+                 (5000, 6000, 2, 64))
+LOGITS_PAST = 64          # ring decode steps past the window, phase 11
 
 
 def fail(msg: str) -> None:
@@ -321,6 +351,135 @@ def _sdpa_pregathered_ms(torch, timer, args, hkv, bs):
     qq = q[:, :, None, :]
     return timer.ms(lambda: F.scaled_dot_product_attention(
         qq, k, v, attn_mask=mask))
+
+
+# K3 (flash_decode) head shapes: (Hq, Hkv, D) of the models that decode
+# from the slot cache, and what the timing runs at.
+FD_HEADS = {"qwen2.5-coder-1.5b": (12, 2, 128), "mistral-7b": (32, 8, 128),
+            "qwen2.5-coder-0.5b": (14, 2, 64)}
+# K3 vs plain on fp32 copies of the same inputs: bf16 output rounds at
+# 2**-9 relative (K1's tolerance and reason); f32 differs by summation
+# order only. (atol, rtol)
+FD_TOL = {"bf16": (1e-2, 1e-2), "f32": (1e-4, 1e-4)}
+FD_TIMING = dict(b=16, smax=4096, heads="mistral-7b", lo=512, hi=4096)
+
+
+def phase_flash_decode(torch, timer):
+    """K3 (flash_decode over the contiguous slot cache) against its plain
+    version on the card: three head shapes, bf16 and f32, lengths
+    0..Smax on a tile-aligned and a ragged Smax and a strided cache view;
+    poisoned positions at or past each length must leave the output
+    bit-identical. Then kernel / plain / SDPA times at the Mistral-7B
+    decode shape beside the bytes bound."""
+    import torch.nn.functional as F
+    from senweaver_ide_tpu_torch.ops.flash_decode import (flash_decode,
+                                                          flash_decode_plain)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"bf16": 0.0, "f32": 0.0}
+    for model, (hq, hkv, d) in FD_HEADS.items():
+        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            atol, rtol = FD_TOL[dname]
+            for smax, strided in ((2048, False), (1111, False), (640, True)):
+                lens = sorted({0, 1, 127, 128, 129, min(1000, smax), smax})
+                lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                b = len(lens)
+                q = torch.randn(b, hq, d, generator=g, device="cuda").to(dtype)
+                rows = smax + 64 if strided else smax
+                k = torch.randn(b, rows, hkv, d, generator=g,
+                                device="cuda").to(dtype)[:, :smax]
+                v = torch.randn(b, rows, hkv, d, generator=g,
+                                device="cuda").to(dtype)[:, :smax]
+                kw = {"allow_pad_copy": smax % 128 != 0}
+                out = flash_decode(q, k, v, lengths, **kw)
+                torch.cuda.synchronize()
+                ref = flash_decode_plain(q.float(), k.float(), v.float(),
+                                         lengths)
+                diff = (out.float() - ref).abs()
+                e = float(diff.max())
+                label = (f"{model} heads {hq}/{hkv} D={d} {dname} Smax={smax}"
+                         f"{' (strided view)' if strided else ''}")
+                if not bool((diff <= atol + rtol * ref.abs()).all()):
+                    fail(f"flash_decode {label}: kernel vs plain max err {e} "
+                         f"(tol {atol} + {rtol} * |plain|)")
+                if bool(out[0].ne(0).any()):
+                    fail(f"flash_decode {label}: a length-0 slot is not 0")
+                worst[dname] = max(worst[dname], e)
+                kp, vp = k.clone(), v.clone()
+                for i, n in enumerate(lens):
+                    kp[i, n:] = float("nan")
+                    vp[i, n:] = float("nan")
+                out_p = flash_decode(q, kp, vp, lengths, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(out_p, out):
+                    fail(f"flash_decode {label}: poisoned positions past the "
+                         f"lengths moved the output")
+                log(f"[flash_decode] {label}, lengths {lens}: max |kernel - "
+                    f"plain| {e:.3g}; poisoned tail bit-identical")
+
+    t = FD_TIMING
+    hq, hkv, d = FD_HEADS[t["heads"]]
+    b, smax = t["b"], t["smax"]
+    lengths = torch.linspace(t["lo"], t["hi"], b, device="cuda").round().to(
+        torch.int32)
+    q = torch.randn(b, hq, d, generator=g, device="cuda").bfloat16()
+    k = torch.randn(b, smax, hkv, d, generator=g, device="cuda").bfloat16()
+    v = torch.randn(b, smax, hkv, d, generator=g, device="cuda").bfloat16()
+    kernel_ms = timer.ms(lambda: flash_decode(q, k, v, lengths))
+    plain_ms = timer.ms(lambda: flash_decode_plain(q, k, v, lengths),
+                        iters=10)
+    ref = flash_decode_plain(q.float(), k.float(), v.float(), lengths)
+    diff = (flash_decode(q, k, v, lengths).float() - ref).abs()
+    atol, rtol = FD_TOL["bf16"]
+    if not bool((diff <= atol + rtol * ref.abs()).all()):
+        fail(f"flash_decode timing batch: kernel vs plain max err "
+             f"{float(diff.max())}")
+    worst["bf16"] = max(worst["bf16"], float(diff.max()))
+    positions = int(lengths.sum())
+    # each live K and V element read once, q read and out written once,
+    # the lengths read once
+    nbytes = positions * hkv * d * 2 * 2 + 2 * q.numel() * 2 + b * 4
+    flops = 4 * hq * d * positions
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    # yardstick only, never called by the port: SDPA over the cache's
+    # (B, Hkv, S, D) strided view with a length mask
+    qq = q[:, :, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(smax, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    try:
+        F.scaled_dot_product_attention(qq, kt, vt, attn_mask=mask,
+                                       enable_gqa=True)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qq, kt, vt, attn_mask=mask, enable_gqa=True)
+        sdpa_note = ("enable_gqa=True on the cache's strided (B, Hkv, S, D) "
+                     "view with a boolean length mask; no copy made here")
+    except TypeError:
+        ke = kt.repeat_interleave(hq // hkv, 1)
+        ve = vt.repeat_interleave(hq // hkv, 1)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qq, ke, ve, attn_mask=mask)
+        sdpa_note = ("K/V copied out to Hq heads beforehand (no enable_gqa),"
+                     " boolean length mask")
+    sdpa_ms = timer.ms(sdpa)
+    res = {"max_abs_err": worst["bf16"], "max_abs_err_f32": worst["f32"],
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": nbytes, "flops": flops, "library_ms": sdpa_ms,
+           "library_note": "torch.nn.functional.scaled_dot_product_attention"
+                           f" ({sdpa_note})"}
+    log(f"[flash_decode] worst max |kernel - plain|: bf16 {worst['bf16']:.3g}"
+        f" (tol {FD_TOL['bf16'][0]} + {FD_TOL['bf16'][1]} * |plain|), f32 "
+        f"{worst['f32']:.3g} (tol {FD_TOL['f32'][0]} + {FD_TOL['f32'][1]} * "
+        f"|plain|)")
+    log(f"[flash_decode] B={b} Smax={smax} heads {hq}/{hkv} D={d} bf16, "
+        f"lengths {t['lo']}..{t['hi']} (sum {positions}): kernel "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes at "
+        f"{HBM_BYTES_PER_S:.3g}/s, {flops} flops at {BF16_FLOPS:.3g}/s), "
+        f"SDPA (yardstick only; {sdpa_note}) {sdpa_ms:.4f} ms")
+    return res
 
 
 def _fa_err(out, ref, atol, rtol, scaled):
@@ -840,6 +999,179 @@ def phase_train(torch, cfg, params, seed, smi):
     return launches
 
 
+def _k3_launches(reset):
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    if reset is not None:
+        flash_decode.launches = reset
+    return flash_decode.launches
+
+
+def _ones_in_chains(engine, prompt_lens):
+    """1-token chunks of the ring pool's long-prompt chains: each is a
+    single-token forward, so it runs K3 once per layer."""
+    from senweaver_ide_tpu_torch.rollout.engine import _chunk_sizes
+    if not engine._ring:
+        return 0
+    return sum(_chunk_sizes(n, engine.max_len).count(1)
+               for n in prompt_lens if n >= engine.max_len)
+
+
+def _check_finished(engine, rids, budgets):
+    import numpy as np
+    for rid, want in zip(rids, budgets):
+        toks, logps = engine.result(rid), engine.result_logps(rid)
+        if not engine.is_done(rid):
+            fail(f"slot request {rid} did not finish")
+        if len(toks) != want:
+            fail(f"slot request {rid} stopped at {len(toks)} of {want} "
+                 f"tokens")
+        if not all(np.isfinite(logps)) or max(logps) > 0:
+            fail(f"slot request {rid} has a non-finite or positive log-prob")
+
+
+def slots_requests(rng, ring):
+    """The slot mix as (prompt length, new tokens) in submission order. A
+    prompt longer than the ring gets an odd length, so its chunk chain
+    ends in a one-token chunk (a single-token forward, through K3)."""
+    reqs = [(int(n) | 1 if n > ring else int(n), new)
+            for lo, hi, count, new in SLOTS_TRAFFIC
+            for n in rng.integers(lo, hi + 1, size=count)]
+    return [reqs[i] for i in rng.permutation(len(reqs))]
+
+
+def phase_slots_serve(torch, cfg, params, seed, smi):
+    """The slot layout's main path at full mistral-7b width: the ring
+    cache (window 4096) serves 24 sampled requests through K3, long
+    prompts through the chunk chain, decode past the window."""
+    import dataclasses
+
+    import numpy as np
+    from senweaver_ide_tpu_torch.rollout import RolloutEngine
+    scfg = dataclasses.replace(cfg, decode_attn_impl="flash")
+    engine = RolloutEngine(params, scfg, num_slots=SLOTS_NUM,
+                           max_len=SLOTS_MAX_LEN, seed=seed, device="cuda")
+    if (engine.kv_layout, engine.kv_layout_fallback, engine.max_len) != (
+            "slots", "sliding-window ring cache", cfg.sliding_window):
+        fail(f"mistral engine: layout {engine.kv_layout!r}, fallback "
+             f"{engine.kv_layout_fallback!r}, ring {engine.max_len}")
+    rng = np.random.default_rng(seed + 2)
+    reqs = slots_requests(rng, engine.max_len)
+    rids = [engine.submit(rng.integers(0, cfg.vocab_size, size=n).tolist(),
+                          max_new_tokens=new) for n, new in reqs]
+    torch.cuda.reset_peak_memory_stats()
+    wall, step_ms, launches = _drive(torch, engine, _k3_launches)
+    st = engine.stats()
+    steps = st["decode_steps"]
+    _check_finished(engine, rids, [new for _, new in reqs])
+    ones = _ones_in_chains(engine, [n for n, _ in reqs])
+    expect = cfg.num_layers * (steps + ones)
+    if launches != expect or launches == 0:
+        fail(f"mistral slots: K3 launches {launches} != {cfg.num_layers} "
+             f"layers x ({steps} decode steps + {ones} one-token chunks)")
+    gen = st["tokens_emitted"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[slots] {cfg.name} ring slot cache ({engine.max_len} positions x "
+        f"{SLOTS_NUM} slots, decode_attn_impl=flash), {len(reqs)} requests "
+        f"(prompts {min(n for n, _ in reqs)}..{max(n for n, _ in reqs)}, "
+        f"SampleParams()), {smi}: wall {wall:.2f} s, {steps} decode steps, "
+        f"{gen} tokens generated = {gen / wall:.1f} tok/s, "
+        f"{st['prefill_tokens']} prefill tokens in {st['prefills']} "
+        f"prefills ({st['batched_prefills']} batched forwards), p50 step "
+        f"{statistics.median(step_ms):.2f} ms, p90 step "
+        f"{statistics.quantiles(step_ms, n=10)[-1]:.2f} ms, "
+        f"max_memory_allocated {peak} bytes, K3 launches {launches} = "
+        f"{cfg.num_layers} x ({steps} + {ones})")
+    return launches
+
+
+def phase_slots_int8(torch, cfg, params, seed):
+    """The int8 slot cache (kv_quant) at full qwen2.5-coder-1.5b width:
+    8 greedy requests through K3 over the dequantized cache; the greedy
+    token match against the bf16 paged engine is printed, not checked."""
+    import dataclasses
+
+    import numpy as np
+    from senweaver_ide_tpu_torch.rollout import RolloutEngine, SampleParams
+    greedy = SampleParams(0.0, 0, 1.0)
+    qcfg = dataclasses.replace(cfg, kv_quant=True, decode_attn_impl="flash")
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(128, 513, size=8)]
+    eng = RolloutEngine(params, qcfg, num_slots=8, max_len=1024,
+                        sample=greedy, seed=seed, device="cuda")
+    if (eng.kv_layout, eng.kv_layout_fallback) != ("slots",
+                                                   "kv_quant int8 cache"):
+        fail(f"int8 engine: layout {eng.kv_layout!r}, fallback "
+             f"{eng.kv_layout_fallback!r}")
+    rids = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    wall, _, launches = _drive(torch, eng, _k3_launches)
+    steps = eng.stats()["decode_steps"]
+    _check_finished(eng, rids, [32] * len(rids))
+    if launches != cfg.num_layers * steps or launches == 0:
+        fail(f"int8 slots: K3 launches {launches} != {cfg.num_layers} x "
+             f"{steps} decode steps")
+    streams = [eng.result(r) for r in rids]
+    del eng
+    ref = RolloutEngine(params, cfg, num_slots=8, max_len=1024,
+                        sample=greedy, seed=seed, device="cuda")
+    rrids = [ref.submit(p, max_new_tokens=32) for p in prompts]
+    ref.run()
+    match = np.mean([a == b for r, sa in zip(rrids, streams)
+                     for a, b in zip(ref.result(r), sa)])
+    log(f"[slots] {cfg.name} int8 slot cache (kv_quant, flash), 8 greedy "
+        f"requests x 32 tokens: {steps} decode steps, wall {wall:.2f} s, K3 "
+        f"launches {launches} = {cfg.num_layers} x {steps}; greedy token "
+        f"match vs the bf16 paged engine {match:.3f} (information)")
+    return launches
+
+
+def phase_slots_logits(torch, cfg, params):
+    """Mistral-width logits through the ring: one decode step with K3 vs
+    the same step with decode_attn_impl="einsum", and a 4096 + 64 token
+    sequence (prefill_chunked, then one token at a time past the window)
+    vs the no-cache forward with the window over the whole sequence."""
+    import dataclasses
+
+    from senweaver_ide_tpu_torch.models import forward, init_kv_cache
+    from senweaver_ide_tpu_torch.rollout import prefill_chunked
+    fcfg = dataclasses.replace(cfg, decode_attn_impl="flash")
+    ecfg = dataclasses.replace(cfg, decode_attn_impl="einsum")
+    win = cfg.sliding_window
+    g = torch.Generator().manual_seed(11)
+    seq = torch.randint(0, cfg.vocab_size, (1, win + LOGITS_PAST),
+                        generator=g).cuda()
+    with torch.no_grad():
+        ref = forward(params, cfg, seq)[0, win:]          # (64, V)
+        cache = init_kv_cache(fcfg, 1, SLOTS_MAX_LEN, device="cuda")
+        _, cache = prefill_chunked(params, fcfg, seq[:, :win], cache)
+        snap = cache._replace(k=cache.k.clone(), v=cache.v.clone(),
+                              length=cache.length.clone())
+        lf, cache = forward(params, fcfg, seq[:, win:win + 1], cache=cache)
+        le, _ = forward(params, ecfg, seq[:, win:win + 1], cache=snap)
+        del snap
+        step_diff = float((lf - le).abs().max())
+        steps = [lf[0, -1]]
+        for p in range(win + 1, win + LOGITS_PAST):
+            lf, cache = forward(params, fcfg, seq[:, p:p + 1], cache=cache)
+            steps.append(lf[0, -1])
+        got = torch.stack(steps)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    seq_diff = float((got - ref).abs().max())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    log(f"[slots] {cfg.name} ring decode step at position {win}, K3 vs "
+        f"einsum: max |dlogit| {step_diff:.4g} (tol {LOGITS_ATOL}; max "
+        f"|logit| {scale:.3g})")
+    log(f"[slots] {cfg.name} prefill_chunked({win}) + {LOGITS_PAST} ring "
+        f"decode steps past the window (K3) vs the no-cache forward with "
+        f"window {win}: max |dlogit| {seq_diff:.4g} (tol {LOGITS_ATOL}), "
+        f"argmax agreement {agree:.3f}")
+    if not step_diff <= LOGITS_ATOL:
+        fail(f"ring decode step, K3 vs einsum, logits differ by {step_diff}")
+    if not seq_diff <= LOGITS_ATOL:
+        fail(f"ring decode vs no-cache forward logits differ by {seq_diff}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -861,7 +1193,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the senweaver_ide_tpu_torch package is not "
               f"beside this script ({e})", file=sys.stderr)
         return 2
-    from senweaver_ide_tpu_torch.models import (init_params,
+    from senweaver_ide_tpu_torch.models import (init_params, mistral_7b,
                                                 qwen2_5_coder_1_5b)
     t_start = time.perf_counter()
     smi = phase_device(torch)
@@ -869,6 +1201,7 @@ def main(argv=None) -> int:
     cfg = qwen2_5_coder_1_5b()
     timer = Timer(torch)
     kern = phase_kernel(torch, cfg, timer)
+    fd = phase_flash_decode(torch, timer)
     if args.kernels_only:
         phase_flash(torch, cfg, timer)
         log(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s")
@@ -881,8 +1214,23 @@ def main(argv=None) -> int:
         f"(seed {args.seed})")
     launches = phase_serve(torch, cfg, params, args.seed, smi)
     phase_logits(torch, cfg, params)
+    int8_launches = phase_slots_int8(torch, cfg, params, args.seed)
     flash = phase_flash(torch, cfg, timer)
     train_launches = phase_train(torch, cfg, params, args.seed, smi)
+    # the 1.5B weights (trained in place) make way for mistral-7b
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = mistral_7b()
+    params = init_params(mcfg, torch.Generator(device="cuda").manual_seed(
+        args.seed), device="cuda")
+    log(f"[slots] {mcfg.name}: {mcfg.num_layers} layers, hidden "
+        f"{mcfg.hidden_size}, heads {mcfg.num_heads}/{mcfg.num_kv_heads}, "
+        f"window {mcfg.sliding_window}, vocab {mcfg.vocab_size}, "
+        f"{mcfg.dtype}, random weights (seed {args.seed})")
+    slot_launches = phase_slots_serve(torch, mcfg, params, args.seed, smi)
+    phase_slots_logits(torch, mcfg, params)
+    del params
     kernels = []
     for variant, r in kern.items():
         kernels.append({
@@ -922,6 +1270,20 @@ def main(argv=None) -> int:
                              "attention(is_causal=True) " +
                              ("forward" if kname == "fwd" else
                               "backward (all three gradients)"))})
+    kernels.append({
+        "name": "flash_decode", "route": "cuda",
+        "source": "senweaver_ide_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "senweaver_ide_tpu/ops/flash_decode.py:44",
+        "launches": slot_launches,
+        "launches_int8_slots_qwen": int8_launches,
+        "max_abs_err": fd["max_abs_err"],
+        "max_abs_err_f32": fd["max_abs_err_f32"],
+        "tolerance": f"{FD_TOL['bf16'][0]} + {FD_TOL['bf16'][1]} * |plain|",
+        "ms": fd["kernel_ms"], "kernel_ms": fd["kernel_ms"],
+        "plain_ms": fd["plain_ms"], "bound_ms": fd["bound_ms"],
+        "bound_by": fd["bound_by"], "flops": fd["flops"],
+        "bytes": fd["bytes"], "library_ms": fd["library_ms"],
+        "library_note": fd["library_note"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -6,15 +6,20 @@ layout module by module (``models/transformer.py`` ↔
 ``tests/test_torch_*.py`` suite. It imports torch and numpy and nothing
 of JAX or of the JAX package.
 
-Ported so far, the paged serving path:
+Ported so far: the paged serving path, the GRPO trainer and the slot
+layout.
 
-- ``models``  — presets, the no-cache and paged forwards, the numpy
-                weight bridge.
-- ``ops``     — RMSNorm, RoPE, GQA attention, sampling, and the paged
-                flash-decode kernel for Hopper (``csrc/``, built with
-                ``nvcc`` at first use by ``ops/_build.py``).
-- ``rollout`` — the paged KV pool and allocator, and the continuous-
-                batching ``RolloutEngine``.
+- ``models``   — presets, the no-cache (training), contiguous-cache and
+                 paged forwards, the numpy weight bridge.
+- ``ops``      — RMSNorm, RoPE, GQA attention, sampling, and the Hopper
+                 kernels (``csrc/``, built with ``nvcc`` at first use by
+                 ``ops/_build.py``): paged flash-decode, flash attention
+                 (forward and backward) and flash-decode over the
+                 contiguous cache.
+- ``rollout``  — the paged KV pool and allocator, the continuous-
+                 batching ``RolloutEngine`` on the paged and slot
+                 layouts, and the ``generate`` loops.
+- ``training`` — GRPO, batching, LoRA and the trainer.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.

@@ -1,7 +1,7 @@
 """Device selection for the port's entry points.
 
 Entry points (``init_params``, ``params_from_numpy``, ``RolloutEngine``,
-``init_paged_pool``) run on the CUDA card unless the caller asks for the
+``init_paged_pool``, ``init_kv_cache``) run on the CUDA card unless the caller asks for the
 CPU by name. There is no silent "CUDA if present, else CPU": a serving
 process that lost its card must fail, not crawl on host cores.
 """

@@ -45,8 +45,8 @@ class ModelConfig:
     qkv_bias: bool = False
     # Qwen3-style per-head RMSNorm on q and k (over head_dim, before RoPE).
     qk_norm: bool = False
-    # int8 contiguous slot cache; the paged engine refuses it (the slot
-    # layout is a later slice of the port).
+    # int8 contiguous slot cache (per-vector absmax scales); a paged
+    # engine falls back to the slot layout for it.
     kv_quant: bool = False
     dtype: torch.dtype = torch.bfloat16
     # Sliding-window attention width (None = full causal).
@@ -55,9 +55,10 @@ class ModelConfig:
     # (ops/attention.py); "flash" (kernel K2) and "ring"/"ulysses"
     # (parallel layouts) arrive with later slices and raise until then.
     attn_impl: str = "einsum"
-    # Slot-layout decode attention selector, kept for parity with the
-    # JAX config; the paged engine chooses its kernel through
-    # EngineConfig.paged_kernel instead.
+    # Contiguous-cache (slot layout) decode attention: "flash" runs the
+    # flash-decode kernel (ops/flash_decode.py) on single-token steps that
+    # qualify, anything else the plain attention. The paged engine chooses
+    # its kernel through EngineConfig.paged_kernel instead.
     decode_attn_impl: str = "einsum"
     scan_unroll: int = 1
     remat: object = False

@@ -1,5 +1,6 @@
-"""Decoder-only transformer in PyTorch: the no-cache forward and the
-paged forward the serving engine runs.
+"""Decoder-only transformer in PyTorch: the no-cache forward, the
+contiguous KV-cache forward of the slot layout, and the paged forward the
+serving engine runs by default.
 
 Parameters keep the JAX package's layout so the two can be held against
 each other on the same weights: a plain dict of layer-STACKED tensors
@@ -12,15 +13,22 @@ runs the flash-attention kernels (``ops/flash_attention.py``, forward and
 backward), ``remat`` recomputes each layer in the backward, and merged
 LoRA adapters (``training/lora.py``) ride in the layer dict.
 
-Out of this slice, and raising ``NotImplementedError`` where reached:
-mixture-of-experts FFNs, int8 weights (later slices), the contiguous
-KV-cache path (the slot-layout slice) and the ring/ulysses attention
-(the parallel-layout slice).
+The cache forward (``forward(cache=KVCache)``) writes each token's k/v
+into a pre-allocated ``(L, B, Smax, Hkv, D)`` cache (bf16/f32, or int8
+with per-vector scales when ``config.kv_quant``), at a scalar length or
+per-slot lengths, as absolute positions or, for sliding-window models,
+into a ring of ``ring_capacity`` slots. Its single-token steps attend
+through the flash-decode kernel (``ops/flash_decode.py``) when
+``config.decode_attn_impl == "flash"`` and the step qualifies.
+
+Out of the port so far, and raising ``NotImplementedError`` where
+reached: mixture-of-experts FFNs, int8 weights (later slices) and the
+ring/ulysses attention (the parallel-layout slice).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -28,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..ops.attention import attention
 from ..ops.flash_attention import flash_attention
+from ..ops.flash_decode import flash_decode
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import (paged_flash_decode,
                                    paged_flash_decode_plain)
@@ -71,6 +80,76 @@ def dequantize_pool_kv(q: torch.Tensor, scale: torch.Tensor,
     """Inverse of :func:`quantize_pool_kv`: ``(..., D)`` payload +
     ``(...)`` scales → ``dtype`` values."""
     return (q.float() * scale[..., None]).to(dtype)
+
+
+class KVCache(NamedTuple):
+    """The contiguous ("slot layout") KV cache.
+
+    ``k``/``v`` are ``(L, B, Smax, Hkv, D)`` in the model dtype, or int8
+    with ``k_scale``/``v_scale`` ``(L, B, Smax, Hkv)`` f32 absmax/127
+    scales when quantized. ``length`` is a () int32 tensor (tokens in
+    every row) or (B,) int32 per-slot lengths (continuous batching); on a
+    ring cache it keeps counting past the capacity."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def ring_capacity(config: ModelConfig, max_len: int) -> int:
+    """KV capacity allocated for ``max_len`` requested positions.
+
+    Sliding-window configs keep only the trailing window (a ring written
+    at ``pos % capacity``): a mistral-7b decode holds 4096 slots at any
+    context. The window rounds up to a multiple of 8, as in the JAX
+    package, so a window that is itself a multiple of 128 keeps the
+    capacity equal to it and the flash-decode path eligible."""
+    if config.sliding_window is None:
+        return max_len
+    return min(max_len, -(-config.sliding_window // 8) * 8)
+
+
+def _is_ring(c: ModelConfig, cap: int) -> bool:
+    """Ring (modular-write) semantics apply only when the cache holds the
+    whole window: a smaller cache would overwrite keys still inside the
+    window on every wrap. A short sliding-window cache (cap below the
+    aligned window) is a plain bounded cache with the positional window
+    mask, never wrapping."""
+    return (c.sliding_window is not None
+            and cap >= -(-c.sliding_window // 8) * 8)
+
+
+def init_kv_cache(config: ModelConfig, batch: int, max_len: int, *,
+                  device="cuda") -> KVCache:
+    """Zeroed cache for ``batch`` rows of ``ring_capacity(config,
+    max_len)`` positions, with a () length of 0: int8 with scales when
+    ``config.kv_quant``, else in the model dtype."""
+    dev = resolve_device(device)
+    max_len = ring_capacity(config, max_len)
+    shape = (config.num_layers, batch, max_len, config.num_kv_heads,
+             config.head_dim)
+    length = torch.zeros((), dtype=torch.int32, device=dev)
+    if config.kv_quant:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=dev),
+            v=torch.zeros(shape, dtype=torch.int8, device=dev),
+            length=length,
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+    return KVCache(k=torch.zeros(shape, dtype=config.dtype, device=dev),
+                   v=torch.zeros(shape, dtype=config.dtype, device=dev),
+                   length=length)
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, H, D) → int8 values + (B, S, H) f32 absmax/127 scales."""
+    return quantize_pool_kv(x, torch.int8)
 
 
 def init_params(config: ModelConfig, generator: torch.Generator, *,
@@ -233,35 +312,257 @@ def _layer(c: ModelConfig, lp: Dict[str, torch.Tensor], x: torch.Tensor,
     return _mlp(c, lp, x)
 
 
+def _write_cache(dst: torch.Tensor, new: torch.Tensor, length: torch.Tensor,
+                 ring: bool) -> None:
+    """Write ``new`` (B, s, ...) into one layer's ``dst`` (B, cap, ...) IN
+    PLACE at ``length``, as the JAX scatters do, with no host sync.
+
+    A scalar length on an absolute cache is ``dynamic_update_slice``,
+    whose start clamps to ``cap - s`` so the update fits; a ring writes
+    at ``(length + j) % cap``. Per-slot lengths scatter each row at its
+    own length; on an absolute cache the positions at or past ``cap``
+    are dropped (JAX ``mode="drop"``): such a write is redirected to
+    position ``cap - 1`` of its own row carrying the value that position
+    ends with (the row's own write there, if it has one, else the old
+    value), so every write landing there agrees and no live position
+    changes."""
+    new = new.to(dst.dtype)
+    b, cap = dst.shape[:2]
+    s = new.shape[1]
+    steps = torch.arange(s, device=dst.device)
+    if length.ndim == 0:
+        if ring:
+            idx = (length.long() + steps) % cap
+        else:
+            if s > cap:
+                raise ValueError(f"a chunk of {s} tokens does not fit a "
+                                 f"cache of {cap} positions")
+            idx = torch.clamp(length.long(), 0, cap - s) + steps
+        dst.index_copy_(1, idx, new)
+        return
+    length = length.long()
+    pos = length[:, None] + steps[None, :]                  # (B, s)
+    rows = torch.arange(b, device=dst.device)[:, None].expand(b, s)
+    if ring:
+        dst[rows, pos % cap] = new
+        return
+    keep = pos < cap
+    last = cap - 1 - length                                 # chunk index
+    hits = (last >= 0) & (last < s)                         # writing cap-1
+    own = new[torch.arange(b, device=dst.device), last.clamp(0, s - 1)]
+    tail_shape = (b,) + (1,) * (new.ndim - 2)
+    end = torch.where(hits.view(tail_shape), own, dst[:, cap - 1])
+    vals = torch.where(keep.view(keep.shape + (1,) * (new.ndim - 2)), new,
+                       end[:, None])
+    dst[rows, pos.clamp(max=cap - 1)] = vals
+
+
+def _cache_attention(c: ModelConfig, q: torch.Tensor, k_full: torch.Tensor,
+                     v_full: torch.Tensor, length: torch.Tensor,
+                     kv_mask: torch.Tensor,
+                     flash_decode_ok: bool) -> torch.Tensor:
+    """Cache-path attention: the flash-decode kernel when the step allows
+    it, else the plain attention over the whole cache.
+
+    Ring caches receive the full per-query validity mask (fill, causality
+    and window in ring coordinates), so the positional mask is off there.
+    Flash-decode is valid on a ring whose capacity equals the window: the
+    live entries are exactly indices < min(length + 1, cap), and online
+    softmax does not depend on their order."""
+    if flash_decode_ok:
+        smax = k_full.shape[1]
+        blk = 128 if smax % 128 == 0 else smax
+        # post-write valid count: the current token's k/v is in the cache
+        valid_count = torch.clamp(length + 1, max=smax)
+        return flash_decode(q, k_full, v_full, valid_count, block_kv=blk)
+    if _is_ring(c, k_full.shape[1]):
+        return attention(q, k_full, v_full, kv_mask=kv_mask, causal=False)
+    return attention(q, k_full, v_full, q_offset=length, kv_mask=kv_mask,
+                     causal=True, window=c.sliding_window)
+
+
+def _cache_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
+                 x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                 kv: Tuple[torch.Tensor, ...], length: torch.Tensor,
+                 kv_mask: torch.Tensor, flash_decode_ok: bool
+                 ) -> torch.Tensor:
+    """One transformer block over one layer of the contiguous cache.
+
+    ``kv`` is ``(k_cache, v_cache)`` or, for the int8 cache, ``(k_cache,
+    v_cache, k_scale, v_scale)``; the block's new k/v (quantized, for the
+    int8 cache) are written IN PLACE at ``length``, then the block attends
+    over the cache (dequantized to the compute dtype for the int8 cache).
+    A ring chunk of s > 1 tokens attends BEFORE writing, over [pre-write
+    cache ‖ chunk] (the chunk's own k/v unquantized), since a wrapping
+    chunk's writes would destroy keys still inside earlier queries'
+    windows; with a chunk-width mask (fresh cache) it attends over the
+    chunk alone."""
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["attn_norm"], c.rms_norm_eps)
+    q, k, v = _qkv(c, lp, h, cos, sin)
+    k_cache, v_cache = kv[0], kv[1]
+    quant = len(kv) == 4
+    cap = k_cache.shape[1]
+    ring = _is_ring(c, cap)
+
+    def full(i):
+        if quant:
+            return dequantize_pool_kv(kv[i], kv[i + 2], x.dtype)
+        return kv[i]
+
+    out = None
+    if ring and s > 1:
+        if kv_mask.shape[-1] == s:
+            out = attention(q, k, v, kv_mask=kv_mask, causal=False)
+        else:
+            k_all = torch.cat([full(0).to(x.dtype), k], dim=1)
+            v_all = torch.cat([full(1).to(x.dtype), v], dim=1)
+            out = attention(q, k_all, v_all, kv_mask=kv_mask, causal=False)
+    if quant:
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        writes = zip(kv, (kq, vq, ks, vs))
+    else:
+        writes = zip(kv, (k, v))
+    for dst, new in writes:
+        _write_cache(dst, new, length, ring)
+    if out is None:
+        out = _cache_attention(c, q, full(0), full(1), length, kv_mask,
+                               flash_decode_ok)
+    x = x + _dense(out.reshape(b, s, c.q_dim), lp, "wo")
+    return _mlp(c, lp, x)
+
+
+def _cache_mask(c: ModelConfig, cache: KVCache, b: int, s: int,
+                attn_mask: Optional[torch.Tensor], fresh_cache: bool):
+    """The cache forward's kv validity mask and whether its attention may
+    take the flash-decode kernel.
+
+    Absolute caches: (B, Smax), positions below ``length + s`` (and
+    ``attn_mask``). Ring caches (capacity ``cap``, written at
+    ``pos % cap``): for a single-token step, written first, index i holds
+    the latest position p ≡ i (mod cap) and the query attends iff
+    0 ≤ p ≤ qp and p > qp − window, a (B, 1, cap) mask; for a chunk,
+    attended before writing, a (B, s, cap + s) mask (old slots valid by
+    their pre-chunk positions, causal + window inside the chunk), or
+    (B, s, s) when ``fresh_cache`` promises nothing old to read."""
+    max_len = cache.k.shape[2]
+    length = cache.length
+    dev = cache.k.device
+    if _is_ring(c, max_len):
+        cap = max_len
+        if s > cap:
+            raise ValueError(
+                f"chunk of {s} tokens exceeds the ring capacity {cap} "
+                f"(window {c.sliding_window}); prefill in chunks of at most "
+                f"the window size")
+        base = length[:, None, None] if length.ndim == 1 else length
+        base = base.long()
+        i = torch.arange(cap, device=dev)[None, None, :]
+        qp = base + torch.arange(s, device=dev)[None, :, None]
+        if s == 1:
+            if attn_mask is not None:
+                raise NotImplementedError(
+                    "attn_mask on a ring-cache decode step: ring indices are "
+                    "modular positions; combine masks upstream instead")
+            total = base + 1                              # after the write
+            p = (total - 1) - ((total - 1 - i) % cap)     # position per slot
+            valid = (p >= 0) & (p <= qp) & (p > qp - c.sliding_window)
+            valid = torch.broadcast_to(valid, (b, 1, cap))
+        else:
+            t = torch.arange(s, device=dev)[None, None, :]    # chunk kv idx
+            j = torch.arange(s, device=dev)[None, :, None]    # chunk q idx
+            valid_new = (t <= j) & (j - t < c.sliding_window)
+            if attn_mask is not None:
+                # only meaningful on a fresh row, where positions coincide
+                # with chunk indices (the engine's padded prefill)
+                valid_new = valid_new & attn_mask[:, None, :s]
+            if fresh_cache:
+                valid = torch.broadcast_to(valid_new, (b, s, s))
+            else:
+                p_old = (base - 1) - ((base - 1 - i) % cap)   # pre-chunk
+                valid_old = (p_old >= 0) & (p_old > qp - c.sliding_window)
+                valid = torch.cat(
+                    [torch.broadcast_to(valid_old, (b, s, cap)),
+                     torch.broadcast_to(valid_new, (b, s, s))], dim=-1)
+    else:
+        kv_pos = torch.arange(max_len, device=dev)[None, :]
+        bound = (length[:, None] if length.ndim == 1 else length) + s
+        valid = torch.broadcast_to(kv_pos < bound, (b, max_len))
+        if attn_mask is not None:
+            valid = valid & attn_mask
+    # Flash-decode needs the mask to be exactly "pos < valid_count" (one
+    # new token, no extra mask) and a cache that splits into KV blocks,
+    # the JAX package's rules: 128-aligned, or small and 8-aligned. A ring
+    # qualifies when its capacity equals the window; a short absolute
+    # sliding-window cache when every position it holds is in the window.
+    tileable = (max_len % 128 == 0
+                or (max_len % 8 == 0 and max_len <= 512))
+    if c.sliding_window is None:
+        swa_flash = True
+    elif _is_ring(c, max_len):
+        swa_flash = max_len == c.sliding_window
+    else:
+        swa_flash = max_len <= c.sliding_window
+    flash_ok = (c.decode_attn_impl == "flash" and s == 1
+                and attn_mask is None and tileable and swa_flash)
+    return valid, flash_ok
+
+
 def forward(params: Params, config: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             attn_mask: Optional[torch.Tensor] = None,
-            with_aux: bool = False, cache=None):
-    """Full causal self-attention over ``tokens`` (B, S) → fp32 logits
-    (B, S, V): the no-cache path of the JAX ``forward`` (which returns
-    ``(logits, None)`` there). ``positions`` (B, S) are the absolute
-    RoPE positions (default ``0..S-1``); ``attn_mask`` (B, S) marks valid
-    keys. ``with_aux=True`` returns ``(logits, None, aux)`` as JAX does,
-    ``aux`` being the MoE load-balance loss, a zero scalar for dense
-    models.
+            with_aux: bool = False, cache: Optional[KVCache] = None,
+            fresh_cache: bool = False):
+    """Run the model over ``tokens`` (B, S).
 
-    A truthy ``config.remat`` recomputes each layer in the backward
+    Without a cache: full causal self-attention → fp32 logits (B, S, V)
+    (the JAX ``forward`` returns ``(logits, None)`` there; the port
+    returns the logits alone). ``positions`` (B, S) are the absolute RoPE
+    positions (default ``0..S-1``); ``attn_mask`` (B, S) marks valid keys.
+    ``with_aux=True`` returns ``(logits, None, aux)`` as JAX does, ``aux``
+    being the MoE load-balance loss, a zero scalar for dense models. A
+    truthy ``config.remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant) instead of holding its
-    activations; ``"dots"`` behaves as ``True`` (the port keeps no
-    per-op save policy). The recompute runs the layer's attention
-    forward a second time."""
+    activations; ``"dots"`` behaves as ``True`` (the port keeps no per-op
+    save policy). The recompute runs the layer's attention forward a
+    second time.
+
+    With ``cache`` (a :class:`KVCache`): the tokens are appended at
+    ``cache.length`` (positions default to ``length + 0..S-1``) and attend
+    to everything up to them; prefill and decode take the same path.
+    Returns ``(logits, new_cache)``, or ``(logits, new_cache, aux)`` with
+    ``with_aux``, as JAX does. The cache's k/v (and scale) tensors are
+    updated IN PLACE (the JAX version donates them and returns new ones):
+    ``new_cache`` holds the same tensors with ``length + S``. ``attn_mask``
+    is then (B, Smax) over the cache, and ``fresh_cache`` promises the
+    cache holds nothing yet, so a ring-cache chunk attends over itself
+    alone."""
     c = config
-    if cache is not None:
-        raise NotImplementedError(
-            "the contiguous KV-cache forward belongs to the slot-layout "
-            "slice of the PyTorch port; serve through forward_paged")
     b, s = tokens.shape
     x = params["embed"][tokens]
     if positions is None:
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=tokens.device)[None, :].expand(b, s)
+        base = torch.zeros((), dtype=torch.int32, device=tokens.device)
+        if cache is not None:
+            base = cache.length.to(tokens.device)
+            if base.ndim == 1:
+                base = base[:, None]                   # per-slot lengths
+        positions = base + torch.arange(s, dtype=torch.int32,
+                                        device=tokens.device)[None, :]
+        positions = positions.expand(b, s)
     cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta,
                             scaling=c.rope_scaling)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cache is not None:
+        valid, flash_ok = _cache_mask(c, cache, b, s, attn_mask, fresh_cache)
+        for i in range(c.num_layers):
+            kv = (cache.k[i], cache.v[i])
+            if cache.quantized:
+                kv += (cache.k_scale[i], cache.v_scale[i])
+            x = _cache_layer(c, _layer_params(params, i), x, cos, sin, kv,
+                             cache.length, valid, flash_ok)
+        new_cache = cache._replace(length=cache.length + s)
+        logits = _logits(params, c, x)
+        return (logits, new_cache, zero) if with_aux else (logits, new_cache)
     remat = bool(c.remat) and torch.is_grad_enabled()
     # One unbind per stacked tensor: its backward stacks the L per-layer
     # gradients once, where a view per layer (v[i]) would have autograd
@@ -276,8 +577,7 @@ def forward(params: Params, config: ModelConfig, tokens: torch.Tensor, *,
             x = _layer(c, lp, x, cos, sin, attn_mask)
     logits = _logits(params, c, x)
     if with_aux:
-        return logits, None, torch.zeros((), dtype=torch.float32,
-                                         device=logits.device)
+        return logits, None, zero
     return logits
 
 

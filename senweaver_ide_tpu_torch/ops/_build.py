@@ -28,6 +28,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = {
     "paged_attention": "csrc/paged_attention.cu",
     "flash_attention": "csrc/flash_attention.cu",
+    "flash_decode": "csrc/flash_decode.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -96,6 +97,16 @@ def _bind(name: str, cdll: ctypes.CDLL) -> None:
             f = getattr(cdll, fn)
             f.argtypes = [p] * n_ptrs + [ll, ll, i, p]
             f.restype = i
+    elif name == "flash_decode":
+        fn = cdll.swi_flash_decode
+        fn.argtypes = [p, p, p, p, p,                # q k v lengths out
+                       i, i, i, i, i,                # b hq hkv d smax
+                       ctypes.c_longlong, ctypes.c_longlong,  # strides
+                       i, p]                         # dtype code, stream
+        fn.restype = i
+        sm = cdll.swi_flash_decode_smem
+        sm.argtypes = [i, i, i]
+        sm.restype = ctypes.c_longlong
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> List[BuiltLibrary]:

@@ -1,24 +1,35 @@
-"""Continuous-batching rollout engine on a paged KV pool (PyTorch port).
+"""Continuous-batching rollout engine (PyTorch port).
 
-The engine keeps ONE resident batch on the device: ``num_slots`` rows,
-each with a host-side block table into a shared KV block pool
-(rollout/paged_kv.py). Every :meth:`RolloutEngine.step` runs one fused
-forward over a flat token batch: one decode entry per active row, then
-exact-size chunked-prefill segments under the ``step_tokens`` budget.
-Tokens are sampled in the same step for every entry, and the host keeps
-the rows it marked as samplers (decode rows and the final token of a
-completing prefill), with each token's behaviour log-prob. One
-device→host transfer per step brings tokens and log-probs back together.
+The engine keeps ONE resident batch on the device: ``num_slots`` rows
+over one of two KV layouts.
 
-When the pool runs dry the engine preempts by recomputation: the
-youngest other row under the preemption cap loses its blocks and is
-requeued at the front; it later re-prefills prompt + emitted tokens and
-resumes, losing work but never tokens.
+**Paged** (the default, rollout/paged_kv.py): each row has a host-side
+block table into a shared KV block pool. Every :meth:`RolloutEngine.step`
+runs one fused forward over a flat token batch: one decode entry per
+active row, then exact-size chunked-prefill segments under the
+``step_tokens`` budget. Tokens are sampled in the same step for every
+entry, and the host keeps the rows it marked as samplers (decode rows and
+the final token of a completing prefill), with each token's behaviour
+log-prob. One device→host transfer per step brings tokens and log-probs
+back together. When the pool runs dry the engine preempts by
+recomputation: the youngest other row under the preemption cap loses its
+blocks and is requeued at the front; it later re-prefills prompt +
+emitted tokens and resumes, losing work but never tokens.
 
-This slice ports the paged path only. The slot layout (``kv_layout=
-"slots"``, ``kv_quant``, sliding-window ring caches, TP meshes), shared
-prefixes, held-slot continuations, speculation, adapters, groups and
-migration belong to later slices and raise where requested.
+**Slots** (``kv_layout="slots"``, and the fallback for what the pool has
+no equivalent for: the int8 ``kv_quant`` cache and sliding-window ring
+caches): one contiguous ``(L, num_slots, max_len, Hkv, D)`` cache with
+per-slot lengths (``models/transformer.py::KVCache``). Queued requests are
+prefilled into free slots when a step begins, same-bucket requests at the
+queue front in one batched forward, a ring pool's long prompts as an
+exact-size chunk chain; each prefill samples its request's first token.
+Then one decode step runs every slot at once (inactive slots keep their
+token and length), with the flash-decode kernel on the card when
+``config.decode_attn_impl == "flash"``.
+
+Shared prefixes, held-slot continuations, speculation, adapters, groups,
+migration and tensor-parallel meshes belong to later slices and raise
+where requested.
 """
 
 from __future__ import annotations
@@ -32,10 +43,13 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import Params, forward_paged
+from ..models.transformer import (KVCache, Params, _is_ring, forward,
+                                  forward_paged, init_kv_cache,
+                                  ring_capacity)
 from ..ops.sampling import sample_token, sampled_logprob
 from .paged_kv import (BlockAllocator, BlocksExhausted, copy_blocks,
-                       init_paged_pool, pool_bytes_per_block)
+                       init_paged_pool, pool_bytes_per_block,
+                       resolve_kv_dtypes)
 from .sampler import SampleParams
 
 
@@ -47,8 +61,12 @@ class QueueFull(RuntimeError):
 class EngineConfig:
     """Engine KV knobs, separate from the model's ModelConfig.
 
-    Only ``kv_layout="paged"`` is served by this port so far; "slots"
-    raises until the slot-layout slice lands."""
+    ``kv_layout="paged"`` (the default) serves from the block pool;
+    ``"slots"`` from the contiguous slot cache. A paged request falls back
+    to slots, with the reason in ``RolloutEngine.kv_layout_fallback``, for
+    the int8 ``config.kv_quant`` cache and for sliding-window ring caches.
+    The quantized ``kv_dtype`` ladder and ``paged_kernel`` are paged-only
+    knobs (a quantized ladder on slots raises)."""
 
     kv_layout: str = "paged"
     # tokens per KV block; the partial last block of each sequence is the
@@ -114,8 +132,134 @@ class _Request:
     preempt_count: int = 0
 
 
+def _bucket(n: int, minimum: int = 16) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _slice_slot(cache: KVCache, slot: int, length: torch.Tensor) -> KVCache:
+    """One slot of the pool as a B=1 sub-cache VIEW at ``length``: the
+    forward's in-place writes land in the pool itself."""
+    sl = slice(slot, slot + 1)
+    if cache.quantized:
+        return KVCache(k=cache.k[:, sl], v=cache.v[:, sl], length=length,
+                       k_scale=cache.k_scale[:, sl],
+                       v_scale=cache.v_scale[:, sl])
+    return KVCache(k=cache.k[:, sl], v=cache.v[:, sl], length=length)
+
+
+def _writeback_slot(cache: KVCache, slot: int, new_len) -> KVCache:
+    """Set a slot's length after its view (:func:`_slice_slot`) was
+    written through."""
+    length = cache.length.clone()
+    length[slot] = new_len
+    return cache._replace(length=length)
+
+
+@torch.no_grad()
+def _prefill_slot(params: Params, config: ModelConfig, tokens: torch.Tensor,
+                  true_len: int, cache: KVCache,
+                  slot: int) -> tuple:
+    """Prefill one slot. tokens: (1, S_bucket) right-padded; returns
+    (last-real-token logits (V,), pool cache). Padding is masked out of
+    the prompt's attention; decode overwrites it before it is read."""
+    max_len = cache.k.shape[2]
+    dev = cache.k.device
+    sub = _slice_slot(cache, slot, torch.zeros((), dtype=torch.int32,
+                                               device=dev))
+    attn_mask = torch.arange(max_len, device=dev)[None, :] < true_len
+    logits, _ = forward(params, config, tokens, cache=sub,
+                        attn_mask=attn_mask, fresh_cache=True)
+    return logits[0, true_len - 1, :], _writeback_slot(cache, slot,
+                                                       true_len)
+
+
+@torch.no_grad()
+def _prefill_slots_batched(params: Params, config: ModelConfig,
+                           tokens: torch.Tensor, true_lens: torch.Tensor,
+                           cache: KVCache, slots: torch.Tensor) -> tuple:
+    """Prefill N fresh slots in ONE forward. tokens: (N, S_bucket)
+    right-padded; true_lens/slots: (N,) on the cache's device. The rows
+    run in a zeroed N-row sub-cache (fresh slots need nothing gathered),
+    which is then scattered into the pool's slots. Returns ((N, V)
+    last-real-token logits, pool cache)."""
+    cap = cache.k.shape[2]
+    n = tokens.shape[0]
+    dev = cache.k.device
+    sub = init_kv_cache(config, n, cap, device=dev)
+    attn_mask = torch.arange(cap, device=dev)[None, :] < true_lens[:, None]
+    logits, sub = forward(params, config, tokens, cache=sub,
+                          attn_mask=attn_mask, fresh_cache=True)
+    last = logits[torch.arange(n, device=dev), true_lens.long() - 1]
+    cache.k[:, slots] = sub.k
+    cache.v[:, slots] = sub.v
+    if cache.quantized:
+        cache.k_scale[:, slots] = sub.k_scale
+        cache.v_scale[:, slots] = sub.v_scale
+    length = cache.length.clone()
+    length[slots] = true_lens.to(length.dtype)
+    return last, cache._replace(length=length)
+
+
+@torch.no_grad()
+def _prefill_slot_chunk(params: Params, config: ModelConfig,
+                        tokens: torch.Tensor, cache: KVCache, slot: int, *,
+                        fresh: bool) -> tuple:
+    """One EXACT-SIZE prefill chunk into a slot at its current length:
+    the ring pool's long-prompt path. A pad token written into a ring
+    would get a real position from the modular mask, so long prompts are
+    cut into exact chunks (capacity-sized, then a powers-of-two ladder,
+    :func:`_chunk_sizes`). ``fresh`` marks the first chunk of a reset
+    slot."""
+    start = cache.length[slot].clone()
+    logits, _ = forward(params, config, tokens,
+                        cache=_slice_slot(cache, slot, start),
+                        fresh_cache=fresh)
+    return (logits[0, -1, :],
+            _writeback_slot(cache, slot, start + tokens.shape[1]))
+
+
+def _chunk_sizes(n: int, cap: int) -> list:
+    """n = (n // cap) full chunks + a descending powers-of-two ladder."""
+    sizes = [cap] * (n // cap)
+    r = n % cap
+    p = 1
+    while p * 2 <= max(r, 1):
+        p *= 2
+    while r > 0:
+        while p > r:
+            p //= 2
+        sizes.append(p)
+        r -= p
+    return sizes
+
+
+@torch.no_grad()
+def _pool_decode_step(params: Params, config: ModelConfig,
+                      cur_tok: torch.Tensor, active: torch.Tensor,
+                      cache: KVCache, generator: torch.Generator,
+                      sample: SampleParams) -> tuple:
+    """One decode step over the whole pool. cur_tok/active:
+    (num_slots,). Inactive slots compute values that are discarded; they
+    keep their token and their length. Also returns each sampled token's
+    model log-prob (the behaviour log-prob GRPO trains against)."""
+    logits, new_cache = forward(params, config, cur_tok[:, None],
+                                cache=cache)
+    logits = logits[:, -1, :]
+    next_tok = sample_token(logits, generator,
+                            temperature=sample.temperature,
+                            top_k=sample.top_k, top_p=sample.top_p)
+    next_tok = torch.where(active, next_tok, cur_tok)
+    logp = sampled_logprob(logits, next_tok)
+    length = torch.where(active, new_cache.length, cache.length)
+    return next_tok, logp, new_cache._replace(length=length)
+
+
 class RolloutEngine:
-    """Continuous batching over a paged KV pool on one device."""
+    """Continuous batching on one device, over a paged KV pool or the
+    contiguous slot cache."""
 
     def __init__(self, params: Params, config: ModelConfig, *,
                  num_slots: int = 8, max_len: int = 2048,
@@ -128,20 +272,10 @@ class RolloutEngine:
         self.engine_config = ec = engine_config or EngineConfig()
         if ec.kv_layout not in ("paged", "slots"):
             raise ValueError(f"unknown kv_layout {ec.kv_layout!r}")
-        refused = None
-        if ec.kv_layout == "slots":
-            refused = "kv_layout='slots'"
-        elif config.kv_quant:
-            refused = "config.kv_quant (int8 slot cache)"
-        elif config.sliding_window is not None:
-            refused = "a sliding-window ring cache"
-        elif mesh is not None:
-            refused = "a tensor-parallel mesh"
-        if refused:
-            raise ValueError(
-                f"{refused} needs the slot KV layout, which arrives with "
-                f"the slot-layout slice of the PyTorch port; this engine "
-                f"serves the paged layout only")
+        if mesh is not None:
+            raise NotImplementedError(
+                "tensor-parallel meshes arrive with the parallel-layout "
+                "slice of the PyTorch port")
         if adapter_pool is not None:
             raise NotImplementedError(
                 "multi-tenant LoRA adapters arrive with a later slice of "
@@ -152,20 +286,80 @@ class RolloutEngine:
                              f"{self.device}")
         self.config = config
         self.num_slots = num_slots
-        self.max_len = max_len
-        # Longest context this engine can serve: the pool row size.
-        self.context_bound = max_len
+        # Sliding-window configs serve from a ring: the pool holds
+        # ring_capacity positions per sequence (the SWA memory win), and
+        # decode past the window goes on indefinitely (modular writes).
+        self.max_len = max_len = ring_capacity(config, max_len)
+        self._ring = _is_ring(config, max_len)
+        # Longest context this engine can serve: the model's position
+        # budget on a ring (long prompts prefill in chunks), the pool row
+        # size otherwise.
+        self.context_bound = config.max_seq_len if self._ring else max_len
         self.sample = sample
         self.eos_id = eos_id
         self.params = params
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        # KV layout: the paged pool unless asked for slots, or the pool
+        # has no equivalent yet (the int8 cache, ring caches).
+        fallback = None
+        if ec.kv_layout == "paged":
+            if config.kv_quant:
+                fallback = "kv_quant int8 cache"
+            elif self._ring:
+                fallback = "sliding-window ring cache"
+        self.kv_layout = ("slots" if ec.kv_layout == "slots" or fallback
+                          else "paged")
+        self.kv_layout_fallback = fallback
+        # A quantized ladder silently ignored on slots would serve at
+        # twice the memory the operator budgeted for.
+        payload, _ = resolve_kv_dtypes(config.num_layers, ec.kv_dtype,
+                                       ec.kv_dtype_per_layer)
+        if payload is not None and self.kv_layout != "paged":
+            raise ValueError(
+                "EngineConfig.kv_dtype quantized ladder needs the paged "
+                "KV layout"
+                + (f" (fell back to slots: {fallback})" if fallback
+                   else " (kv_layout='slots' has its own kv_quant knob)"))
+        if self.kv_layout == "slots":
+            cache = init_kv_cache(config, num_slots, max_len,
+                                  device=self.device)
+            self.cache = cache._replace(length=torch.zeros(
+                num_slots, dtype=torch.int32, device=self.device))
+            self.cur_tok = torch.zeros(num_slots, dtype=torch.long,
+                                       device=self.device)
+        else:
+            self._init_paged(ec)
+        self._slot_req: List[Optional[_Request]] = [None] * num_slots  # guarded-by: _lock
+        self._stats = {"prefills": 0, "prefill_tokens": 0,  # guarded-by: _lock
+                       "batched_prefills": 0, "batched_prefill_slots": 0,
+                       "decode_steps": 0, "tokens_emitted": 0,
+                       "kv_preemptions": 0, "kv_preemption_storms": 0}
+        # Bounded admission (None = unbounded): submit() raises QueueFull
+        # past this many QUEUED requests.
+        self.max_queue = max_queue
+        self._queue: Deque[_Request] = deque()  # guarded-by: _lock
+        self._requests: Dict[int, _Request] = {}  # guarded-by: _lock
+        self._next_rid = 0                      # guarded-by: _lock
+        # Slot layout: tokens sampled during prefill, surfaced by the next
+        # step().
+        self._pending_emits: Dict[int, List[int]] = {}  # guarded-by: _lock
+        # Preemption-storm latch: rids already counted as storm-capped.
+        self._storm_rids: set = set()           # guarded-by: _lock
+        # Many agent loops may drive one engine: all state mutation is
+        # serialized.
+        self._lock = threading.RLock()
+
+    def _init_paged(self, ec: EngineConfig) -> None:
+        """The block pool, its allocator and the host-side row state."""
+        num_slots, max_len = self.num_slots, self.max_len
         bs = max(1, int(ec.block_size))
         self._blocks_per_row = -(-max_len // bs)
         nb = ec.num_blocks
         if nb is None:
             nb = (num_slots + 4) * self._blocks_per_row
-        self.pool = init_paged_pool(config, nb, bs, kv_dtype=ec.kv_dtype,
+        self.pool = init_paged_pool(self.config, nb, bs,
+                                    kv_dtype=ec.kv_dtype,
                                     kv_dtype_per_layer=ec.kv_dtype_per_layer,
                                     device=self.device)
         self._alloc = BlockAllocator(
@@ -186,22 +380,6 @@ class RolloutEngine:
             raise ValueError("EngineConfig.paged_kernel=True needs the CUDA "
                              "device; the CPU runs the plain path")
         self._use_paged_kernel = bool(pk)
-        self._slot_req: List[Optional[_Request]] = [None] * num_slots  # guarded-by: _lock
-        self._stats = {"prefills": 0, "prefill_tokens": 0,  # guarded-by: _lock
-                       "batched_prefills": 0, "batched_prefill_slots": 0,
-                       "decode_steps": 0, "tokens_emitted": 0,
-                       "kv_preemptions": 0, "kv_preemption_storms": 0}
-        # Bounded admission (None = unbounded): submit() raises QueueFull
-        # past this many QUEUED requests.
-        self.max_queue = max_queue
-        self._queue: Deque[_Request] = deque()  # guarded-by: _lock
-        self._requests: Dict[int, _Request] = {}  # guarded-by: _lock
-        self._next_rid = 0                      # guarded-by: _lock
-        # Preemption-storm latch: rids already counted as storm-capped.
-        self._storm_rids: set = set()           # guarded-by: _lock
-        # Many agent loops may drive one engine: all state mutation is
-        # serialized.
-        self._lock = threading.RLock()
 
     def update_params(self, params: Params) -> None:
         """On-policy weight sync between rounds. The KV pool and
@@ -265,7 +443,9 @@ class RolloutEngine:
         """Advance the pool by one fused step. Returns {rid: [tokens]} for
         every token emitted by it."""
         with self._lock:
-            return self._step_paged()
+            if self.kv_layout == "paged":
+                return self._step_paged()
+            return self._step_slots()
 
     def run(self) -> Dict[int, List[int]]:
         """Drive until all submitted requests finish."""
@@ -280,7 +460,9 @@ class RolloutEngine:
             out = dict(self._stats)
             out["queue_depth"] = len(self._queue)
             out["slots_active"] = sum(r is not None for r in self._slot_req)
-            out["kv_paged"] = 1
+            out["kv_paged"] = int(self.kv_layout == "paged")
+            if self.kv_layout != "paged":
+                return out
             for name, val in self._alloc.counters().items():
                 out[f"kv_{name}"] = val
             out["kv_blocks_total"] = self._alloc.num_blocks
@@ -313,9 +495,10 @@ class RolloutEngine:
         # guarded-by: caller
         req.done = True
         self._slot_req[slot] = None
-        self._prefill_jobs.pop(req.rid, None)
         req.slot = None
-        self._release_row(slot)
+        if self.kv_layout == "paged":
+            self._prefill_jobs.pop(req.rid, None)
+            self._release_row(slot)
 
     def _free_slots(self) -> List[int]:
         return [s for s in range(self.num_slots) if self._slot_req[s] is None]
@@ -581,3 +764,160 @@ class RolloutEngine:
                 self._cur_tok_host[row] = job.after_tok
         self._schedule_paged()
         return emitted
+
+    # -- slot layout (the contiguous KVCache) ------------------------------
+
+    def _step_slots(self) -> Dict[int, List[int]]:
+        # guarded-by: caller
+        """Prefill what the queue can place, then ONE decode step for
+        every active slot. Returns the tokens emitted since the previous
+        step, prefill-sampled first tokens included (a request that ends
+        at its first token never appears in a later step)."""
+        self._schedule_slots()
+        emitted = self._pending_emits
+        self._pending_emits = {}
+        active_list = [r is not None for r in self._slot_req]
+        if not any(active_list):
+            return emitted
+        active = torch.tensor(active_list, device=self.device)
+        next_tok, logp, self.cache = _pool_decode_step(
+            self.params, self.config, self.cur_tok, active, self.cache,
+            self._gen, self.sample)
+        self.cur_tok = next_tok
+        self._stats["decode_steps"] += 1
+        # ONE device→host copy for tokens, log-probs and lengths (token ids
+        # < 2**24, f32 log-probs and int32 lengths are exact in f64)
+        host = torch.stack([next_tok.double(), logp.double(),
+                            self.cache.length.double()]).cpu()
+        toks = [int(x) for x in host[0].tolist()]
+        logps, lengths = host[1].tolist(), host[2].tolist()
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            tok = toks[slot]
+            req.tokens.append(tok)
+            req.logps.append(logps[slot])
+            self._stats["tokens_emitted"] += 1
+            emitted.setdefault(req.rid, []).append(tok)
+            hit_eos = req.eos_id is not None and tok == req.eos_id
+            out_of_budget = len(req.tokens) >= req.max_new_tokens
+            out_of_cache = int(lengths[slot]) >= self.context_bound - 1
+            if hit_eos or out_of_budget or out_of_cache:
+                self._finish_request(req, slot)
+        self._schedule_slots()
+        return emitted
+
+    def _schedule_slots(self) -> None:
+        # guarded-by: caller
+        """Prefill queued requests into free slots. Same-bucket requests
+        at the queue front batch into ONE forward; a ring pool's long
+        prompts and odd-bucket singles take the single-slot paths. FIFO
+        order holds: a batch is a CONSECUTIVE run of compatible
+        requests."""
+        while self._queue:
+            free = self._free_slots()
+            if not free:
+                return
+            req = self._queue[0]
+            if self._ring and len(req.prompt) >= self.max_len:
+                self._queue.popleft()
+                self._schedule_single(req, free[0])
+                continue
+            bucket = min(_bucket(len(req.prompt)), self.max_len)
+            group = [req]
+            for r in list(self._queue)[1:len(free)]:
+                if (not (self._ring and len(r.prompt) >= self.max_len)
+                        and min(_bucket(len(r.prompt)), self.max_len)
+                        == bucket):
+                    group.append(r)
+                else:
+                    break
+            for _ in group:
+                self._queue.popleft()
+            if len(group) == 1:
+                self._schedule_single(group[0], free[0])
+            else:
+                self._schedule_batch(group, free[:len(group)], bucket)
+
+    def _prefill_chunks(self, slot: int, tokens: List[int],
+                        fresh_first: bool) -> torch.Tensor:
+        # guarded-by: caller
+        """Exact-size chunk chain into a slot at its current length;
+        returns the last chunk's final-token logits."""
+        last_logits = None
+        pos = 0
+        for i, size in enumerate(_chunk_sizes(len(tokens), self.max_len)):
+            chunk = torch.tensor(tokens[pos:pos + size], dtype=torch.long,
+                                 device=self.device)[None, :]
+            last_logits, self.cache = _prefill_slot_chunk(
+                self.params, self.config, chunk, self.cache, slot,
+                fresh=(fresh_first and i == 0))
+            pos += size
+        return last_logits
+
+    def _schedule_single(self, req: _Request, slot: int) -> None:
+        # guarded-by: caller
+        req.slot = slot
+        self._slot_req[slot] = req
+        true_len = len(req.prompt)
+        self._stats["prefills"] += 1
+        self._stats["prefill_tokens"] += true_len
+        if self._ring and true_len >= self.max_len:
+            # Long prompt on a ring pool: reset the slot's stale length
+            # (the chain's write cursor), then an exact-size chunk chain.
+            self.cache = _writeback_slot(self.cache, slot, 0)
+            last_logits = self._prefill_chunks(slot, req.prompt,
+                                               fresh_first=True)
+        else:
+            bucket = min(_bucket(true_len), self.max_len)
+            tokens = torch.tensor(req.prompt + [0] * (bucket - true_len),
+                                  dtype=torch.long, device=self.device)
+            last_logits, self.cache = _prefill_slot(
+                self.params, self.config, tokens[None, :], true_len,
+                self.cache, slot)
+        self._emit_first_token(req, slot, last_logits)
+
+    def _schedule_batch(self, group: List[_Request], slots: List[int],
+                        bucket: int) -> None:
+        # guarded-by: caller
+        """One batched forward prefills the whole group (no row padding:
+        eager PyTorch does not recompile per batch size)."""
+        rows = []
+        for req, slot in zip(group, slots):
+            req.slot = slot
+            self._slot_req[slot] = req
+            rows.append(req.prompt + [0] * (bucket - len(req.prompt)))
+            self._stats["prefills"] += 1
+            self._stats["prefill_tokens"] += len(req.prompt)
+        dev = self.device
+        last, self.cache = _prefill_slots_batched(
+            self.params, self.config,
+            torch.tensor(rows, dtype=torch.long, device=dev),
+            torch.tensor([len(r.prompt) for r in group], dtype=torch.int32,
+                         device=dev), self.cache,
+            torch.tensor(slots, dtype=torch.long, device=dev))
+        self._stats["batched_prefills"] += 1
+        self._stats["batched_prefill_slots"] += len(group)
+        for i, (req, slot) in enumerate(zip(group, slots)):
+            self._emit_first_token(req, slot, last[i])
+
+    def _emit_first_token(self, req: _Request, slot: int,
+                          last_logits: torch.Tensor) -> None:
+        # guarded-by: caller
+        """Sample and book-keep a request's first token after its prefill,
+        with its log-prob, in one device→host copy."""
+        s = self.sample
+        tok0 = sample_token(last_logits[None, :], self._gen,
+                            temperature=s.temperature, top_k=s.top_k,
+                            top_p=s.top_p)[0]
+        host = torch.stack([tok0.double(), sampled_logprob(
+            last_logits, tok0).double()]).cpu().tolist()
+        tok0_i = int(host[0])
+        req.tokens.append(tok0_i)
+        req.logps.append(host[1])
+        self._stats["tokens_emitted"] += 1
+        self._pending_emits.setdefault(req.rid, []).append(tok0_i)
+        self.cur_tok[slot] = tok0_i
+        if ((req.eos_id is not None and tok0_i == req.eos_id)
+                or req.max_new_tokens <= 1):
+            self._finish_request(req, slot)

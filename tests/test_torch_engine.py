@@ -159,24 +159,67 @@ def test_sampled_run_invariants(weights):
         assert all(np.isfinite(lp) and lp <= 0.0 for lp in logps)
 
 
+def _slot_engines(weights, cfg_override=None, **kw):
+    """A JAX and a port engine on the same weights, greedy, with the
+    given config override and engine keywords."""
+    import dataclasses
+    jparams, jcfg, tparams, tcfg = weights
+    over = cfg_override or {}
+    jeng = JaxEngine(jparams, dataclasses.replace(jcfg, **over),
+                     num_slots=2, max_len=64, sample=JaxSample(0.0, 0, 1.0),
+                     **{k: (JaxEngineConfig(**v) if k == "engine_config"
+                            else v) for k, v in kw.items()})
+    teng = RolloutEngine(tparams, dataclasses.replace(tcfg, **over),
+                         num_slots=2, max_len=64,
+                         sample=SampleParams(0.0, 0, 1.0), device="cpu",
+                         **{k: (EngineConfig(**v) if k == "engine_config"
+                                else v) for k, v in kw.items()})
+    return jeng, teng
+
+
+def _slot_parity(jeng, teng):
+    rids = [_submit_both(jeng, teng, p, max_new_tokens=6)
+            for p in PROMPTS[:3]]
+    while jeng.has_work or teng.has_work:
+        assert jeng.step() == teng.step()
+    for rid in rids:
+        assert teng.result(rid) == jeng.result(rid), rid
+        np.testing.assert_allclose(teng.result_logps(rid),
+                                   jeng.result_logps(rid), atol=LOGP_ATOL)
+    js, ts = jeng.stats(), teng.stats()
+    shared = sorted(set(js) & set(ts))
+    assert {k: ts[k] for k in shared} == {k: js[k] for k in shared}
+
+
 @pytest.mark.parametrize("kw", [
-    {"engine_config": EngineConfig(kv_layout="slots")},
+    {"engine_config": {"kv_layout": "slots"}},
     {"mesh": object()},
 ])
 def test_slot_layout_requests_raise(weights, kw):
-    _, _, tparams, tcfg = weights
-    with pytest.raises(ValueError, match="slot-layout slice"):
-        RolloutEngine(tparams, tcfg, device="cpu", **kw)
+    """kv_layout='slots' is served now, token for token as the JAX
+    engine; a tensor-parallel mesh still raises, naming its slice."""
+    if "mesh" in kw:
+        _, _, tparams, tcfg = weights
+        with pytest.raises(NotImplementedError,
+                           match="parallel-layout slice"):
+            RolloutEngine(tparams, tcfg, device="cpu", **kw)
+        return
+    jeng, teng = _slot_engines(weights, **kw)
+    assert teng.kv_layout == "slots" and teng.kv_layout_fallback is None
+    assert teng.stats()["kv_paged"] == 0
+    _slot_parity(jeng, teng)
 
 
 @pytest.mark.parametrize("override", [{"kv_quant": True},
                                       {"sliding_window": 8}])
 def test_slot_only_configs_raise(weights, override):
-    import dataclasses
-    _, _, tparams, tcfg = weights
-    with pytest.raises(ValueError, match="slot-layout slice"):
-        RolloutEngine(tparams, dataclasses.replace(tcfg, **override),
-                      device="cpu")
+    """The int8 slot cache and sliding-window rings no longer raise: a
+    paged request falls back to the slot layout with JAX's reason and
+    serves the same greedy streams."""
+    jeng, teng = _slot_engines(weights, override)
+    assert teng.kv_layout == jeng.kv_layout == "slots"
+    assert teng.kv_layout_fallback == jeng.kv_layout_fallback
+    _slot_parity(jeng, teng)
 
 
 def test_kernel_on_cpu_and_out_of_slice_submits_raise(weights):

@@ -230,10 +230,18 @@ def test_forward_paged_matches_jax(weights, rng, rung, use_kernel):
 
 
 def test_out_of_slice_paths_raise(weights):
-    _, _, tparams, tcfg = weights
-    with pytest.raises(NotImplementedError, match="slot-layout slice"):
-        t_tf.forward(tparams, tcfg, torch.zeros(1, 2, dtype=torch.long),
-                     cache=object())
+    """The contiguous-cache forward is ported (it returns (logits, cache)
+    as JAX does, with JAX's logits); the parallel layouts, MoE and int8
+    weights still raise, naming their slices."""
+    jparams, jcfg, tparams, tcfg = weights
+    toks = np.array([[3, 1, 4, 1, 5]], np.int32)
+    jl, jc = jax_tf.forward(jparams, jcfg, jnp.asarray(toks),
+                            cache=jax_tf.init_kv_cache(jcfg, 1, 16))
+    tl, tc = t_tf.forward(tparams, tcfg, torch.from_numpy(toks),
+                          cache=t_tf.init_kv_cache(tcfg, 1, 16, device="cpu"))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                               atol=LOGITS_ATOL, rtol=LOGITS_ATOL)
+    assert int(tc.length) == int(jc.length) == 5
     with pytest.raises(NotImplementedError, match="parallel-layout slice"):
         t_tf.forward(tparams, dataclasses.replace(tcfg, attn_impl="ring"),
                      torch.zeros(1, 2, dtype=torch.long))
