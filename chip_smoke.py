@@ -168,12 +168,26 @@ class Timer:
     """Per-launch CUDA-event timing with the 50 MB L2 flushed before
     each launch: between two calls of one layer the engine streams the
     other layers' weights and KV through the cache, so the kernel finds
-    it cold."""
+    it cold. After the flush the card spins for SPIN_MS in a busy-wait
+    kernel before the start event, while the host runs the call's Python
+    (a wrapper's checks, allocations and ctypes launch take tens of
+    microseconds): the events then time the device's work, not the
+    host's launch latency."""
+
+    SPIN_MS = 0.5
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8,
                                  device="cuda")
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)          # load the busy-wait kernel
+        s.record()
+        torch.cuda._sleep(10 ** 6)
+        e.record()
+        torch.cuda.synchronize()
+        self.spin = int(10 ** 6 * self.SPIN_MS / s.elapsed_time(e))
 
     def ms(self, fn, iters=30, warmup=3):
         torch = self.torch
@@ -182,6 +196,7 @@ class Timer:
         times = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.spin)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -574,12 +589,32 @@ def phase_flash(torch, cfg, timer):
                                         pad_from=[200, 77], dtype=f32)),
         ("bf16 D=64 window 37", dict(b=2, s=500, hq=14, hkv=2, d=64,
                                      window=37))]
+    # bf16 edge paths of the tiled kernels (64-row / 64-position tiles):
+    # a sequence under one tile, one past a tile boundary, offsets with
+    # Skv != Sq, MHA (rep 1), the non-causal masked-tile branch with a
+    # fully masked batch row
+    others += [
+        ("bf16 S=17 (under one tile)", dict(b=2, s=17)),
+        ("bf16 S=65 (one past a tile)", dict(b=2, s=65)),
+        ("bf16 S=1025 (one past a tile)", dict(b=1, s=1025)),
+        ("bf16 offsets q 40 kv -25, Skv 333", dict(
+            b=1, s=300, skv=333, q_offset=40, kv_offset=-25)),
+        ("bf16 MHA heads 16/16 S=512", dict(b=1, s=512, hq=16, hkv=16)),
+        ("bf16 non-causal kv_mask, batch row 1 fully masked", dict(
+            b=2, s=200, causal=False, pad_from=[77, 0]))]
     path_cases = {label for label, _ in cases}
     for label, spec in cases + others:
         spec = {"hq": hq, "hkv": hkv, "d": d, **spec}
         args = _fa_case(torch, fa, g, **spec)
         got = _fa_run(fa, *args)
         torch.cuda.synchronize()
+        if spec.get("dtype") is None:    # bf16: no atomics, fixed sums
+            again = _fa_run(fa, *args)
+            torch.cuda.synchronize()
+            for name, a, b2 in zip(names, got, again):
+                if not torch.equal(a, b2):
+                    fail(f"flash {label}: {name} differs between two "
+                         f"launches on the same inputs")
         ref = _fa_plain(fa, *args)
         errs = []
         for name, a, r in zip(names, got, ref):
@@ -591,7 +626,8 @@ def phase_flash(torch, cfg, timer):
             if label in path_cases:      # the JSON line's max_abs_err
                 worst[name] = max(worst[name], e)
             errs.append(f"{name} {e:.3g}")
-        log(f"[flash] {label}: max |kernel - plain| " + ", ".join(errs))
+        log(f"[flash] {label}: max |kernel - plain| " + ", ".join(errs)
+            + ("" if spec.get("dtype") else "; two launches bit-identical"))
 
     # timing at the training path's shape: microbatch 4 x (1024 - 1)
     b, s = 4, 1023
@@ -643,6 +679,20 @@ def phase_flash(torch, cfg, timer):
                  + 2 * kvb),
         "dq": (6 * b * hq * d * pairs, 2 * qb + 2 * kvb + 2 * rowb + qb),
     }
+    res = fa.kernel_resources(d)
+    n_kt = -(-s // 64)
+    grid = {"fwd": -(-s // 128) * hq * b, "dkdv": n_kt * hq * b,
+            "dq": n_kt * hq * b}
+    for kname, r in res.items():
+        warps = r["threads"] // 32
+        resident = r["blocks_per_sm"]
+        log(f"[flash] {kname} bf16 D={d}: {r['registers']} registers/thread, "
+            f"{r['smem_bytes']} dynamic smem bytes, {r['threads']} threads; "
+            f"{resident} blocks/SM resident ({resident * warps} warps/SM); "
+            f"grid {grid[kname]} blocks = {grid[kname] * warps} warps at "
+            f"B={b} S={s}")
+    log(f"[flash] dkdv longest serial walk at B={b} S={s}: {n_kt} (head, "
+        f"64-row q tile) steps, KV tile 0 of each (q head, batch) block")
     results = {}
     for kname, (flops, nbytes) in work.items():
         ops_ms = flops / BF16_FLOPS * 1e3
@@ -656,7 +706,10 @@ def phase_flash(torch, cfg, timer):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "flops": flops, "bytes": nbytes, "library_ms": lib}
         log(f"[flash] {kname} at B={b} S={s} Hq={hq} Hkv={hkv} D={d} bf16 "
-            f"causal: kernel {t[kname]:.4f} ms, plain {plain:.4f} ms, bound "
+            f"causal: kernel {t[kname]:.4f} ms = "
+            f"{flops / t[kname] / 1e9:.1f} TFLOP/s, "
+            f"{max(ops_ms, bytes_ms) / t[kname]:.3f} of the bound; plain "
+            f"{plain:.4f} ms, bound "
             f"{max(ops_ms, bytes_ms):.4f} ms ({flops} flops at "
             f"{BF16_FLOPS:.3g}/s, {nbytes} bytes at {HBM_BYTES_PER_S:.3g}/s)"
             f", SDPA {'fwd' if kname == 'fwd' else 'bwd'} {lib:.4f} ms")

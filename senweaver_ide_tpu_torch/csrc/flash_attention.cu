@@ -7,13 +7,15 @@
 // _fa_backward_blockwise (line 177) of its custom VJP _make_flash_fn
 // (line 262). Three kernels, each in two instances by operand type:
 //
-//   forward   one block per (q tile, q head, batch): out and the
-//             logsumexp, online softmax in fp32 over the live KV tiles.
-//   dK / dV   one block per (KV tile, KV head, batch): loops over the
-//             rep = Hq/Hkv query heads of its GQA group and the q tiles
-//             that can see the tile, recomputing p = exp(s - lse), and
-//             writes dK and dV at Hkv heads (no atomics, K/V never
-//             repeated), as the JAX backward folds the group.
+//   forward   out and the logsumexp, online softmax in fp32 over the live
+//             KV tiles; bf16: one block per (128-row q tile, q head,
+//             batch), f32: per 64-row q tile.
+//   dK / dV   bf16: one block per (64-position KV tile, q head, batch)
+//             walks the q tiles of its head that see the tile and writes
+//             an fp32 partial; a second pass folds each GQA group's rep
+//             partials into dK and dV at Hkv heads, in a fixed order (no
+//             atomics). f32: one block per (KV tile, KV head, batch) loops
+//             over the group itself.
 //   dQ        one block per (q tile, q head, batch): loops over the live
 //             KV tiles and accumulates dQ = scale * dS K.
 //
@@ -29,20 +31,42 @@
 //
 // What bounds it on the H100: the products. At training shapes
 // (qwen2.5-coder-1.5b: B=4, S=1023, Hq=12, Hkv=2, D=128) the forward does
-// 4*B*Hq*Sq*Skv*D flops, about halved by causality, on ~60 MB of input: far
-// above the ~295 flops per byte where the card stops being bound by its
-// memory. The backward does 2.5x the forward's products (3.5x here, since
-// the dK/dV and dQ kernels each recompute s and dP). So the kernels are
-// bound by tensor-core throughput, and the design puts the bf16 instances,
-// the training path, on the tensor cores: mma.sync m16n8k16 bf16 tiles with
-// fp32 accumulators, operands in bf16 shared memory, the softmax applied to
-// the accumulator fragments in registers, and P / dS reused from the
-// accumulators as the next product's operand (rounded to bf16, as SDPA and
-// FlashAttention-2 do). The f32 instances, which the tests use, keep exact
-// fp32 products on the CUDA cores from fp32 tiles in shared memory. Neither
-// uses wgmma, TMA, asynchronous copies or warp specialisation yet: loads
-// and products of a tile do not overlap, which is where the remaining gap
-// to the bound lies.
+// 4*B*Hq*Sq*Skv*D flops, about halved by causality, on ~30 MB of input:
+// far above the ~295 flops per byte where the card stops being bound by
+// its memory. The backward does 2.5x the forward's products (3.5x here,
+// since the dK/dV and dQ kernels each recompute s and dP). So the bf16
+// instances, the training path, run on the tensor cores with fp32
+// accumulators, the softmax applied to the accumulator registers and P /
+// dS reused from them as the next product's A operand (rounded to bf16,
+// as SDPA and FlashAttention-2 do), and what keeps the tensor cores
+// waiting is what the design works on:
+//
+//   the ring    K/V (forward) and Q/dO/lse/delta (dK/dV) tiles stream
+//               through two-stage cp.async rings into 128-byte-swizzled
+//               shared memory: tile j+1 is copied, without passing
+//               through registers, while tile j is multiplied, with one
+//               barrier a tile;
+//   operands    both run on wgmma, every shared operand read by a
+//               descriptor, so no thread fetches a B operand: the forward
+//               S = Q K^T (Q, K K-major) and O += P V (P from registers,
+//               V by a transposed MN-major descriptor); dK/dV S^T = K Q^T
+//               and dP^T = V dO^T (K-major), then dV += P^T dO and dK +=
+//               dS^T Q (P^T, dS^T from registers, dO and Q MN-major);
+//   masks       the causal, window, ragged and bias tests run only on an
+//               edge tile; a tile every row sees whole takes the scaled
+//               scores, and p = exp2 of scores pre-scaled by log2(e)/sqrt(D);
+//   the grid    1-D, the tile index slowest: the forward's heaviest causal
+//               q tiles and dK/dV's KV tile 0 (the longest q walk) start
+//               first, the light tiles fill the tail; the forward runs two
+//               consumer warpgroups over one K/V ring (128 q rows a block,
+//               two blocks an SM); dK/dV spreads each GQA group over its
+//               rep q heads' blocks, so no block walks more than one
+//               head's q tiles.
+//
+// dQ keeps its first design (staged loads between two barriers, column
+// reads of K by two 16-bit loads). The f32 instances, which the tests
+// use, keep exact fp32 products on the CUDA cores from fp32 tiles in
+// shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -627,6 +651,48 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A masked_score result in the log2 domain: -inf where masked, so that
+// ex2(s - m) is 0 there even while the row max m is still kNegInf.
+__device__ __forceinline__ float log2_score(float x) {
+  return x > kMasked ? x * kLog2e : -__int_as_float(0x7f800000);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy that does not pass through registers;
+// `valid` false writes 16 zero bytes (src-size 0, nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // Copy `rows` rows of kD bf16 from `src` into the shared tile `dst` (row
 // stride kD + 8, so fragment loads of 8 consecutive rows hit distinct
 // banks), zero past `n_valid`. kN threads.
@@ -647,15 +713,176 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
   }
 }
 
-// One block of 4 warps per (64-row q tile, q head, batch); warp w owns q
-// rows 16w..16w+15 and keeps them as A fragments in registers. Per
-// 64-position KV tile: S = Q K^T (8 n-tiles), scale, bias and masks, the
-// online softmax on the C fragments (a row's values sit in the 4 lanes of
-// one g, reduced with two shuffles), then P (rounded to bf16, as the
-// fragments convert C to A in place) times V into 16 (D=128) fp32 output
-// n-tiles.
+// Pack the C fragments of score n-tiles 2kk and 2kk+1 (16 positions) as the
+// A fragment of one k-step (the C -> A reuse of flash attention).
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_f2(c0[0], c0[1]);
+  a[1] = pack_f2(c0[2], c0[3]);
+  a[2] = pack_f2(c1[0], c1[1]);
+  a[3] = pack_f2(c1[2], c1[3]);
+}
+
+// wgmma (sm_90a): a warpgroup's m64nNk16 product, fp32 accumulators in
+// the registers of `d` (d[j][e] is C[16w + g + 8(e / 2)][8j + 2t + e % 2]
+// for warp w of the group, the mma.sync C layout per 8-wide n-tile).
+// ss: A and B from shared memory by descriptor, scale_d 0 overwrites d;
+// rs: A from registers (the mma.sync A layout per warp), B by descriptor,
+// transposed (stored MN-major), accumulating.
+#define FA_ACC4(d, j) \
+  "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FA_ACC4(d, 0), FA_ACC4(d, 1), FA_ACC4(d, 2),
+        FA_ACC4(d, 3), FA_ACC4(d, 4), FA_ACC4(d, 5),
+        FA_ACC4(d, 6), FA_ACC4(d, 7)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[8][4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31},"
+      " {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_ACC4(d, 0), FA_ACC4(d, 1), FA_ACC4(d, 2),
+        FA_ACC4(d, 3), FA_ACC4(d, 4), FA_ACC4(d, 5),
+        FA_ACC4(d, 6), FA_ACC4(d, 7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[16][4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
+      "%60,%61,%62,%63},"
+      " {%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
+      : FA_ACC4(d, 0), FA_ACC4(d, 1), FA_ACC4(d, 2),
+        FA_ACC4(d, 3), FA_ACC4(d, 4), FA_ACC4(d, 5),
+        FA_ACC4(d, 6), FA_ACC4(d, 7), FA_ACC4(d, 8),
+        FA_ACC4(d, 9), FA_ACC4(d, 10), FA_ACC4(d, 11),
+        FA_ACC4(d, 12), FA_ACC4(d, 13), FA_ACC4(d, 14),
+        FA_ACC4(d, 15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef FA_ACC4
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across an
+// asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+// cp.async writes shared memory through the generic proxy, wgmma reads it
+// through the async proxy: each writer fences before the barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+// Issue cp.async copies of 64 rows of kD bf16 (row `row0` on, zero-filled
+// from `n_valid` on, which may be <= 0) into the 128-byte-swizzled layout the descriptors
+// name: kD / 64 column blocks of [64 rows][64 columns], 8 KB each, the
+// tile 1024-byte aligned; 16-byte chunk c of row r of a block lands at
+// byte r * 128 + ((c ^ r % 8) * 16). K-major for Q and K (the head dim is
+// the product's depth), MN-major for V. Every one of the kN threads calls.
+template <int kD, int kN>
+__device__ __forceinline__ void load_rows_sw128(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                long long row_stride,
+                                                int row0, int n_valid) {
+  constexpr int kVpr = kD / 8;  // 16-byte chunks per row
+  static_assert((64 * kVpr) % kN == 0, "whole chunks per thread");
+  char* d = reinterpret_cast<char*>(dst);
+#pragma unroll
+  for (int j = 0; j < 64 * kVpr / kN; ++j) {
+    const int i = threadIdx.x + j * kN;
+    const int r = i / kVpr, c = i % kVpr;
+    const bool ok = r < n_valid;
+    cp_async16(d + (c / 8) * 8192 + r * 128 + (((c % 8) ^ (r % 8)) << 4),
+               ok ? src + static_cast<long long>(row0 + r) * row_stride +
+                        c * 8
+                  : src,
+               ok);
+  }
+}
+
+// O += P V for one 16-position k-step: n = kD.
 template <int kD>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ void wgmma_pv(float (&o)[kD / 8][4],
+                                         const uint32_t (&pa)[4],
+                                         uint64_t db) {
+  if constexpr (kD == 128)
+    wgmma_rs_n128_tb(o, pa, db);
+  else
+    wgmma_rs_n64_tb(o, pa, db);
+}
+
+// The forward on Hopper's warpgroup tensor cores. One block per (128-row
+// q tile, q head, batch): two consumer warpgroups of 4 warps, warpgroup u
+// owning q rows 64u..64u+63 and warp w of it rows 16w..16w+15 of every
+// product's accumulator. K/V tiles of 64 positions stream through a
+// two-stage cp.async ring into 128-byte-swizzled shared memory, shared by
+// both warpgroups: tile j+1 is in flight while tile j is multiplied, one
+// barrier a tile. A warpgroup skips the tiles its own rows cannot see.
+// Per tile: S = Q K^T as wgmma m64n64k16 with Q and K both read by
+// descriptor (kD/16 k-steps); the bias and masks only on an edge tile (see
+// below); the online softmax in the log2 domain on the accumulator
+// registers (a row's values sit in the 4 lanes of one g, reduced with two
+// shuffles); then P, rounded to bf16 and kept in registers as the A
+// operand, times V as wgmma m64n(kD)k16 with V read by a transposed
+// (MN-major) descriptor.
+//
+// The grid is 1-D with the q tile slowest and reversed, so the causal
+// rows that see the most KV tiles start first and the light ones fill the
+// tail.
+//
+// Shared memory (dynamic, aligned up to 1024 bytes): the two warpgroups'
+// Q tiles, then two stages of [K tile][V tile], each 64 x kD bf16 in the
+// swizzled layout.
+template <int kD>
+__global__ void __launch_bounds__(256, 2)
 fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
@@ -663,97 +890,134 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                   Dims dm, Strides qs, Strides ks, Strides vs, Strides os,
                   float scale) {
-  constexpr int TQ = 64, TK = 64, kLd = kD + 8;
+  constexpr int TQ = 64, TK = 64, kTileB = 64 * kD * 2;  // bytes a tile
   constexpr int KK = kD / 16;   // k-steps over the head dim
   constexpr int ND = kD / 8;    // output n-tiles
   constexpr int NS = TK / 8;    // score n-tiles
-  const int qt = blockIdx.x, h = blockIdx.y, bb = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;  // this warpgroup's 64 q rows
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
+  const int n_qt = (dm.sq + 2 * TQ - 1) / (2 * TQ);
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / (dm.hq * dm.b);
+  const int h = blockIdx.x % dm.hq, bb = (blockIdx.x / dm.hq) % dm.b;
   const int hk = h / (dm.hq / dm.hkv);
 
-  __shared__ __align__(16) __nv_bfloat16 k_s[TK * kLd];
-  __shared__ __align__(16) __nv_bfloat16 v_s[TK * kLd];
+  extern __shared__ float4 smem4[];
+  const uint32_t raw = smem_u32(smem4);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // tile i at base + i*kTileB
+  char* sm = reinterpret_cast<char*>(smem4) + (base - raw);
+  auto tile = [&](int i) {
+    return reinterpret_cast<__nv_bfloat16*>(sm + i * kTileB);
+  };
 
-  const int q0 = qt * TQ;
-  const int nq = min(TQ, dm.sq - q0);
+  const int qb0 = qt * 2 * TQ;                 // the block's first q row
+  const int q0 = qb0 + wg * TQ;                // this warpgroup's
+  const int nq = min(TQ, dm.sq - q0);          // <= 0: no rows
   const int r0 = q0 + warp * 16 + g;  // this lane's rows r0 and r0 + 8
   const __nv_bfloat16* qb = q + bb * qs.b + h * qs.h;
   const __nv_bfloat16* kb = k + bb * ks.b + hk * ks.h;
   const __nv_bfloat16* vb = v + bb * vs.b + hk * vs.h;
   const float* bias_row = bias ? bias + static_cast<long long>(bb) * dm.skv
                                : nullptr;
+  const float sl2 = scale * kLog2e;
 
-  uint32_t qa[KK][4];
-  {
-    const __nv_bfloat16* row0 = qb + static_cast<long long>(r0) * qs.s;
-    const __nv_bfloat16* row8 = qb + static_cast<long long>(r0 + 8) * qs.s;
-    const bool ok0 = r0 < dm.sq, ok8 = r0 + 8 < dm.sq;
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qa[kk][0] = ok0 ? ld32(row0 + c) : 0u;
-      qa[kk][1] = ok8 ? ld32(row8 + c) : 0u;
-      qa[kk][2] = ok0 ? ld32(row0 + c + 8) : 0u;
-      qa[kk][3] = ok8 ? ld32(row8 + c + 8) : 0u;
-    }
-  }
+  // the block walks the KV tiles either warpgroup sees; each computes on
+  // its own [kt_lo, kt_hi)
+  int kt_lo = 0, kt_hi = 0, bk_lo, bk_hi;
+  if (nq > 0) live_kv_tiles(dm, q0, nq, TK, &kt_lo, &kt_hi);
+  live_kv_tiles(dm, qb0, min(2 * TQ, dm.sq - qb0), TK, &bk_lo, &bk_hi);
+  auto load_kv = [&](int kt, int stage) {
+    const int k0 = kt * TK, nk = min(TK, dm.skv - k0);
+    load_rows_sw128<kD, 256>(tile(2 + 2 * stage), kb, ks.s, k0, nk);
+    load_rows_sw128<kD, 256>(tile(3 + 2 * stage), vb, vs.s, k0, nk);
+  };
+  load_rows_sw128<kD, 256>(tile(0), qb, qs.s, qb0, dm.sq - qb0);
+  load_rows_sw128<kD, 256>(tile(1), qb, qs.s, qb0 + TQ, dm.sq - qb0 - TQ);
+  if (bk_lo < bk_hi) load_kv(bk_lo, 0);
+  cp_async_commit();
+  const uint32_t q_u = base + wg * kTileB;
 
-  float o[ND][4];
+  float o[ND][4], s[NS][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = kNegInf, m8 = kNegInf, l0 = 0.f, l8 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  float m0 = kNegInf, m8 = kNegInf, l0 = 0.f, l8 = 0.f;  // m: log2 domain
 
-  int kt_lo, kt_hi;
-  live_kv_tiles(dm, q0, nq, TK, &kt_lo, &kt_hi);
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+  for (int kt = bk_lo; kt < bk_hi; ++kt) {
+    const int stage = (kt - bk_lo) & 1;
+    cp_async_wait_all();  // tile kt has landed (this thread's copies)
+    fence_proxy_async();
+    __syncthreads();      // ... everyone's; and tile kt-1 is done with
+    if (kt + 1 < bk_hi) load_kv(kt + 1, stage ^ 1);
+    cp_async_commit();
+    if (kt < kt_lo || kt >= kt_hi) continue;  // warpgroup-uniform
+    const uint32_t k_u = base + (2 + 2 * stage) * kTileB;
+    const uint32_t v_u = k_u + kTileB;
     const int k0 = kt * TK;
-    const int nk = min(TK, dm.skv - k0);
-    __syncthreads();  // previous tile's products done with k_s and v_s
-    stage_bf16<kD, 128>(k_s, kb, ks.s, k0, nk, TK);
-    stage_bf16<kD, 128>(v_s, vb, vs.s, k0, nk, TK);
-    __syncthreads();
 
-    float s[NS][4];
+    // S = Q K^T: k-step kk is 32 bytes into column block kk / 4
+    fence_regs(s);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int kk = 0; kk < KK; ++kk) {
+      const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
+      wgmma_ss_n64(s, sw128_desc(q_u + off, 16, 1024),
+                   sw128_desc(k_u + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // An edge tile needs the bias, the ragged end or a mask: a tile that
+    // every row of the q tile sees whole takes the plain scaled scores.
+    const bool edge =
+        bias_row != nullptr || k0 + TK > dm.skv ||
+        (dm.causal &&
+         (dm.kv_offset + k0 + TK - 1 > dm.q_offset + q0 ||
+          (dm.window > 0 &&
+           dm.kv_offset + k0 <= dm.q_offset + q0 + TQ - 1 - dm.window)));
+    if (edge) {
 #pragma unroll
-    for (int kk = 0; kk < KK; ++kk)
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const __nv_bfloat16* kr = k_s + (j * 8 + g) * kLd + kk * 16 + 2 * t;
-        mma_bf16(s[j], qa[kk], ld32(kr), ld32(kr + 8));
-      }
+        for (int e = 0; e < 2; ++e) {
+          const int kj = k0 + j * 8 + 2 * t + e;
+          s[j][e] = log2_score(
+              masked_score(s[j][e] * scale, dm, bias_row, r0, kj));
+          s[j][2 + e] = log2_score(
+              masked_score(s[j][2 + e] * scale, dm, bias_row, r0 + 8, kj));
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= sl2;
+    }
 
     float mx0 = kNegInf, mx8 = kNegInf;
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kj = k0 + j * 8 + 2 * t + e;
-        s[j][e] = masked_score(s[j][e] * scale, dm, bias_row, r0, kj);
-        s[j][2 + e] =
-            masked_score(s[j][2 + e] * scale, dm, bias_row, r0 + 8, kj);
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx8 = fmaxf(mx8, s[j][2 + e]);
-      }
+    for (int j = 0; j < NS; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx8 = fmaxf(mx8, fmaxf(s[j][2], s[j][3]));
+    }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx8 = fmaxf(mx8, __shfl_xor_sync(0xffffffffu, mx8, off));
     }
     const float mn0 = fmaxf(m0, mx0), mn8 = fmaxf(m8, mx8);
-    const float c0 = expf(m0 - mn0), c8 = expf(m8 - mn8);
+    const float c0 = ex2(m0 - mn0), c8 = ex2(m8 - mn8);
     float sum0 = 0.f, sum8 = 0.f;
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = s[j][e] > kMasked ? expf(s[j][e] - mn0) : 0.f;
-        s[j][2 + e] = s[j][2 + e] > kMasked ? expf(s[j][2 + e] - mn8) : 0.f;
-        sum0 += s[j][e];
-        sum8 += s[j][2 + e];
-      }
+    for (int j = 0; j < NS; ++j) {
+      s[j][0] = ex2(s[j][0] - mn0);
+      s[j][1] = ex2(s[j][1] - mn0);
+      s[j][2] = ex2(s[j][2] - mn8);
+      s[j][3] = ex2(s[j][3] - mn8);
+      sum0 += s[j][0] + s[j][1];
+      sum8 += s[j][2] + s[j][3];
+    }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
@@ -771,23 +1035,24 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       o[n][3] *= c8;
     }
 
-    // O += P V: k-steps of 16 positions, P's C fragments reused as A
+    // O += P V: k-steps of 16 positions (two 8-row swizzle groups of V),
+    // P's accumulator fragments reused as the A operand
+    uint32_t pa[TK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_f2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_f2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_f2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_f2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vr = v_s + (kk * 16 + 2 * t) * kLd + g;
+    for (int kk = 0; kk < TK / 16; ++kk)
+      c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+    fence_regs(o);
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < ND; ++n)
-        mma_bf16(o[n], pa, pack_col(vr + n * 8, kLd),
-                 pack_col(vr + 8 * kLd + n * 8, kLd));
-    }
+    for (int kk = 0; kk < TK / 16; ++kk)
+      wgmma_pv<kD>(o, pa[kk], sw128_desc(v_u + kk * 2048, 8192, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
   }
+  cp_async_wait_all();  // the Q copies of a block that saw no KV tile
 
-  // out = O / l (0 where no key is visible), lse = m + log l
+  // out = O / l (0 where no key is visible), lse = m + log l (natural)
   const float sl0 = l0 > 0.f ? l0 : 1.f, sl8 = l8 > 0.f ? l8 : 1.f;
   __nv_bfloat16* ob = out + bb * os.b + h * os.h;
 #pragma unroll
@@ -803,32 +1068,10 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   if (t == 0) {
     float* lrow = lse + (static_cast<long long>(bb) * dm.hq + h) * dm.sq;
-    if (r0 < dm.sq) lrow[r0] = l0 > 0.f ? m0 + logf(sl0) : kNegInf;
-    if (r0 + 8 < dm.sq) lrow[r0 + 8] = l8 > 0.f ? m8 + logf(sl8) : kNegInf;
+    if (r0 < dm.sq) lrow[r0] = l0 > 0.f ? m0 * kLn2 + logf(sl0) : kNegInf;
+    if (r0 + 8 < dm.sq)
+      lrow[r0 + 8] = l8 > 0.f ? m8 * kLn2 + logf(sl8) : kNegInf;
   }
-}
-
-// Pack the C fragments of score n-tiles 2kk and 2kk+1 (16 positions) as the
-// A fragment of one k-step (the C -> A reuse of flash attention).
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_f2(c0[0], c0[1]);
-  a[1] = pack_f2(c0[2], c0[3]);
-  a[2] = pack_f2(c1[0], c1[1]);
-  a[3] = pack_f2(c1[2], c1[3]);
-}
-
-// A fragment (16 rows from `row` on, 16 columns from `col` on) of a
-// row-major bf16 shared tile with row stride ld.
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int ld,
-                                       int row, int col) {
-  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  const __nv_bfloat16* p = tile + (row + g) * ld + col + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
 }
 
 // dQ on the tensor cores: one block of 4 warps per (64-row q tile, q head,
@@ -963,15 +1206,34 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// dK and dV on the tensor cores: one block of 2 warps per (32-position KV
-// tile, KV head, batch), warp w owning positions 16w..16w+15. It loops over
-// the GQA group's rep heads and the 32-row q tiles that can see the tile,
-// computing the transposed products so that P^T and dS^T come out as C
-// fragments with KV rows: S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and
-// dK += dS^T Q with dO and Q read down their columns. dK and dV are written
-// once, at Hkv heads.
+// dK and dV on Hopper's warpgroup tensor cores, in two passes.
+//
+// Pass 1: one block, one warpgroup (4 warps), per (64-position KV tile, q
+// head, batch), warp w owning KV positions 16w..16w+15 of every product's
+// accumulator; the block walks only the 64-row q tiles of ITS head that
+// can see the tile (at most S/64), so the GQA group's rep heads run in rep
+// blocks side by side instead of one after the other. K and V are staged
+// once; (Q, dO, lse, delta) tiles stream through a two-stage cp.async ring
+// into 128-byte-swizzled shared memory, the next tile in flight while the
+// current one is multiplied. Per q tile, four wgmma products: S^T = K Q^T
+// and dP^T = V dO^T (m64n64k16, both operands by K-major descriptor), so
+// that P^T and dS^T come out in registers with KV rows; p = exp2(s - lse)
+// (masks only on an edge tile), dS = p (dP - delta); then dV += P^T dO and
+// dK += dS^T Q (m64n(kD)k16, P^T and dS^T rounded to bf16 as A operands
+// from registers, dO and Q by transposed MN-major descriptors). The block
+// writes its head's fp32 partial dK (scaled) and dV into a scratch (B,
+// Skv, Hq, D). KV tile 0 (under causality the longest walk) is launched
+// first.
+//
+// Pass 2 (fa_bwd_dkdv_fold_kernel) sums the rep partials of each KV head
+// in a fixed order and writes bf16 dK and dV at Hkv heads: deterministic,
+// no atomics.
+//
+// Shared memory (dynamic, aligned up to 1024 bytes): K and V tiles, then
+// two stages of [Q tile][dO tile] (64 x kD bf16, swizzled), then two
+// stages of [lse][delta] (fp32).
 template <int kD>
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(128, 2)
 fa_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
@@ -979,32 +1241,35 @@ fa_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dk,
-                       __nv_bfloat16* __restrict__ dv, Dims dm, Strides qs,
-                       Strides ks, Strides vs, Strides dos, Strides dks,
-                       Strides dvs, float scale) {
-  constexpr int TK = 32, TQ = 32, kLd = kD + 8;
+                       float* __restrict__ dk_part,
+                       float* __restrict__ dv_part, Dims dm, Strides qs,
+                       Strides ks, Strides vs, Strides dos, float scale) {
+  constexpr int TK = 64, TQ = 64, kTileB = 64 * kD * 2;  // bytes a tile
   constexpr int KK = kD / 16, ND = kD / 8, NQ = TQ / 8;
-  const int kt = blockIdx.x, hk = blockIdx.y, bb = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int rep = dm.hq / dm.hkv;
+  const int kt = static_cast<int>(blockIdx.x) / (dm.hq * dm.b);
+  const int h = blockIdx.x % dm.hq, bb = (blockIdx.x / dm.hq) % dm.b;
+  const int hk = h / (dm.hq / dm.hkv);
 
-  __shared__ __align__(16) __nv_bfloat16 k_s[TK * kLd];
-  __shared__ __align__(16) __nv_bfloat16 v_s[TK * kLd];
-  __shared__ __align__(16) __nv_bfloat16 q_s[TQ * kLd];
-  __shared__ __align__(16) __nv_bfloat16 do_s[TQ * kLd];
-  __shared__ float lse_s[TQ], dl_s[TQ];
+  extern __shared__ float4 smem4[];
+  const uint32_t raw = smem_u32(smem4);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // tile i at base + i*kTileB
+  char* sm = reinterpret_cast<char*>(smem4) + (base - raw);
+  auto tile = [&](int i) {
+    return reinterpret_cast<__nv_bfloat16*>(sm + i * kTileB);
+  };
+  // tiles: 0 K, 1 V, 2 + 2s Q and 3 + 2s dO of stage s; then lse, delta
+  float* row_s = reinterpret_cast<float*>(sm + 6 * kTileB);
 
   const int k0 = kt * TK;
   const int nk = min(TK, dm.skv - k0);
-  const int lr = warp * 16;              // this warp's first local KV row
-  const int kr0 = k0 + lr + g;           // this lane's KV rows kr0, kr0 + 8
-  stage_bf16<kD, 64>(k_s, k + bb * ks.b + hk * ks.h, ks.s, k0, nk, TK);
-  stage_bf16<kD, 64>(v_s, v + bb * vs.b + hk * vs.h, vs.s, k0, nk, TK);
+  const int kr0 = k0 + warp * 16 + g;  // this lane's KV rows kr0, kr0 + 8
   const float* bias_row = bias ? bias + static_cast<long long>(bb) * dm.skv
                                : nullptr;
+  const float sl2 = scale * kLog2e;
 
+  // q tiles [qt_lo, qt_hi) that can see this KV tile
   const int n_qt = (dm.sq + TQ - 1) / TQ;
   int qt_lo = 0, qt_hi = n_qt;
   if (dm.causal) {
@@ -1017,104 +1282,182 @@ fa_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                              1));
   }
 
-  float adk[ND][4], adv[ND][4];
+  const __nv_bfloat16* qb = q + bb * qs.b + h * qs.h;
+  const __nv_bfloat16* ob = dout + bb * dos.b + h * dos.h;
+  const long long row_base = (static_cast<long long>(bb) * dm.hq + h) *
+                             dm.sq;
+  auto load_q = [&](int qt, int stage) {
+    const int q0 = qt * TQ, nq = min(TQ, dm.sq - q0);
+    load_rows_sw128<kD, 128>(tile(2 + 2 * stage), qb, qs.s, q0, nq);
+    load_rows_sw128<kD, 128>(tile(3 + 2 * stage), ob, dos.s, q0, nq);
+    const int i = threadIdx.x;  // 128 threads: lse rows 0-63, delta 64-127
+    const int r = i & (TQ - 1);
+    const bool ok = r < nq;
+    const float* src = (i < TQ ? lse : delta) + row_base + q0 + (ok ? r : 0);
+    cp_async4(row_s + stage * 2 * TQ + i, src, ok);
+  };
+  load_rows_sw128<kD, 128>(tile(0), k + bb * ks.b + hk * ks.h, ks.s, k0, nk);
+  load_rows_sw128<kD, 128>(tile(1), v + bb * vs.b + hk * vs.h, vs.s, k0, nk);
+  if (qt_lo < qt_hi) load_q(qt_lo, 0);
+  cp_async_commit();
+
+  float adk[ND][4], adv[ND][4], st[NQ][4], dpt[NQ][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NQ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 
-  for (int r = 0; r < rep; ++r) {
-    const int h = hk * rep + r;
-    const __nv_bfloat16* qb = q + bb * qs.b + h * qs.h;
-    const __nv_bfloat16* ob = dout + bb * dos.b + h * dos.h;
-    const long long row_base = (static_cast<long long>(bb) * dm.hq + h) *
-                               dm.sq;
-    for (int qt = qt_lo; qt < qt_hi; ++qt) {
-      const int q0 = qt * TQ;
-      const int nq = min(TQ, dm.sq - q0);
-      __syncthreads();  // previous tile's products done with q_s .. dl_s
-      stage_bf16<kD, 64>(q_s, qb, qs.s, q0, nq, TQ);
-      stage_bf16<kD, 64>(do_s, ob, dos.s, q0, nq, TQ);
-      for (int i = threadIdx.x; i < TQ; i += 64) {
-        lse_s[i] = i < nq ? lse[row_base + q0 + i] : 0.f;
-        dl_s[i] = i < nq ? delta[row_base + q0 + i] : 0.f;
-      }
-      __syncthreads();
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int stage = (qt - qt_lo) & 1;
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();  // tile qt visible to all; tile qt-1 done with
+    if (qt + 1 < qt_hi) load_q(qt + 1, stage ^ 1);
+    cp_async_commit();
+    const uint32_t q_u = base + (2 + 2 * stage) * kTileB;
+    const uint32_t do_u = q_u + kTileB;
+    const float* lse_s = row_s + stage * 2 * TQ;
+    const float* dl_s = lse_s + TQ;
+    const int q0 = qt * TQ;
 
-      float st[NQ][4], dpt[NQ][4];
+    // S^T = K Q^T and dP^T = V dO^T: k-step kk is 32 bytes into column
+    // block kk / 4 of each operand
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NQ; ++j)
+    for (int kk = 0; kk < KK; ++kk) {
+      const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
+      wgmma_ss_n64(st, sw128_desc(base + off, 16, 1024),
+                   sw128_desc(q_u + off, 16, 1024), kk > 0);
+    }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    for (int kk = 0; kk < KK; ++kk) {
+      const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
+      wgmma_ss_n64(dpt, sw128_desc(base + kTileB + off, 16, 1024),
+                   sw128_desc(do_u + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // element (KV row kr0 or kr0 + 8, q row j*8 + 2t + e of the tile)
+    const bool edge =
+        bias_row != nullptr || k0 + TK > dm.skv || q0 + TQ > dm.sq ||
+        (dm.causal &&
+         (dm.kv_offset + k0 + TK - 1 > dm.q_offset + q0 ||
+          (dm.window > 0 &&
+           dm.kv_offset + k0 <= dm.q_offset + q0 + TQ - 1 - dm.window)));
 #pragma unroll
-      for (int kk = 0; kk < KK; ++kk) {
-        uint32_t ka[4], va[4];
-        a_frag(ka, k_s, kLd, lr, kk * 16);
-        a_frag(va, v_s, kLd, lr, kk * 16);
+    for (int j = 0; j < NQ; ++j)
 #pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          const int off = (j * 8 + g) * kLd + kk * 16 + 2 * t;
-          mma_bf16(st[j], ka, ld32(q_s + off), ld32(q_s + off + 8));
-          mma_bf16(dpt[j], va, ld32(do_s + off), ld32(do_s + off + 8));
-        }
-      }
-      // element (KV row kr0 or kr0 + 8, q column j*8 + 2t + e)
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qc = j * 8 + 2 * t + e;
+      for (int e = 0; e < 2; ++e) {
+        const int qc = j * 8 + 2 * t + e;
+        const float lse2 = lse_s[qc] * kLog2e, dl = dl_s[qc];
+        float p0, p8;
+        if (edge) {
           const float x0 =
               masked_score(st[j][e] * scale, dm, bias_row, q0 + qc, kr0);
           const float x8 = masked_score(st[j][2 + e] * scale, dm, bias_row,
                                         q0 + qc, kr0 + 8);
-          const float p0 = x0 > kMasked ? expf(x0 - lse_s[qc]) : 0.f;
-          const float p8 = x8 > kMasked ? expf(x8 - lse_s[qc]) : 0.f;
-          dpt[j][e] = p0 * (dpt[j][e] - dl_s[qc]);
-          dpt[j][2 + e] = p8 * (dpt[j][2 + e] - dl_s[qc]);
-          st[j][e] = p0;
-          st[j][2 + e] = p8;
+          p0 = x0 > kMasked ? ex2(x0 * kLog2e - lse2) : 0.f;
+          p8 = x8 > kMasked ? ex2(x8 * kLog2e - lse2) : 0.f;
+        } else {
+          p0 = ex2(st[j][e] * sl2 - lse2);
+          p8 = ex2(st[j][2 + e] * sl2 - lse2);
         }
-      // dV += P^T dO, dK += dS^T Q over the tile's q rows
-#pragma unroll
-      for (int kk = 0; kk < TQ / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        c_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-        c_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-        const int off = (kk * 16 + 2 * t) * kLd + g;
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          mma_bf16(adv[n], pa, pack_col(do_s + off + n * 8, kLd),
-                   pack_col(do_s + off + 8 * kLd + n * 8, kLd));
-          mma_bf16(adk[n], da, pack_col(q_s + off + n * 8, kLd),
-                   pack_col(q_s + off + 8 * kLd + n * 8, kLd));
-        }
+        dpt[j][e] = p0 * (dpt[j][e] - dl);
+        dpt[j][2 + e] = p8 * (dpt[j][2 + e] - dl);
+        st[j][e] = p0;
+        st[j][2 + e] = p8;
       }
-    }
-  }
 
-  __nv_bfloat16* kout = dk + bb * dks.b + hk * dks.h;
-  __nv_bfloat16* vout = dv + bb * dvs.b + hk * dvs.h;
+    // dV += P^T dO, dK += dS^T Q: k-steps of 16 q rows (two 8-row swizzle
+    // groups of dO and Q)
+    uint32_t pa[TQ / 16][4], da[TQ / 16][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (kr0 < dm.skv) {
-      *reinterpret_cast<uint32_t*>(kout + static_cast<long long>(kr0) *
-                                              dks.s + c) =
-          pack_f2(adk[n][0] * scale, adk[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(vout + static_cast<long long>(kr0) *
-                                              dvs.s + c) =
-          pack_f2(adv[n][0], adv[n][1]);
+    for (int kk = 0; kk < TQ / 16; ++kk) {
+      c_to_a(pa[kk], st[2 * kk], st[2 * kk + 1]);
+      c_to_a(da[kk], dpt[2 * kk], dpt[2 * kk + 1]);
     }
-    if (kr0 + 8 < dm.skv) {
-      *reinterpret_cast<uint32_t*>(kout + static_cast<long long>(kr0 + 8) *
-                                              dks.s + c) =
-          pack_f2(adk[n][2] * scale, adk[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(vout + static_cast<long long>(kr0 + 8) *
-                                              dvs.s + c) =
-          pack_f2(adv[n][2], adv[n][3]);
+    fence_regs(adv);
+    fence_regs(adk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TQ / 16; ++kk)
+      wgmma_pv<kD>(adv, pa[kk], sw128_desc(do_u + kk * 2048, 8192, 1024));
+#pragma unroll
+    for (int kk = 0; kk < TQ / 16; ++kk)
+      wgmma_pv<kD>(adk, da[kk], sw128_desc(q_u + kk * 2048, 8192, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(adv);
+    fence_regs(adk);
+  }
+  cp_async_wait_all();  // K/V copies of a block that walked no q tile
+
+  // this head's partials, fp32 (B, Skv, Hq, D)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kr = kr0 + 8 * i;
+    if (kr >= dm.skv) continue;
+    const long long base_o =
+        ((static_cast<long long>(bb) * dm.skv + kr) * dm.hq + h) * kD;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int c = n * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dk_part + base_o + c) =
+          make_float2(adk[n][2 * i] * scale, adk[n][2 * i + 1] * scale);
+      *reinterpret_cast<float2*>(dv_part + base_o + c) =
+          make_float2(adv[n][2 * i], adv[n][2 * i + 1]);
     }
   }
+}
+
+// dK, dV (bf16, Hkv heads) = the sum over each GQA group's rep heads of
+// the fp32 partials, in head order; one thread per 4 columns of a (batch,
+// position, KV head) row.
+template <int kD>
+__global__ void __launch_bounds__(256)
+fa_bwd_dkdv_fold_kernel(const float* __restrict__ dk_part,
+                        const float* __restrict__ dv_part,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, Dims dm, Strides dks,
+                        Strides dvs) {
+  constexpr int kC4 = kD / 4;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= static_cast<long long>(dm.b) * dm.skv * dm.hkv * kC4) return;
+  const int c = static_cast<int>(i % kC4) * 4;
+  const long long row = i / kC4;  // (bb * skv + s) * hkv + hk
+  const int hk = static_cast<int>(row % dm.hkv);
+  const long long bs = row / dm.hkv;
+  const int s = static_cast<int>(bs % dm.skv);
+  const int bb = static_cast<int>(bs / dm.skv);
+  const int rep = dm.hq / dm.hkv;
+  const long long base = (bs * dm.hq + static_cast<long long>(hk) * rep) *
+                             kD + c;
+  float4 ak = make_float4(0.f, 0.f, 0.f, 0.f), av = ak;
+  for (int r = 0; r < rep; ++r) {
+    const float4 x = *reinterpret_cast<const float4*>(dk_part + base + r * kD);
+    const float4 y = *reinterpret_cast<const float4*>(dv_part + base + r * kD);
+    ak.x += x.x; ak.y += x.y; ak.z += x.z; ak.w += x.w;
+    av.x += y.x; av.y += y.y; av.z += y.z; av.w += y.w;
+  }
+  uint2 pk, pv;
+  pk.x = pack_f2(ak.x, ak.y);
+  pk.y = pack_f2(ak.z, ak.w);
+  pv.x = pack_f2(av.x, av.y);
+  pv.y = pack_f2(av.z, av.w);
+  *reinterpret_cast<uint2*>(dk + bb * dks.b + s * dks.s + hk * dks.h + c) =
+      pk;
+  *reinterpret_cast<uint2*>(dv + bb * dvs.b + s * dvs.s + hk * dvs.h + c) =
+      pv;
 }
 
 // f32 tile shapes: forward 64 q rows x 64 positions (K and V share one
@@ -1189,12 +1532,33 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const void* bias,
   return cudaGetLastError();
 }
 
+// bf16 tensor-core kernels: the dynamic shared memory of one block.
+template <int kD>
+constexpr size_t fwd_mma_smem() {  // 2 Q, two stages of K and V, alignment
+  return 6 * sizeof(__nv_bfloat16) * 64 * kD + 1024;
+}
+template <int kD>
+constexpr size_t dkdv_mma_smem() {  // K, V; two stages of Q, dO, lse, delta
+  return 6 * sizeof(__nv_bfloat16) * 64 * kD + 4 * 64 * sizeof(float) + 1024;
+}
+
+// Grid sizes: 1-D, the tile index slowest (see the kernels).
+inline unsigned fwd_mma_blocks(const Dims& dm) {
+  return static_cast<unsigned>((dm.sq + 127) / 128) * dm.hq * dm.b;
+}
+inline unsigned dkdv_mma_blocks(const Dims& dm) {
+  return static_cast<unsigned>((dm.skv + 63) / 64) * dm.hq * dm.b;
+}
+
 template <int kD>
 cudaError_t fwd_mma(const void* q, const void* k, const void* v,
                     const void* bias, void* out, void* lse, const Dims& dm,
                     const long long* st, cudaStream_t stream) {
-  const dim3 grid((dm.sq + 63) / 64, dm.hq, dm.b);
-  fa_fwd_mma_kernel<kD><<<grid, 128, 0, stream>>>(
+  auto kern = fa_fwd_mma_kernel<kD>;
+  const size_t smem = fwd_mma_smem<kD>();
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<fwd_mma_blocks(dm), 256, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
@@ -1204,22 +1568,39 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// scratch: fp32 dK partials then dV partials, each (B, Skv, Hq, D)
 template <int kD>
 cudaError_t bwd_dkdv_mma(const void* q, const void* k, const void* v,
                          const void* bias, const void* dout, const void* lse,
-                         const void* delta, void* dk, void* dv, const Dims& dm,
-                         const long long* st, cudaStream_t stream) {
-  const dim3 grid((dm.skv + 31) / 32, dm.hkv, dm.b);
-  fa_bwd_dkdv_mma_kernel<kD><<<grid, 64, 0, stream>>>(
+                         const void* delta, void* dk, void* dv, void* scratch,
+                         const Dims& dm, const long long* st,
+                         cudaStream_t stream) {
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  auto kern = fa_bwd_dkdv_mma_kernel<kD>;
+  const size_t smem = dkdv_mma_smem<kD>();
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  float* dk_part = static_cast<float*>(scratch);
+  float* dv_part = dk_part + static_cast<long long>(dm.b) * dm.skv * dm.hq *
+                                 kD;
+  kern<<<dkdv_mma_blocks(dm), 128, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), dm,
-      strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
-      strides_of(st, 3), strides_of(st, 4), strides_of(st, 5),
+      dk_part, dv_part, dm, strides_of(st, 0), strides_of(st, 1),
+      strides_of(st, 2), strides_of(st, 3),
       1.0f / sqrtf(static_cast<float>(kD)));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n = static_cast<long long>(dm.b) * dm.skv * dm.hkv *
+                      (kD / 4);
+  fa_bwd_dkdv_fold_kernel<kD><<<static_cast<unsigned>((n + 255) / 256), 256,
+                                0, stream>>>(
+      dk_part, dv_part, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), dm, strides_of(st, 4),
+      strides_of(st, 5));
   return cudaGetLastError();
 }
 
@@ -1316,8 +1697,8 @@ extern "C" int swi_flash_attention_fwd(const void* q, const void* k,
 extern "C" int swi_flash_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-    const long long* dims, const long long* strides, int dtype,
-    void* stream) {
+    void* scratch, const long long* dims, const long long* strides,
+    int dtype, void* stream) {
   const Dims dm = dims_of(dims);
   if (!dims_ok(dm)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1329,11 +1710,11 @@ extern "C" int swi_flash_attention_bwd_dkdv(
     err = bwd_dkdv<128>(q, k, v, bias, dout, lse, delta, dk, dv, dm,
                                strides, s);
   else if (dtype == 1 && dm.d == 64)
-    err = bwd_dkdv_mma<64>(q, k, v, bias, dout, lse, delta, dk, dv, dm,
-                           strides, s);
+    err = bwd_dkdv_mma<64>(q, k, v, bias, dout, lse, delta, dk, dv, scratch,
+                           dm, strides, s);
   else if (dtype == 1 && dm.d == 128)
-    err = bwd_dkdv_mma<128>(q, k, v, bias, dout, lse, delta, dk, dv, dm,
-                            strides, s);
+    err = bwd_dkdv_mma<128>(q, k, v, bias, dout, lse, delta, dk, dv,
+                            scratch, dm, strides, s);
   return static_cast<int>(err);
 }
 
@@ -1357,5 +1738,51 @@ extern "C" int swi_flash_attention_bwd_dq(
   else if (dtype == 1 && dm.d == 128)
     err = bwd_dq_mma<128>(q, k, v, bias, dout, lse, delta, dq, dm, strides,
                           s);
+  return static_cast<int>(err);
+}
+
+namespace {
+
+template <typename K>
+cudaError_t occupancy_of(K kern, size_t smem, int threads, int* out) {
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
+                                                      smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(smem);
+  out[2] = threads;
+  out[3] = blocks;
+  return err;
+}
+
+template <int kD>
+cudaError_t occupancy(int which, int* out) {
+  if (which == 0)
+    return occupancy_of(fa_fwd_mma_kernel<kD>, fwd_mma_smem<kD>(), 256, out);
+  if (which == 1)
+    return occupancy_of(fa_bwd_dkdv_mma_kernel<kD>, dkdv_mma_smem<kD>(), 128,
+                        out);
+  if (which == 2)
+    return occupancy_of(fa_bwd_dq_mma_kernel<kD>, 0, 128, out);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The bf16 kernels' resources as the card reports them: which 0 = forward,
+// 1 = dK/dV (its first pass), 2 = dQ; out[4] = registers per thread,
+// dynamic shared bytes per block, threads per block, resident blocks per
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int swi_flash_attention_occupancy(int which, int d, int* out) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (d == 64)
+    err = occupancy<64>(which, out);
+  else if (d == 128)
+    err = occupancy<128>(which, out);
   return static_cast<int>(err);
 }

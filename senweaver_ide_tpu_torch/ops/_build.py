@@ -92,11 +92,14 @@ def _bind(name: str, cdll: ctypes.CDLL) -> None:
         ll = ctypes.POINTER(ctypes.c_longlong)
         # tensor pointers, then the dims and strides arrays, dtype, stream
         for fn, n_ptrs in (("swi_flash_attention_fwd", 6),
-                           ("swi_flash_attention_bwd_dkdv", 9),
+                           ("swi_flash_attention_bwd_dkdv", 10),
                            ("swi_flash_attention_bwd_dq", 8)):
             f = getattr(cdll, fn)
             f.argtypes = [p] * n_ptrs + [ll, ll, i, p]
             f.restype = i
+        occ = cdll.swi_flash_attention_occupancy
+        occ.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+        occ.restype = i
     elif name == "flash_decode":
         fn = cdll.swi_flash_decode
         fn.argtypes = [p, p, p, p, p,                # q k v lengths out

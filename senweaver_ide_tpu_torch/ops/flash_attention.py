@@ -272,6 +272,37 @@ def flash_attention_fwd(q, k, v, bias=None, *, q_offset: int = 0,
     return out, lse
 
 
+def dkdv_scratch(q: torch.Tensor,
+                 k: torch.Tensor) -> Optional[torch.Tensor]:
+    """The bf16 dK/dV kernel's fp32 scratch on q's device: the per-q-head
+    partial dK and dV, (2, B, Skv, Hq, D), which its second pass folds over
+    each GQA group into (B, Skv, Hkv, D). None for f32, whose kernel folds
+    the group inside one block."""
+    if q.dtype != torch.bfloat16:
+        return None
+    b, _, hq, d = q.shape
+    return torch.empty((2, b, k.shape[1], hq, d), dtype=torch.float32,
+                       device=q.device)
+
+
+def kernel_resources(d: int = 128) -> dict:
+    """Registers per thread, dynamic shared bytes and threads per block,
+    and resident blocks per SM of the bf16 kernels at head dim ``d``, as
+    the card's runtime reports them (``fwd``, ``dkdv`` (its first pass),
+    ``dq``). Needs a CUDA device."""
+    lib = _build.library("flash_attention")
+    res = {}
+    for which, name in enumerate(("fwd", "dkdv", "dq")):
+        out = (ctypes.c_int * 4)()
+        rc = lib.swi_flash_attention_occupancy(which, d, out)
+        if rc != 0:
+            raise RuntimeError(f"occupancy query for {name} failed with "
+                               f"cudaError {rc}")
+        res[name] = dict(zip(("registers", "smem_bytes", "threads",
+                              "blocks_per_sm"), list(out)))
+    return res
+
+
 def flash_attention_bwd_dkdv(q, k, v, bias, g, lse, delta, *,
                              q_offset: int = 0, kv_offset: int = 0,
                              causal: bool = True,
@@ -292,9 +323,10 @@ def flash_attention_bwd_dkdv(q, k, v, bias, g, lse, delta, *,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if dk.numel() == 0:
         return dk, dv
+    scratch = dkdv_scratch(q, k)
     _launch("swi_flash_attention_bwd_dkdv", q, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(bias), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(scratch),
             _dims(*dims, q_offset, kv_offset, causal, window),
             _strides(q, k, v, g, dk, dv))
     flash_attention_bwd_dkdv.launches += 1

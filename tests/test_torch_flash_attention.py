@@ -200,31 +200,49 @@ def test_non_cpu_tensors_never_take_the_plain_path():
 
 
 def _cuda_case(dtype, b=2, s=300, hq=12, hkv=2, d=128, window=None,
-               masked=False, seed=0):
+               masked=False, seed=0, skv=None):
     g = torch.Generator(device="cuda").manual_seed(seed)
+    skv = skv or s
 
-    def rnd(h):
-        return torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
-    q, k, v, gout = rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
+    def rnd(n, h):
+        return torch.randn(b, n, h, d, generator=g, device="cuda").to(dtype)
+    q, k, v, gout = rnd(s, hq), rnd(skv, hkv), rnd(skv, hkv), rnd(s, hq)
     mask = None
     if masked:
-        mask = torch.ones(b, s, dtype=torch.bool, device="cuda")
-        mask[1, s // 2:] = False
+        mask = torch.ones(b, skv, dtype=torch.bool, device="cuda")
+        mask[1, skv // 2:] = False
     return q, k, v, gout, mask, dict(window=window)
+
+
+# The tiled bf16 kernels' edge paths (64-row / 64-position tiles): S under
+# one tile and one past a tile boundary, offsets with Skv != Sq, MHA (rep
+# 1), D=64 with a window edge inside a tile, the non-causal masked-tile
+# branch with a fully masked batch row.
+CUDA_VARIANTS = {
+    "causal": {}, "window": dict(window=37), "masked": dict(masked=True),
+    "offsets": dict(q_offset=40, kv_offset=-25), "d64": dict(d=64),
+    "s17": dict(s=17), "s65": dict(s=65), "s1025": dict(b=1, s=1025),
+    "offsets_skv": dict(b=1, skv=333, q_offset=40, kv_offset=-25),
+    "mha": dict(b=1, s=512, hq=16, hkv=16),
+    "d64_window": dict(d=64, hq=14, window=37),
+    "non_causal_masked": dict(s=200, causal=False, masked="row1_empty"),
+}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("variant", ["causal", "window", "masked",
-                                     "offsets", "d64"])
+@pytest.mark.parametrize("variant", list(CUDA_VARIANTS))
 def test_cuda_kernels_match_plain(dtype, variant):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    q, k, v, gout, mask, kw = _cuda_case(
-        dtype, window=37 if variant == "window" else None,
-        masked=variant == "masked", d=64 if variant == "d64" else 128)
-    if variant == "offsets":
-        kw.update(q_offset=40, kv_offset=-25)
+    spec = dict(CUDA_VARIANTS[variant])
+    opts = {n: spec.pop(n) for n in ("q_offset", "kv_offset", "causal")
+            if n in spec}
+    empty_row = spec.get("masked") == "row1_empty"
+    q, k, v, gout, mask, kw = _cuda_case(dtype, **spec)
+    if empty_row:
+        mask[1] = False
+    kw.update(opts)
     launches = (tfa.flash_attention_fwd.launches,
                 tfa.flash_attention_bwd_dkdv.launches,
                 tfa.flash_attention_bwd_dq.launches)
@@ -244,6 +262,28 @@ def test_cuda_kernels_match_plain(dtype, variant):
     for got, want in zip([out] + [x.grad for x in leaves],
                          [r_out] + list(r_grads)):
         _assert_kernel_close(got.float(), want, dtype)
+    if dtype == torch.bfloat16:   # no atomics: a second run is identical
+        again = [x.clone().requires_grad_() for x in (q, k, v)]
+        out2 = tfa.flash_attention(*again, kv_mask=mask, **kw)
+        out2.backward(gout)
+        for a, b in zip([out] + [x.grad for x in leaves],
+                        [out2] + [x.grad for x in again]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dkdv_scratch_is_per_q_head_fp32(dtype):
+    """The bf16 dK/dV kernel writes one fp32 partial per q head, (2, B,
+    Skv, Hq, D), folded over each GQA group by its second pass; the f32
+    kernel needs none. Shapes only: meta tensors allocate nothing."""
+    q = torch.empty(3, 40, 12, 128, dtype=dtype, device="meta")
+    k = torch.empty(3, 56, 2, 128, dtype=dtype, device="meta")
+    scratch = tfa.dkdv_scratch(q, k)
+    if dtype == torch.float32:
+        assert scratch is None
+    else:
+        assert scratch.shape == (2, 3, 56, 12, 128)
+        assert scratch.dtype == torch.float32 and scratch.device == q.device
 
 
 def _assert_kernel_close(got, want, dtype):
