@@ -38,10 +38,12 @@ Phases, each fatal on failure:
    flash_decode over the contiguous slot cache at the head shapes of
    qwen2.5-coder-1.5b (12/2, D 128), mistral-7b (32/8, D 128) and
    qwen2.5-coder-0.5b (14/2, D 64), bf16 and f32, lengths 0..Smax on a
-   tile-aligned, a ragged and a strided cache; poisoned positions past
-   each length must leave the output bit-identical; kernel, plain and
-   SDPA (yardstick only) times at 16 Mistral slots x 4096 beside the
-   bytes bound.
+   tile-aligned, a ragged and a strided cache, then bf16 lengths at the
+   split kernel's chunk and tile edges and short grids (heads 12/2 at
+   B=1 and B=2); poisoned positions past each length must leave the
+   output bit-identical, and so must a second launch; kernel, plain and
+   SDPA (yardstick only) times at 16 slots x 4096 at the Mistral and
+   the Qwen-1.5B heads beside the bytes bound.
 9. The int8 slot cache (kv_quant) at full qwen2.5-coder-1.5b width: 8
    greedy requests, K3 launches = layers x decode steps; greedy token
    match vs the bf16 paged engine printed (runs before phase 6).
@@ -376,62 +378,136 @@ FD_HEADS = {"qwen2.5-coder-1.5b": (12, 2, 128), "mistral-7b": (32, 8, 128),
 # 2**-9 relative (K1's tolerance and reason); f32 differs by summation
 # order only. (atol, rtol)
 FD_TOL = {"bf16": (1e-2, 1e-2), "f32": (1e-4, 1e-4)}
-FD_TIMING = dict(b=16, smax=4096, heads="mistral-7b", lo=512, hi=4096)
+# The timing rows: 16 slots x 4096 positions, lengths 512..4096, at the
+# Mistral-7B heads (B * Hkv = 128 blocks without split-KV) and the
+# Qwen2.5-Coder-1.5B heads (32), the first row the JSON line's main one.
+FD_TIMINGS = (dict(b=16, smax=4096, heads="mistral-7b", lo=512, hi=4096),
+              dict(b=16, smax=4096, heads="qwen2.5-coder-1.5b", lo=512,
+                   hi=4096))
+
+
+def _fd_check(torch, label, q, k, v, lengths, tol, **kw):
+    """flash_decode against its plain version on one batch: within ``tol``,
+    exact zeros for length 0, bit-identical across two launches and with
+    NaN in every position at or past each length. Returns the max error."""
+    from senweaver_ide_tpu_torch.ops.flash_decode import (flash_decode,
+                                                          flash_decode_plain)
+    out = flash_decode(q, k, v, lengths, **kw)
+    again = flash_decode(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    ref = flash_decode_plain(q.float(), k.float(), v.float(), lengths)
+    diff = (out.float() - ref).abs()
+    e = float(diff.max())
+    atol, rtol = tol
+    if not bool((diff <= atol + rtol * ref.abs()).all()):
+        fail(f"flash_decode {label}: kernel vs plain max err {e} (tol "
+             f"{atol} + {rtol} * |plain|)")
+    if bool(out[lengths == 0].ne(0).any()):
+        fail(f"flash_decode {label}: a length-0 slot is not 0")
+    if not torch.equal(out, again):
+        fail(f"flash_decode {label}: two launches on the same inputs "
+             f"differ")
+    kp, vp = k.clone(), v.clone()
+    for i, n in enumerate(lengths.tolist()):
+        kp[i, n:] = float("nan")
+        vp[i, n:] = float("nan")
+    out_p = flash_decode(q, kp, vp, lengths, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out_p, out):
+        fail(f"flash_decode {label}: poisoned positions past the lengths "
+             f"moved the output")
+    return e
+
+
+def _fd_split_cases(torch, split_plan, sms):
+    """bf16 batches at the split kernel's edges: (label, (Hq, Hkv, D), Smax,
+    strided, lengths). Lengths 1, chunk - 1, chunk, chunk + 1 and Smax for
+    the batch's own plan, and one past a tile; a short grid (heads 12/2 at
+    B=1 and B=2: many splits); a strided view."""
+    cases = []
+    for model, smax, strided in (("mistral-7b", 4096, False),
+                                 ("qwen2.5-coder-1.5b", 3000, True),
+                                 ("qwen2.5-coder-0.5b", 1024, False)):
+        heads = FD_HEADS[model]
+        b = 8
+        _, chunk = split_plan(b, heads[1], smax, sms)
+        lens = [1, 65, chunk - 1, chunk, chunk + 1, 2 * chunk + 1,
+                smax - 1, smax]
+        cases.append((f"{model} split edges", heads, smax, strided, lens))
+    heads = FD_HEADS["qwen2.5-coder-1.5b"]
+    cases.append(("short grid B=1", heads, 4096, False, [4096]))
+    _, chunk = split_plan(2, heads[1], 4096, sms)
+    cases.append(("short grid B=2", heads, 4096, True, [chunk + 1, 4095]))
+    return cases
 
 
 def phase_flash_decode(torch, timer):
     """K3 (flash_decode over the contiguous slot cache) against its plain
     version on the card: three head shapes, bf16 and f32, lengths
-    0..Smax on a tile-aligned and a ragged Smax and a strided cache view;
-    poisoned positions at or past each length must leave the output
-    bit-identical. Then kernel / plain / SDPA times at the Mistral-7B
-    decode shape beside the bytes bound."""
-    import torch.nn.functional as F
-    from senweaver_ide_tpu_torch.ops.flash_decode import (flash_decode,
-                                                          flash_decode_plain)
+    0..Smax on a tile-aligned and a ragged Smax and a strided cache view,
+    then bf16 batches at the split kernel's chunk and tile edges and on
+    short grids; poisoned positions at or past each length must leave the
+    output bit-identical, and two launches must agree bit for bit. Then
+    kernel / plain / SDPA times at 16 slots x 4096 positions at the
+    Mistral-7B and the Qwen2.5-Coder-1.5B heads beside the bytes bound."""
+    from senweaver_ide_tpu_torch.ops.flash_decode import split_plan
     g = torch.Generator(device="cuda").manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {"bf16": 0.0, "f32": 0.0}
+
+    def batch(hq, hkv, d, dtype, smax, strided, lens):
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        b = len(lens)
+        q = torch.randn(b, hq, d, generator=g, device="cuda").to(dtype)
+        rows = smax + 64 if strided else smax
+        k = torch.randn(b, rows, hkv, d, generator=g,
+                        device="cuda").to(dtype)[:, :smax]
+        v = torch.randn(b, rows, hkv, d, generator=g,
+                        device="cuda").to(dtype)[:, :smax]
+        return q, k, v, lengths
+
     for model, (hq, hkv, d) in FD_HEADS.items():
         for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-            atol, rtol = FD_TOL[dname]
             for smax, strided in ((2048, False), (1111, False), (640, True)):
                 lens = sorted({0, 1, 127, 128, 129, min(1000, smax), smax})
-                lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-                b = len(lens)
-                q = torch.randn(b, hq, d, generator=g, device="cuda").to(dtype)
-                rows = smax + 64 if strided else smax
-                k = torch.randn(b, rows, hkv, d, generator=g,
-                                device="cuda").to(dtype)[:, :smax]
-                v = torch.randn(b, rows, hkv, d, generator=g,
-                                device="cuda").to(dtype)[:, :smax]
-                kw = {"allow_pad_copy": smax % 128 != 0}
-                out = flash_decode(q, k, v, lengths, **kw)
-                torch.cuda.synchronize()
-                ref = flash_decode_plain(q.float(), k.float(), v.float(),
-                                         lengths)
-                diff = (out.float() - ref).abs()
-                e = float(diff.max())
+                args = batch(hq, hkv, d, dtype, smax, strided, lens)
                 label = (f"{model} heads {hq}/{hkv} D={d} {dname} Smax={smax}"
                          f"{' (strided view)' if strided else ''}")
-                if not bool((diff <= atol + rtol * ref.abs()).all()):
-                    fail(f"flash_decode {label}: kernel vs plain max err {e} "
-                         f"(tol {atol} + {rtol} * |plain|)")
-                if bool(out[0].ne(0).any()):
-                    fail(f"flash_decode {label}: a length-0 slot is not 0")
+                e = _fd_check(torch, label, *args, FD_TOL[dname],
+                              allow_pad_copy=smax % 128 != 0)
                 worst[dname] = max(worst[dname], e)
-                kp, vp = k.clone(), v.clone()
-                for i, n in enumerate(lens):
-                    kp[i, n:] = float("nan")
-                    vp[i, n:] = float("nan")
-                out_p = flash_decode(q, kp, vp, lengths, **kw)
-                torch.cuda.synchronize()
-                if not torch.equal(out_p, out):
-                    fail(f"flash_decode {label}: poisoned positions past the "
-                         f"lengths moved the output")
                 log(f"[flash_decode] {label}, lengths {lens}: max |kernel - "
-                    f"plain| {e:.3g}; poisoned tail bit-identical")
+                    f"plain| {e:.3g}; poisoned tail and a second launch "
+                    f"bit-identical")
+    for label, (hq, hkv, d), smax, strided, lens in _fd_split_cases(
+            torch, split_plan, sms):
+        splits, chunk = split_plan(len(lens), hkv, smax, sms)
+        args = batch(hq, hkv, d, torch.bfloat16, smax, strided, lens)
+        label = (f"{label} heads {hq}/{hkv} D={d} bf16 Smax={smax}"
+                 f"{' (strided view)' if strided else ''}, {splits} splits "
+                 f"of {chunk}")
+        e = _fd_check(torch, label, *args, FD_TOL["bf16"],
+                      allow_pad_copy=smax % 128 != 0)
+        worst["bf16"] = max(worst["bf16"], e)
+        log(f"[flash_decode] {label}, lengths {lens}: max |kernel - plain| "
+            f"{e:.3g}; poisoned tail and a second launch bit-identical")
+    log(f"[flash_decode] worst max |kernel - plain|: bf16 {worst['bf16']:.3g}"
+        f" (tol {FD_TOL['bf16'][0]} + {FD_TOL['bf16'][1]} * |plain|), f32 "
+        f"{worst['f32']:.3g} (tol {FD_TOL['f32'][0]} + {FD_TOL['f32'][1]} * "
+        f"|plain|)")
+    rows = [_fd_time(torch, timer, g, t, sms) for t in FD_TIMINGS]
+    worst["bf16"] = max([worst["bf16"]] + [r["max_abs_err"] for r in rows])
+    return {**rows[0], "max_abs_err": worst["bf16"],
+            "max_abs_err_f32": worst["f32"], "shapes": rows}
 
-    t = FD_TIMING
+
+def _fd_time(torch, timer, g, t, sms):
+    """Kernel, plain and SDPA times of one FD_TIMINGS row beside the
+    bytes bound."""
+    import torch.nn.functional as F
+    from senweaver_ide_tpu_torch.ops.flash_decode import (flash_decode,
+                                                          flash_decode_plain,
+                                                          split_plan)
     hq, hkv, d = FD_HEADS[t["heads"]]
     b, smax = t["b"], t["smax"]
     lengths = torch.linspace(t["lo"], t["hi"], b, device="cuda").round().to(
@@ -446,9 +522,8 @@ def phase_flash_decode(torch, timer):
     diff = (flash_decode(q, k, v, lengths).float() - ref).abs()
     atol, rtol = FD_TOL["bf16"]
     if not bool((diff <= atol + rtol * ref.abs()).all()):
-        fail(f"flash_decode timing batch: kernel vs plain max err "
-             f"{float(diff.max())}")
-    worst["bf16"] = max(worst["bf16"], float(diff.max()))
+        fail(f"flash_decode timing batch {t['heads']}: kernel vs plain max "
+             f"err {float(diff.max())}")
     positions = int(lengths.sum())
     # each live K and V element read once, q read and out written once,
     # the lengths read once
@@ -477,24 +552,24 @@ def phase_flash_decode(torch, timer):
         sdpa_note = ("K/V copied out to Hq heads beforehand (no enable_gqa),"
                      " boolean length mask")
     sdpa_ms = timer.ms(sdpa)
-    res = {"max_abs_err": worst["bf16"], "max_abs_err_f32": worst["f32"],
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "bytes": nbytes, "flops": flops, "library_ms": sdpa_ms,
-           "library_note": "torch.nn.functional.scaled_dot_product_attention"
-                           f" ({sdpa_note})"}
-    log(f"[flash_decode] worst max |kernel - plain|: bf16 {worst['bf16']:.3g}"
-        f" (tol {FD_TOL['bf16'][0]} + {FD_TOL['bf16'][1]} * |plain|), f32 "
-        f"{worst['f32']:.3g} (tol {FD_TOL['f32'][0]} + {FD_TOL['f32'][1]} * "
-        f"|plain|)")
-    log(f"[flash_decode] B={b} Smax={smax} heads {hq}/{hkv} D={d} bf16, "
-        f"lengths {t['lo']}..{t['hi']} (sum {positions}): kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes at "
-        f"{HBM_BYTES_PER_S:.3g}/s, {flops} flops at {BF16_FLOPS:.3g}/s), "
-        f"SDPA (yardstick only; {sdpa_note}) {sdpa_ms:.4f} ms")
-    return res
+    splits, chunk = split_plan(b, hkv, smax, sms)
+    bound = max(bytes_ms, ops_ms)
+    log(f"[flash_decode] {t['heads']} B={b} Smax={smax} heads {hq}/{hkv} "
+        f"D={d} bf16, lengths {t['lo']}..{t['hi']} (sum {positions}), "
+        f"{splits} splits of {chunk} ({splits * hkv * b} blocks): kernel "
+        f"{kernel_ms:.4f} ms = {nbytes / kernel_ms / 1e9:.3f} TB/s, "
+        f"{bound / kernel_ms:.3f} of the bound; plain {plain_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({nbytes} bytes at {HBM_BYTES_PER_S:.3g}/s, "
+        f"{flops} flops at {BF16_FLOPS:.3g}/s), SDPA (yardstick only; "
+        f"{sdpa_note}) {sdpa_ms:.4f} ms")
+    return {"heads": t["heads"], "b": b, "smax": smax,
+            "lengths": f"{t['lo']}..{t['hi']}", "splits": splits,
+            "chunk": chunk, "max_abs_err": float(diff.max()),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops, "library_ms": sdpa_ms,
+            "library_note": "torch.nn.functional.scaled_dot_product_"
+                            f"attention ({sdpa_note})"}
 
 
 def _fa_err(out, ref, atol, rtol, scaled):
@@ -693,6 +768,9 @@ def phase_flash(torch, cfg, timer):
             f"B={b} S={s}")
     log(f"[flash] dkdv longest serial walk at B={b} S={s}: {n_kt} (head, "
         f"64-row q tile) steps, KV tile 0 of each (q head, batch) block")
+    log(f"[flash] dq grid at B={b} S={s}: 1-D, {grid['dq']} blocks of one "
+        f"warpgroup (64 q rows), q tile slowest and reversed, so the causal "
+        f"tiles that walk the most KV tiles ({n_kt}) start first")
     results = {}
     for kname, (flops, nbytes) in work.items():
         ops_ms = flops / BF16_FLOPS * 1e3
@@ -1336,7 +1414,7 @@ def main(argv=None) -> int:
         "plain_ms": fd["plain_ms"], "bound_ms": fd["bound_ms"],
         "bound_by": fd["bound_by"], "flops": fd["flops"],
         "bytes": fd["bytes"], "library_ms": fd["library_ms"],
-        "library_note": fd["library_note"]})
+        "library_note": fd["library_note"], "shapes": fd["shapes"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

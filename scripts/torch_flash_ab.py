@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
-"""The bf16 flash-attention kernels (K2) of one tree, each on its own.
+"""The attention kernels of one tree, each on its own: K2 (flash
+attention, bf16) by default, K3 (flash_decode) with ``--k3``.
 
-    python3 scripts/torch_flash_ab.py TAG        # from a tree's root
+    python3 scripts/torch_flash_ab.py TAG [--k3]     # from a tree's root
 
-Holds the forward and the dK/dV kernel separately against their plain
-versions on the training path's shape and the tiles' edge shapes (dK/dV
-fed the plain forward's lse and delta, so a fault in one kernel does not
-hide the other), requires two launches to be bit-identical, then times
-forward, dK/dV and dQ at the training shape (B=4, S=1023, Hq 12, Hkv 2,
-D 128, causal) with ``chip_smoke.Timer``, once without its busy-wait
-before the start event (so the host's launch latency is counted, as
-``chip_smoke.py`` did before it had one) and twice with it, beside SDPA,
-and reads each kernel's mean device time from torch.profiler. To compare
-two designs on one card, run it from both trees' roots in one command;
-every line carries TAG. Needs a CUDA card.
+K2: holds the forward, the dK/dV and the dQ kernel separately against
+their plain versions on the training path's shape and the tiles' edge
+shapes (dK/dV and dQ fed the plain forward's lse and delta, so a fault in
+one kernel does not hide another), requires two launches to be
+bit-identical, then times forward, dK/dV and dQ at the training shape
+(B=4, S=1023, Hq 12, Hkv 2, D 128, causal) with ``chip_smoke.Timer``,
+once without its busy-wait before the start event (so the host's launch
+latency is counted, as ``chip_smoke.py`` did before it had one) and
+twice with it, beside SDPA, and reads each kernel's mean device time from
+torch.profiler.
+
+K3: holds flash_decode (bf16) against its plain version at lengths on
+chunk and tile edges, short grids and a strided cache view (poisoned
+tails and a second launch bit-identical), then times it the same way at
+16 slots x 4096 positions (lengths 512..4096) at the Mistral-7B heads
+(32/8) and the Qwen2.5-Coder-1.5B heads (12/2), beside SDPA with a length
+mask.
+
+To compare two designs on one card, run it from both trees' roots in one
+command; every line carries TAG. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,19 +46,33 @@ CASES = [("causal B=4 S=1024", dict(b=4, s=1024)),
          ("MHA 16/16", dict(b=1, s=512, hq=16, hkv=16)),
          ("non-causal kv_mask", dict(b=2, s=200, causal=False,
                                      pad_from=[77, 0]))]
+# K3: (label, (Hq, Hkv, D), Smax, strided, lengths)
+K3_CASES = [
+    ("mistral edges", (32, 8, 128), 4096, False,
+     [1, 63, 64, 65, 255, 256, 257, 511, 512, 513, 4095, 4096]),
+    ("qwen-1.5b edges, strided", (12, 2, 128), 3000, True,
+     [1, 63, 64, 65, 127, 128, 129, 2999, 3000]),
+    ("qwen-0.5b D=64", (14, 2, 64), 1024, False, [1, 65, 500, 1023, 1024]),
+    ("short grid B=1", (12, 2, 128), 4096, False, [4096]),
+    ("short grid B=2", (12, 2, 128), 4096, True, [129, 4095])]
+K3_TIMINGS = [("mistral-7b heads 32/8", (32, 8, 128)),
+              ("qwen2.5-coder-1.5b heads 12/2", (12, 2, 128))]
 
 
 def _check(c, fa, torch, tag, label, args):
-    """(fwd ok, dkdv ok) on one case, printing the errors."""
+    """{kernel: ok} on one case, printing the errors."""
     q, k, v, gout, bias, kw = args
-    r_out, r_lse, _, r_dk, r_dv = c._fa_plain(fa, *args)
-    msgs, ok = [], {"fwd": True, "dkdv": True}
+    r_out, r_lse, r_dq, r_dk, r_dv = c._fa_plain(fa, *args)
+    delta = fa._delta(gout.float(), r_out)
+    msgs, ok = [], {"fwd": True, "dkdv": True, "dq": True}
     runs = {
         "fwd": (lambda: fa.flash_attention_fwd(q, k, v, bias, **kw),
                 ("out", "lse"), (r_out, r_lse)),
         "dkdv": (lambda: fa.flash_attention_bwd_dkdv(
-            q, k, v, bias, gout, r_lse, fa._delta(gout.float(), r_out),
-            **kw), ("dk", "dv"), (r_dk, r_dv)),
+            q, k, v, bias, gout, r_lse, delta, **kw), ("dk", "dv"),
+            (r_dk, r_dv)),
+        "dq": (lambda: (fa.flash_attention_bwd_dq(
+            q, k, v, bias, gout, r_lse, delta, **kw),), ("dq",), (r_dq,)),
     }
     for kname, (fn, names, refs) in runs.items():
         try:
@@ -61,7 +85,7 @@ def _check(c, fa, torch, tag, label, args):
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             ok[kname] &= same
             msgs.append(f"{kname} {'bit-identical' if same else 'DIFFERS'}")
-        except Exception:  # report and go on to the other kernel
+        except Exception:  # report and go on to the other kernels
             ok[kname] = False
             msgs.append(f"{kname} raised "
                         f"{traceback.format_exc().splitlines()[-1]}")
@@ -69,23 +93,30 @@ def _check(c, fa, torch, tag, label, args):
     return ok
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("tag")
-    args = ap.parse_args(argv)
-    import torch
-    import torch.nn.functional as F
+def _profile(torch, timer, calls, pattern, tag):
+    """Mean device time of each kernel whose name matches ``pattern``,
+    over 20 rounds of ``calls``."""
     from torch.profiler import ProfilerActivity, profile
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.getcwd())
-    import chip_smoke as c
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            timer.flush.zero_()
+            for f in calls.values():
+                f()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        name = re.search(pattern, ev.key)
+        if name:
+            us = getattr(ev, "device_time", None) or getattr(ev, "cuda_time",
+                                                             0)
+            print(f"[{tag}] profiler {name.group(0)}: {ev.count} launches, "
+                  f"mean device {us / 1000:.4f} ms", flush=True)
+
+
+def run_k2(c, torch, tag):
+    import torch.nn.functional as F
     from senweaver_ide_tpu_torch.ops import flash_attention as fa
-    tag = args.tag
-    c.phase_device(torch)
     g = torch.Generator(device="cuda").manual_seed(3)
-    ok = {"fwd": True, "dkdv": True}
+    ok = {"fwd": True, "dkdv": True, "dq": True}
     for label, spec in CASES:
         spec = {"hq": 12, "hkv": 2, "d": 128, **spec}
         case_ok = _check(c, fa, torch, tag, label,
@@ -102,7 +133,7 @@ def main(argv=None) -> int:
                  q, k, v, None, gout, lse, delta, **kw),
              "dq": lambda: fa.flash_attention_bwd_dq(
                  q, k, v, None, gout, lse, delta, **kw)}
-    calls = {n: f for n, f in calls.items() if ok.get(n, True)}
+    calls = {n: f for n, f in calls.items() if ok[n]}
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -122,22 +153,120 @@ def main(argv=None) -> int:
             o_lib, (qt, kt, vt), gt, retain_graph=True))
         print(f"[{tag}] ms, round {rnd}: " + ", ".join(
             f"{n} {x:.4f}" for n, x in t.items()), flush=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            timer.flush.zero_()
-            for f in calls.values():
-                f()
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        name = re.search(r"fa_\w+", ev.key)
-        if name:
-            us = getattr(ev, "device_time", None) or getattr(ev, "cuda_time",
-                                                             0)
-            print(f"[{tag}] profiler {name.group(0)}: {ev.count} launches, "
-                  f"mean device {us / 1000:.4f} ms", flush=True)
+    _profile(torch, timer, calls, r"fa_\w+", tag)
     if hasattr(fa, "kernel_resources"):
         print(f"[{tag}] resources {fa.kernel_resources(d)}", flush=True)
-    return 0 if all(ok.values()) else 1
+    return all(ok.values())
+
+
+def run_k3(c, torch, tag, plans=(None,)):
+    import torch.nn.functional as F
+    from senweaver_ide_tpu_torch.ops import flash_decode as fdm
+    from senweaver_ide_tpu_torch.ops.flash_decode import (flash_decode,
+                                                          flash_decode_plain)
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def batch(hq, hkv, d, smax, strided, lens):
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        b, rows = len(lens), smax + 64 if strided else smax
+        q = torch.randn(b, hq, d, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(b, rows, hkv, d, generator=g,
+                            device="cuda").bfloat16()[:, :smax]
+                for _ in range(2))
+        return q, k, v, lengths
+
+    right = True
+    for label, (hq, hkv, d), smax, strided, lens in K3_CASES:
+        q, k, v, lengths = batch(hq, hkv, d, smax, strided, lens)
+        kw = {"allow_pad_copy": smax % 128 != 0}
+        try:
+            out, again = (flash_decode(q, k, v, lengths, **kw)
+                          for _ in range(2))
+            kp, vp = k.clone(), v.clone()
+            for i, n in enumerate(lens):
+                kp[i, n:] = float("nan")
+                vp[i, n:] = float("nan")
+            poisoned = flash_decode(q, kp, vp, lengths, **kw)
+            torch.cuda.synchronize()
+            ref = flash_decode_plain(q.float(), k.float(), v.float(),
+                                     lengths)
+            diff = (out.float() - ref).abs()
+            atol, rtol = c.FD_TOL["bf16"]
+            good = bool((diff <= atol + rtol * ref.abs()).all())
+            same = torch.equal(out, again) and torch.equal(out, poisoned)
+            msg = (f"max err {float(diff.max()):.3g}"
+                   f"{'' if good else ' FAIL'}, two launches and the "
+                   f"poisoned tail {'bit-identical' if same else 'DIFFER'}")
+            right &= good and same
+        except Exception:  # report and go on
+            right = False
+            msg = f"raised {traceback.format_exc().splitlines()[-1]}"
+        print(f"[{tag}] k3 {label}: {msg}", flush=True)
+    print(f"[{tag}] k3 right: {right}", flush=True)
+    if not right:
+        return False
+
+    timer = c.Timer(torch)
+    no_spin = c.Timer(torch)
+    no_spin.spin = 0
+    default = getattr(fdm, "BLOCKS_PER_SM", None)
+    for per_sm in plans:
+        if per_sm is not None:
+            if default is None:
+                continue          # a tree without a split plan
+            fdm.BLOCKS_PER_SM = per_sm
+            print(f"[{tag}] k3 plan: BLOCKS_PER_SM {per_sm}", flush=True)
+        _time_k3(c, torch, tag, timer, no_spin, batch, F, flash_decode)
+    if default is not None:
+        fdm.BLOCKS_PER_SM = default
+    return True
+
+
+def _time_k3(c, torch, tag, timer, no_spin, batch, F, flash_decode):
+    for label, (hq, hkv, d) in K3_TIMINGS:
+        b, smax = 16, 4096
+        lengths = torch.linspace(512, 4096, b, device="cuda").round().to(
+            torch.int32)
+        q, k, v, _ = batch(hq, hkv, d, smax, False, [smax] * b)
+        mask = (torch.arange(smax, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        qq, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        calls = {"k3": lambda: flash_decode(q, k, v, lengths)}
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qq, kt, vt, attn_mask=mask, enable_gqa=True)
+        nbytes = int(lengths.sum()) * hkv * d * 4 + 4 * q.numel() + 4 * b
+        print(f"[{tag}] k3 {label} B={b} Smax={smax}, bytes bound "
+              f"{nbytes / c.HBM_BYTES_PER_S * 1e3:.4f} ms; ms, no busy-wait:"
+              f" {no_spin.ms(calls['k3']):.4f}", flush=True)
+        for rnd in range(2):
+            print(f"[{tag}] k3 {label} ms, round {rnd}: kernel "
+                  f"{timer.ms(calls['k3']):.4f}, sdpa {timer.ms(sdpa):.4f}",
+                  flush=True)
+        _profile(torch, timer, calls, r"(?<![A-Za-z])fd_\w*?kernel", tag)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("tag")
+    ap.add_argument("--k3", action="store_true",
+                    help="flash_decode (K3) instead of the K2 kernels")
+    ap.add_argument("--blocks-per-sm", default="",
+                    help="K3: comma-separated BLOCKS_PER_SM values of the "
+                         "split plan to time besides the tree's own")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as c
+    c.phase_device(torch)
+    if args.k3:
+        plans = [None] + [int(x) for x in args.blocks_per_sm.split(",") if x]
+        ok = run_k3(c, torch, args.tag, plans)
+    else:
+        ok = run_k2(c, torch, args.tag)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

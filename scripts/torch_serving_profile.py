@@ -55,6 +55,7 @@ def main(argv=None) -> int:
     from chip_smoke import slots_requests
     from senweaver_ide_tpu_torch.models import (init_params, mistral_7b,
                                                 qwen2_5_coder_1_5b)
+    from senweaver_ide_tpu_torch.ops import flash_decode as fd_mod
     from senweaver_ide_tpu_torch.rollout import RolloutEngine
     from torch.profiler import ProfilerActivity, profile
 
@@ -96,14 +97,18 @@ def main(argv=None) -> int:
     for e in events[:15]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  "
               f"{_device_us(e) / busy_us:6.3f}  {e.key[:90]}")
-    name, tag = (("flash_decode (K3)", "fd_kernel") if args.slots
-                 else ("paged_flash_decode (K1)", "pfd_kernel"))
-    attn = sum(_device_us(e) for e in events if tag in e.key)
+    name, tags = (("flash_decode (K3)", fd_mod.KERNEL_NAMES) if args.slots
+                  else ("paged_flash_decode (K1)", ("pfd_kernel",)))
+    per_tag = {tag: sum(_device_us(e) for e in events if tag in e.key)
+               for tag in tags}
+    attn = sum(per_tag.values())
     gemm = sum(_device_us(e) for e in events
                if any(w in e.key.lower() for w in ("gemm", "nvjet",
                                                     "cutlass")))
-    print(f"{name} kernel {attn / 1e3:.2f} ms ({attn / busy_us:.3f} of "
-          f"busy), matmul kernels {gemm / 1e3:.2f} ms "
+    print(f"{name} kernels {attn / 1e3:.2f} ms ({attn / busy_us:.3f} of "
+          f"busy; " + ", ".join(f"{tag} {us / 1e3:.2f} ms"
+                                for tag, us in per_tag.items() if us)
+          + f"), matmul kernels {gemm / 1e3:.2f} ms "
           f"({gemm / busy_us:.3f} of busy)")
     return 0
 

@@ -47,6 +47,7 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     from senweaver_ide_tpu_torch.models import (init_params,
                                                 qwen2_5_coder_1_5b)
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa_mod
     from senweaver_ide_tpu_torch.training import (make_optimizer,
                                                   make_train_state,
                                                   train_step)
@@ -94,9 +95,9 @@ def main(argv=None) -> int:
     for e in events[:20]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  "
               f"{_device_us(e) / busy_us:6.3f}  {e.key[:90]}")
-    groups = {"flash fwd (K2)": ("fa_fwd",),
-              "flash dK/dV (K2)": ("fa_bwd_dkdv",),
-              "flash dQ (K2)": ("fa_bwd_dq",),
+    groups = {"flash fwd (K2)": fa_mod.KERNEL_NAMES["fwd"],
+              "flash dK/dV (K2)": fa_mod.KERNEL_NAMES["dkdv"],
+              "flash dQ (K2)": fa_mod.KERNEL_NAMES["dq"],
               "matmuls": ("gemm", "nvjet", "cutlass", "sm90_xmma")}
     rest = busy_us
     for name, keys in groups.items():

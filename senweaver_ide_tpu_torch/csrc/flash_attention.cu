@@ -17,7 +17,8 @@
 //             atomics). f32: one block per (KV tile, KV head, batch) loops
 //             over the group itself.
 //   dQ        one block per (q tile, q head, batch): loops over the live
-//             KV tiles and accumulates dQ = scale * dS K.
+//             KV tiles and accumulates dQ = scale * dS K; the block owns
+//             its rows (no atomics, no partials).
 //
 // Semantics are those of the JAX kernel: tensors in the public (B, S, H, D)
 // layout, read through their strides (no transpose, no pad copy); a kv_mask
@@ -41,32 +42,37 @@
 // as SDPA and FlashAttention-2 do), and what keeps the tensor cores
 // waiting is what the design works on:
 //
-//   the ring    K/V (forward) and Q/dO/lse/delta (dK/dV) tiles stream
+//   the ring    K/V (forward, dQ) and Q/dO/lse/delta (dK/dV) tiles stream
 //               through two-stage cp.async rings into 128-byte-swizzled
 //               shared memory: tile j+1 is copied, without passing
 //               through registers, while tile j is multiplied, with one
-//               barrier a tile;
-//   operands    both run on wgmma, every shared operand read by a
+//               barrier a tile; the tile the block keeps (forward Q, dQ's
+//               Q and dO, dK/dV's K and V) is copied once;
+//   operands    all three run on wgmma, every shared operand read by a
 //               descriptor, so no thread fetches a B operand: the forward
 //               S = Q K^T (Q, K K-major) and O += P V (P from registers,
 //               V by a transposed MN-major descriptor); dK/dV S^T = K Q^T
 //               and dP^T = V dO^T (K-major), then dV += P^T dO and dK +=
-//               dS^T Q (P^T, dS^T from registers, dO and Q MN-major);
+//               dS^T Q (P^T, dS^T from registers, dO and Q MN-major); dQ
+//               S = Q K^T and dP = dO V^T (K-major), then dQ += dS K (dS
+//               from registers, K MN-major, as the forward reads V);
 //   masks       the causal, window, ragged and bias tests run only on an
 //               edge tile; a tile every row sees whole takes the scaled
 //               scores, and p = exp2 of scores pre-scaled by log2(e)/sqrt(D);
-//   the grid    1-D, the tile index slowest: the forward's heaviest causal
-//               q tiles and dK/dV's KV tile 0 (the longest q walk) start
-//               first, the light tiles fill the tail; the forward runs two
-//               consumer warpgroups over one K/V ring (128 q rows a block,
-//               two blocks an SM); dK/dV spreads each GQA group over its
-//               rep q heads' blocks, so no block walks more than one
-//               head's q tiles.
+//   the grid    1-D, the tile index slowest: the forward's and dQ's
+//               heaviest causal q tiles and dK/dV's KV tile 0 (the longest
+//               q walk) start first, the light tiles fill the tail; the
+//               forward runs two consumer warpgroups over one K/V ring (128
+//               q rows a block, two blocks an SM); dK/dV and dQ run one
+//               warpgroup a block, two blocks an SM, since each thread
+//               holds two score fragments and a (kD)-wide accumulator
+//               (dQ: 128 fp32 at D=128) and needs the registers of two
+//               warpgroups' worth of the file; dK/dV spreads each GQA group
+//               over its rep q heads' blocks, so no block walks more than
+//               one head's q tiles.
 //
-// dQ keeps its first design (staged loads between two barriers, column
-// reads of K by two 16-bit loads). The f32 instances, which the tests
-// use, keep exact fp32 products on the CUDA cores from fp32 tiles in
-// shared memory.
+// The f32 instances, which the tests use, keep exact fp32 products on the
+// CUDA cores from fp32 tiles in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -621,34 +627,15 @@ fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // -- bf16: the training path, on the tensor cores --------------------------
 //
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate). Fragment layout, with
-// g = lane / 4 and t = lane % 4: A (16 x 16, row) regs hold A[g][2t..2t+1],
-// A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]; B (16 x 8, col) regs hold
-// B[2t..2t+1][g], B[2t+8..2t+9][g]; C (16 x 8) holds C[g][2t..2t+1] then
-// C[g+8][2t..2t+1]. The lower index sits in the lower 16 bits.
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Fragment layout of the register operands (the mma.sync m16n8k16 layout,
+// which wgmma keeps per warp), with g = lane / 4 and t = lane % 4: A (16 x
+// 16) regs hold A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..];
+// C (16 x 8) holds C[g][2t..2t+1] then C[g+8][2t..2t+1]. The lower index
+// sits in the lower 16 bits.
 
 __device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two bf16 of one column, from rows r and r + 1 of a row-major tile.
-__device__ __forceinline__ uint32_t pack_col(const __nv_bfloat16* p, int ld) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(p[0])) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(p[ld])) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -691,26 +678,6 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Copy `rows` rows of kD bf16 from `src` into the shared tile `dst` (row
-// stride kD + 8, so fragment loads of 8 consecutive rows hit distinct
-// banks), zero past `n_valid`. kN threads.
-template <int kD, int kN>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long row_stride, int row0,
-                                           int n_valid, int rows) {
-  constexpr int kVpr = kD / 8;
-  for (int i = threadIdx.x; i < rows * kVpr; i += kN) {
-    const int r = i / kVpr;
-    const int c = (i % kVpr) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid)
-      v = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * (kD + 8) + c) = v;
-  }
 }
 
 // Pack the C fragments of score n-tiles 2kk and 2kk+1 (16 positions) as the
@@ -1074,13 +1041,29 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// dQ on the tensor cores: one block of 4 warps per (64-row q tile, q head,
-// batch), warp w owning q rows 16w..16w+15 with their Q and dO rows as A
-// fragments in registers. Per 64-position KV tile: S = Q K^T and dP = dO
-// V^T, p = exp(s - lse), dS = p (dP - delta) (rounded to bf16 as an A
-// fragment), dQ += dS K with K read down its columns.
+// dQ on Hopper's warpgroup tensor cores: the forward's design. One block,
+// one warpgroup (4 warps), per (64-row q tile, q head, batch), warp w owning
+// q rows 16w..16w+15 of every product's accumulator. The Q and dO tiles are
+// copied once by cp.async into 128-byte-swizzled shared memory; K/V tiles
+// of 64 positions stream past them through a two-stage cp.async ring, tile
+// j+1 in flight while tile j is multiplied, one barrier a tile. Per tile:
+// S = Q K^T and dP = dO V^T as wgmma m64n64k16 (all four operands by
+// K-major descriptor); p = exp2(s log2(e)/sqrt(D) - lse log2(e)) with the
+// bias and the masks on an edge tile only; dS = p (dP - delta), rounded to
+// bf16 and kept in registers as the A operand; dQ += dS K as wgmma
+// m64n(kD)k16 with K read by the transposed (MN-major) descriptor, as the
+// forward reads V. The block owns its dQ rows and writes them once: no
+// atomics, no partials. At D=128 a thread holds S, dP and dQ (32 + 32 + 64
+// fp32), so one warpgroup a block and two blocks an SM leave it 255
+// registers.
+//
+// The grid is 1-D with the q tile slowest and reversed: the causal rows
+// that see the most KV tiles start first and the light ones fill the tail.
+//
+// Shared memory (dynamic, aligned up to 1024 bytes): Q, dO, then two stages
+// of [K tile][V tile], each 64 x kD bf16 in the swizzled layout.
 template <int kD>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, 2)
 fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -1091,105 +1074,137 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      __nv_bfloat16* __restrict__ dq, Dims dm, Strides qs,
                      Strides ks, Strides vs, Strides dos, Strides dqs,
                      float scale) {
-  constexpr int TQ = 64, TK = 64, kLd = kD + 8;
+  constexpr int TQ = 64, TK = 64, kTileB = 64 * kD * 2;  // bytes a tile
   constexpr int KK = kD / 16, ND = kD / 8, NS = TK / 8;
-  const int qt = blockIdx.x, h = blockIdx.y, bb = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
+  const int n_qt = (dm.sq + TQ - 1) / TQ;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / (dm.hq * dm.b);
+  const int h = blockIdx.x % dm.hq, bb = (blockIdx.x / dm.hq) % dm.b;
   const int hk = h / (dm.hq / dm.hkv);
 
-  __shared__ __align__(16) __nv_bfloat16 k_s[TK * kLd];
-  __shared__ __align__(16) __nv_bfloat16 v_s[TK * kLd];
+  extern __shared__ float4 smem4[];
+  const uint32_t raw = smem_u32(smem4);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // tile i at base + i*kTileB
+  char* sm = reinterpret_cast<char*>(smem4) + (base - raw);
+  auto tile = [&](int i) {
+    return reinterpret_cast<__nv_bfloat16*>(sm + i * kTileB);
+  };
 
   const int q0 = qt * TQ;
   const int nq = min(TQ, dm.sq - q0);
-  const int r0 = q0 + warp * 16 + g;
+  const int r0 = q0 + warp * 16 + g;  // this lane's rows r0 and r0 + 8
   const __nv_bfloat16* kb = k + bb * ks.b + hk * ks.h;
   const __nv_bfloat16* vb = v + bb * vs.b + hk * vs.h;
   const float* bias_row = bias ? bias + static_cast<long long>(bb) * dm.skv
                                : nullptr;
-
-  uint32_t qa[KK][4], oa[KK][4];
-  {
-    const __nv_bfloat16* qb = q + bb * qs.b + h * qs.h;
-    const __nv_bfloat16* ob = dout + bb * dos.b + h * dos.h;
-    const bool ok0 = r0 < dm.sq, ok8 = r0 + 8 < dm.sq;
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      const long long a0 = static_cast<long long>(r0) * qs.s + c;
-      const long long a8 = static_cast<long long>(r0 + 8) * qs.s + c;
-      const long long d0 = static_cast<long long>(r0) * dos.s + c;
-      const long long d8 = static_cast<long long>(r0 + 8) * dos.s + c;
-      qa[kk][0] = ok0 ? ld32(qb + a0) : 0u;
-      qa[kk][1] = ok8 ? ld32(qb + a8) : 0u;
-      qa[kk][2] = ok0 ? ld32(qb + a0 + 8) : 0u;
-      qa[kk][3] = ok8 ? ld32(qb + a8 + 8) : 0u;
-      oa[kk][0] = ok0 ? ld32(ob + d0) : 0u;
-      oa[kk][1] = ok8 ? ld32(ob + d8) : 0u;
-      oa[kk][2] = ok0 ? ld32(ob + d0 + 8) : 0u;
-      oa[kk][3] = ok8 ? ld32(ob + d8 + 8) : 0u;
-    }
-  }
-  const long long row_base = (static_cast<long long>(bb) * dm.hq + h) * dm.sq;
-  const float lse0 = r0 < dm.sq ? lse[row_base + r0] : 0.f;
-  const float lse8 = r0 + 8 < dm.sq ? lse[row_base + r0 + 8] : 0.f;
-  const float dl0 = r0 < dm.sq ? delta[row_base + r0] : 0.f;
-  const float dl8 = r0 + 8 < dm.sq ? delta[row_base + r0 + 8] : 0.f;
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float sl2 = scale * kLog2e;
 
   int kt_lo, kt_hi;
   live_kv_tiles(dm, q0, nq, TK, &kt_lo, &kt_hi);
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * TK;
-    const int nk = min(TK, dm.skv - k0);
-    __syncthreads();  // previous tile's products done with k_s and v_s
-    stage_bf16<kD, 128>(k_s, kb, ks.s, k0, nk, TK);
-    stage_bf16<kD, 128>(v_s, vb, vs.s, k0, nk, TK);
-    __syncthreads();
+  auto load_kv = [&](int kt, int stage) {
+    const int k0 = kt * TK, nk = min(TK, dm.skv - k0);
+    load_rows_sw128<kD, 128>(tile(2 + 2 * stage), kb, ks.s, k0, nk);
+    load_rows_sw128<kD, 128>(tile(3 + 2 * stage), vb, vs.s, k0, nk);
+  };
+  load_rows_sw128<kD, 128>(tile(0), q + bb * qs.b + h * qs.h, qs.s, q0, nq);
+  load_rows_sw128<kD, 128>(tile(1), dout + bb * dos.b + h * dos.h, dos.s, q0,
+                           nq);
+  if (kt_lo < kt_hi) load_kv(kt_lo, 0);
+  cp_async_commit();
 
-    float s[NS][4], dp[NS][4];
+  // rows past Sq: lse = delta = 0 over zero Q and dO rows, so dS = 0
+  const long long row_base = (static_cast<long long>(bb) * dm.hq + h) * dm.sq;
+  const float lse0 = r0 < dm.sq ? lse[row_base + r0] * kLog2e : 0.f;
+  const float lse8 = r0 + 8 < dm.sq ? lse[row_base + r0 + 8] * kLog2e : 0.f;
+  const float dl0 = r0 < dm.sq ? delta[row_base + r0] : 0.f;
+  const float dl8 = r0 + 8 < dm.sq ? delta[row_base + r0 + 8] : 0.f;
+
+  float acc[ND][4], s[NS][4], dp[NS][4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+  for (int n = 0; n < ND; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  for (int j = 0; j < NS; ++j)
 #pragma unroll
-    for (int kk = 0; kk < KK; ++kk)
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    cp_async_wait_all();  // tile kt has landed (this thread's copies)
+    fence_proxy_async();
+    __syncthreads();      // ... everyone's; and tile kt-1 is done with
+    if (kt + 1 < kt_hi) load_kv(kt + 1, stage ^ 1);
+    cp_async_commit();
+    const uint32_t k_u = base + (2 + 2 * stage) * kTileB;
+    const uint32_t v_u = k_u + kTileB;
+    const int k0 = kt * TK;
+
+    // S = Q K^T, dP = dO V^T: k-step kk is 32 bytes into column block kk / 4
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int off = (j * 8 + g) * kLd + kk * 16 + 2 * t;
-        mma_bf16(s[j], qa[kk], ld32(k_s + off), ld32(k_s + off + 8));
-        mma_bf16(dp[j], oa[kk], ld32(v_s + off), ld32(v_s + off + 8));
-      }
+    for (int kk = 0; kk < KK; ++kk) {
+      const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
+      wgmma_ss_n64(s, sw128_desc(base + off, 16, 1024),
+                   sw128_desc(k_u + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const uint32_t off = (kk / 4) * 8192 + (kk % 4) * 32;
+      wgmma_ss_n64(dp, sw128_desc(base + kTileB + off, 16, 1024),
+                   sw128_desc(v_u + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // An edge tile needs the bias, the ragged end or a mask: a tile that
+    // every row of the q tile sees whole takes the plain scaled scores.
+    const bool edge =
+        bias_row != nullptr || k0 + TK > dm.skv ||
+        (dm.causal &&
+         (dm.kv_offset + k0 + TK - 1 > dm.q_offset + q0 ||
+          (dm.window > 0 &&
+           dm.kv_offset + k0 <= dm.q_offset + q0 + TQ - 1 - dm.window)));
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int kj = k0 + j * 8 + 2 * t + e;
-        const float x0 = masked_score(s[j][e] * scale, dm, bias_row, r0, kj);
-        const float x8 =
-            masked_score(s[j][2 + e] * scale, dm, bias_row, r0 + 8, kj);
-        const float p0 = x0 > kMasked ? expf(x0 - lse0) : 0.f;
-        const float p8 = x8 > kMasked ? expf(x8 - lse8) : 0.f;
+        float p0, p8;
+        if (edge) {
+          const int kj = k0 + j * 8 + 2 * t + e;
+          const float x0 = masked_score(s[j][e] * scale, dm, bias_row, r0, kj);
+          const float x8 =
+              masked_score(s[j][2 + e] * scale, dm, bias_row, r0 + 8, kj);
+          p0 = x0 > kMasked ? ex2(x0 * kLog2e - lse0) : 0.f;
+          p8 = x8 > kMasked ? ex2(x8 * kLog2e - lse8) : 0.f;
+        } else {
+          p0 = ex2(s[j][e] * sl2 - lse0);
+          p8 = ex2(s[j][2 + e] * sl2 - lse8);
+        }
         s[j][e] = p0 * (dp[j][e] - dl0);
         s[j][2 + e] = p8 * (dp[j][2 + e] - dl8);
       }
-    // dQ += dS K over the tile's positions
+
+    // dQ += dS K: k-steps of 16 positions (two 8-row swizzle groups of K),
+    // dS's accumulator fragments reused as the A operand
+    uint32_t da[TK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      uint32_t da[4];
-      c_to_a(da, s[2 * kk], s[2 * kk + 1]);
-      const __nv_bfloat16* kr = k_s + (kk * 16 + 2 * t) * kLd + g;
+    for (int kk = 0; kk < TK / 16; ++kk)
+      c_to_a(da[kk], s[2 * kk], s[2 * kk + 1]);
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < ND; ++n)
-        mma_bf16(acc[n], da, pack_col(kr + n * 8, kLd),
-                 pack_col(kr + 8 * kLd + n * 8, kLd));
-    }
+    for (int kk = 0; kk < TK / 16; ++kk)
+      wgmma_pv<kD>(acc, da[kk], sw128_desc(k_u + kk * 2048, 8192, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
   }
+  cp_async_wait_all();  // the Q / dO copies of a block that saw no KV tile
 
   __nv_bfloat16* qrow = dq + bb * dqs.b + h * dqs.h;
 #pragma unroll
@@ -1538,6 +1553,10 @@ constexpr size_t fwd_mma_smem() {  // 2 Q, two stages of K and V, alignment
   return 6 * sizeof(__nv_bfloat16) * 64 * kD + 1024;
 }
 template <int kD>
+constexpr size_t dq_mma_smem() {  // Q, dO; two stages of K and V: the same
+  return fwd_mma_smem<kD>();      // six tiles as the forward's
+}
+template <int kD>
 constexpr size_t dkdv_mma_smem() {  // K, V; two stages of Q, dO, lse, delta
   return 6 * sizeof(__nv_bfloat16) * 64 * kD + 4 * 64 * sizeof(float) + 1024;
 }
@@ -1548,6 +1567,9 @@ inline unsigned fwd_mma_blocks(const Dims& dm) {
 }
 inline unsigned dkdv_mma_blocks(const Dims& dm) {
   return static_cast<unsigned>((dm.skv + 63) / 64) * dm.hq * dm.b;
+}
+inline unsigned dq_mma_blocks(const Dims& dm) {
+  return static_cast<unsigned>((dm.sq + 63) / 64) * dm.hq * dm.b;
 }
 
 template <int kD>
@@ -1609,8 +1631,11 @@ cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v,
                        const void* bias, const void* dout, const void* lse,
                        const void* delta, void* dq, const Dims& dm,
                        const long long* st, cudaStream_t stream) {
-  const dim3 grid((dm.sq + 63) / 64, dm.hq, dm.b);
-  fa_bwd_dq_mma_kernel<kD><<<grid, 128, 0, stream>>>(
+  auto kern = fa_bwd_dq_mma_kernel<kD>;
+  const size_t smem = dq_mma_smem<kD>();
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dq_mma_blocks(dm), 128, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
@@ -1768,7 +1793,8 @@ cudaError_t occupancy(int which, int* out) {
     return occupancy_of(fa_bwd_dkdv_mma_kernel<kD>, dkdv_mma_smem<kD>(), 128,
                         out);
   if (which == 2)
-    return occupancy_of(fa_bwd_dq_mma_kernel<kD>, 0, 128, out);
+    return occupancy_of(fa_bwd_dq_mma_kernel<kD>, dq_mma_smem<kD>(), 128,
+                        out);
   return cudaErrorInvalidValue;
 }
 

@@ -17,26 +17,50 @@
 // row of its GQA group (rep = Hq/Hkv: 4 for Mistral-7B, 6 for
 // Qwen2.5-Coder-1.5B), far below the ~295 operations per byte at which the
 // H100's compute becomes the limit, so the work is bound by the bytes of live
-// KV it reads. The design reads every live KV byte exactly once per
-// (slot, KV head): one CUDA block per (slot, KV head) holds the rep query rows
-// of that head in shared memory, so the group shares each K/V tile instead of
-// re-reading it per query head, and tiles are staged with 16-byte loads.
+// KV it reads, once per (slot, KV head): 151 MB for 16 Mistral slots of
+// 512..4096 positions, 45 us at 3.35 TB/s. Reaching that needs two things:
+// enough blocks to cover the 132 SMs, whatever B * Hkv is (128 blocks for
+// Mistral at 16 slots, 32 for Qwen2.5-Coder-1.5B), and tens of KB in flight
+// on every SM (3.35 TB/s over 132 SMs is 25 bytes a nanosecond each, and a
+// load takes about a microsecond to return).
 //
-// Unlike the TPU kernel, which keeps the whole Hkv axis in one grid step (a
-// Mosaic tiling rule for blocks narrower than 8 heads), the grid here is
-// (Hkv, B): the GPU has no such rule, and per-head blocks give B * Hkv
-// independent blocks. That is 128 blocks for Mistral-7B at 16 slots but only
-// 32 for Qwen2.5-Coder-1.5B at 16 slots, on 132 SMs; each block walks its
-// slot's length serially. Split-KV (several blocks per slot, merged by a
-// second pass) is the lever for the short grids and long rows, and is left
-// for a later change, as are cp.async/TMA double buffering and tensor-core
-// products.
+// The bf16 design (D 64 and 128, rep <= 16: every model the port serves) is
+// split-KV in two passes:
 //
-// Design: one block of 256 threads walks the live positions in tiles of 32.
-// The next tile's K/V bytes are loaded into registers while the current tile
-// is scored, so device-memory latency overlaps the math; tiles live in shared
-// memory as f32 rows padded by 4 floats, so the per-(row, position) dot
-// products and the P.V sums read them as conflict-free float4s.
+//   pass 1  fd_split_kernel: one block of 4 warps per (split, KV head, slot)
+//           walks its chunk of positions (a multiple of the 64-position
+//           tile; the split plan comes from shapes only, on the host, so
+//           B * Hkv * splits asks for about 4 blocks an SM without the
+//           lengths ever leaving the device). A block whose chunk starts
+//           at or past its slot's length exits at once. K/V tiles arrive by
+//           cp.async 16-byte copies, bf16 and unwidened, into a two-stage
+//           ring with one barrier a tile: the next tile (32 KB at D=128)
+//           is in flight while one is scored, and three blocks fit an SM,
+//           so about 100 KB an SM are in flight. cp.async zero-fills
+//           positions at or past the length and never reads them.
+//           The products run on the tensor cores (mma.sync m16n8k16, bf16
+//           in, fp32 out): the rep query rows padded to 16 are the A
+//           operand, K (ldmatrix) and V (ldmatrix.trans) the B operands, P
+//           rounded to bf16 from the score registers. The tensor cores have
+//           the padded rows' work to spare, and the CUDA cores would spend
+//           a conversion and a shared load on every element instead. Each
+//           warp keeps its own (m, l, acc) over 16 positions of every tile,
+//           so a tile needs no cross-warp reduction; the four warps merge
+//           once, at the end, and the block writes its fp32 partial (m, l,
+//           acc) for its rep rows into a scratch the caller allocates.
+//   pass 2  fd_merge_kernel: each output row sums its slot's live splits in
+//           split order (bit-identical across launches, no atomics); a split
+//           that starts at or past the length has weight 0 and is never
+//           read, so a slot of length 0 gives exactly 0. Its scratch, B * Hq
+//           * splits * (D + 2) fp32 (1.3 MB for 16 Mistral slots), stays in
+//           the L2 between the passes.
+//
+// What is left between this design and the bound (PERF.md): pass 2's own
+// launch and the blocks' start-up and drain, which a short chunk does not
+// amortise.
+//
+// The f32 instance (the tests' and the checks' exact reference) and bf16 at
+// other head dims or rep > 16 keep the first, serial design below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,6 +107,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// -- the serial design: f32, and bf16 shapes outside the split instances ----
+//
+// One block of 256 threads per (KV head, slot) walks the live positions in
+// tiles of 32: the next tile's bytes are loaded into registers while the
+// current one is scored, and tiles live in shared memory as f32 rows padded
+// by 4 floats, so the per-(row, position) dot products and the P.V sums read
+// conflict-free float4s.
+//
 // Shared memory, all f32, every region 16-byte aligned:
 //   q_s [rep*d]         query rows of this KV head, pre-scaled by 1/sqrt(d)
 //   acc [rep*d]         un-normalised output accumulator
@@ -92,10 +124,11 @@ __device__ __forceinline__ float warp_max(float v) {
 //   m_s, l_s, c_s [rep] running max, running sum, this tile's correction
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fd_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-          const T* __restrict__ v_cache, const int* __restrict__ lengths,
-          T* __restrict__ out, int hq, int hkv, int d, int smax,
-          long long stride_b, long long stride_s, float scale) {
+fd_serial_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
+                 const T* __restrict__ v_cache,
+                 const int* __restrict__ lengths, T* __restrict__ out, int hq,
+                 int hkv, int d, int smax, long long stride_b,
+                 long long stride_s, float scale) {
   static_assert(kTile == 32, "the softmax maps one lane per position");
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
   // 16-byte vectors one thread holds for a tile at d <= kMaxD
@@ -253,12 +286,395 @@ fd_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   }
 }
 
+// -- bf16 split-KV: the serving path ------------------------------------------
+
+constexpr int kSplitTile = 64;     // positions a K/V tile holds
+constexpr int kSplitThreads = 128;  // 4 warps, 16 positions of a tile each
+constexpr int kStages = 2;         // the cp.async ring
+constexpr int kMaxRep = 16;        // query rows of one mma A operand
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy that does not pass through registers;
+// `valid` false writes 16 zero bytes and reads nothing (src-size 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l names row l % 8 of
+// matrix l / 8. Plain: lane T gets M[T/4][2(T%4)..+1] of each; trans: lane
+// T gets M[2(T%4)..+1][T/4].
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// mma.sync m16n8k16, bf16 in, fp32 accumulate. With g = lane / 4 and t =
+// lane % 4: A regs hold A[g][2t..], A[g+8][2t..], A[g][2t+8..],
+// A[g+8][2t+8..]; B regs B[2t..2t+1][g], B[2t+8..2t+9][g]; C holds
+// C[g][2t..2t+1] then C[g+8][2t..2t+1]. The lower index sits in the lower
+// 16 bits.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int kD>
+constexpr size_t split_smem() {  // the ring; the end-of-block merge reuses it
+  return static_cast<size_t>(kStages) * 2 * kSplitTile * (kD + 8) *
+         sizeof(__nv_bfloat16);
+}
+static_assert(4 * kMaxRep * (2 + 64) * sizeof(float) <= split_smem<64>(),
+              "the warps' partials fit in the ring");
+static_assert(4 * kMaxRep * (2 + 128) * sizeof(float) <= split_smem<128>(),
+              "the warps' partials fit in the ring");
+
+// Pass 1. Block -> (split s, KV head h, slot b), the split slowest, so the
+// splits every live slot has start first and the blocks of splits past short
+// lengths, which exit at once, come last. Warp w scores positions 16w..16w+15
+// of every 64-position tile of the chunk: S (16 padded rows x 16 positions)
+// = Q K^T over kD/16 k-steps, then P V over one k-step of 16 positions and
+// kD/8 n-tiles. Scores live in the log2 domain (pre-scaled by
+// log2(e)/sqrt(D)); positions past the length score -inf, on the tile that
+// holds the length only. Shared tiles are [64 positions][kD + 8] bf16: the
+// 16-byte pad puts the 8 rows of an ldmatrix on distinct banks.
+//
+// Partials, fp32: part_acc[((b * Hkv + h) * splits + s) * rep + r][kD] (the
+// un-normalised sum) and part_ml[... r][2] (m in the log2 domain, l).
+template <int kD>
+__global__ void __launch_bounds__(kSplitThreads)
+fd_split_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k_cache,
+                const __nv_bfloat16* __restrict__ v_cache,
+                const int* __restrict__ lengths, float* __restrict__ part_acc,
+                float* __restrict__ part_ml, int nb, int hq, int hkv,
+                int smax, long long stride_b, long long stride_s, int splits,
+                int chunk, float sl2) {
+  constexpr int TK = kSplitTile, kLd = kD + 8, kTileE = TK * kLd;
+  constexpr int KK = kD / 16, ND = kD / 8, kVpr = kD / 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int s = static_cast<int>(blockIdx.x) / (hkv * nb);
+  const int h = static_cast<int>(blockIdx.x) % hkv;
+  const int b = (static_cast<int>(blockIdx.x) / hkv) % nb;
+  const int rep = hq / hkv;
+  const int length = min(max(lengths[b], 0), smax);
+  const int c0 = s * chunk;
+  if (c0 >= length) return;  // an empty split: the merge never reads it
+  const int c1 = min(c0 + chunk, length);
+  const int n_tiles = (c1 - c0 + TK - 1) / TK;
+
+  extern __shared__ uint4 smem16[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem16);
+  const __nv_bfloat16* kb = k_cache + b * stride_b +
+                            static_cast<long long>(h) * kD;
+  const __nv_bfloat16* vb = v_cache + b * stride_b +
+                            static_cast<long long>(h) * kD;
+  // tile j of the chunk into ring stage `st`: K, then V
+  auto load = [&](int j, int st) {
+    const int p0 = c0 + j * TK, n = c1 - p0;
+    __nv_bfloat16* kd = ring + 2 * st * kTileE;
+    __nv_bfloat16* vd = kd + kTileE;
+#pragma unroll
+    for (int u = 0; u < TK * kVpr / kSplitThreads; ++u) {
+      const int i = threadIdx.x + u * kSplitThreads;
+      const int r = i / kVpr, c = (i % kVpr) * 8;
+      const bool ok = r < n;
+      const long long off = ok ? (p0 + r) * stride_s + c : 0;
+      cp_async16(kd + r * kLd + c, kb + off, ok);
+      cp_async16(vd + r * kLd + c, vb + off, ok);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n_tiles) load(j, j);
+    cp_async_commit();
+  }
+
+  // the rep query rows of head h as A fragments, rows >= rep zero
+  uint32_t qa[KK][4];
+  {
+    const __nv_bfloat16* qr =
+        q + (static_cast<long long>(b) * hq + h * rep) * kD;
+    const bool ok0 = g < rep, ok8 = g + 8 < rep;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const int c = kk * 16 + 2 * t;
+      auto ld = [&](bool ok, int row, int col) {
+        return ok ? *reinterpret_cast<const uint32_t*>(qr + row * kD + col)
+                  : 0u;
+      };
+      qa[kk][0] = ld(ok0, g, c);
+      qa[kk][1] = ld(ok8, g + 8, c);
+      qa[kk][2] = ld(ok0, g, c + 8);
+      qa[kk][3] = ld(ok8, g + 8, c + 8);
+    }
+  }
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = kNegInf, m8 = kNegInf, l0 = 0.f, l8 = 0.f;
+  // ldmatrix row addresses of this lane within a tile: K (plain) gives the
+  // B fragments of n-tiles 16w and 16w+8 for one k-step; V (trans) those of
+  // two 8-column n-tiles for the warp's 16 positions
+  const int k_row = 16 * warp + lane % 8 + 8 * (lane / 16);
+  const int k_col = 8 * ((lane / 8) % 2);
+  const int v_row = 16 * warp + lane % 8 + 8 * ((lane / 8) % 2);
+  const int v_col = 8 * (lane / 16);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();  // tile j has landed (this thread's part)
+    __syncthreads();               // ... everyone's; stage (j-1) is free
+    {
+      const int jn = j + kStages - 1;
+      if (jn < n_tiles) load(jn, jn % kStages);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* kt = ring + 2 * (j % kStages) * kTileE;
+    const __nv_bfloat16* vt = kt + kTileE;
+
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      uint32_t kf[4];
+      ldsm_x4(kf, kt + k_row * kLd + kk * 16 + k_col);
+      mma_bf16(sc[0], qa[kk], kf[0], kf[1]);
+      mma_bf16(sc[1], qa[kk], kf[2], kf[3]);
+    }
+    // positions past the length only on the tile that holds it
+    const int p0 = c0 + j * TK + 16 * warp;
+    const bool edge = c0 + j * TK + TK > c1;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] *= sl2;
+        if (edge && p0 + 8 * n + 2 * t + (e & 1) >= c1)
+          sc[n][e] = -__int_as_float(0x7f800000);
+      }
+    float mx0 = fmaxf(fmaxf(sc[0][0], sc[0][1]), fmaxf(sc[1][0], sc[1][1]));
+    float mx8 = fmaxf(fmaxf(sc[0][2], sc[0][3]), fmaxf(sc[1][2], sc[1][3]));
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx8 = fmaxf(mx8, __shfl_xor_sync(0xffffffffu, mx8, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn8 = fmaxf(m8, mx8);
+    const float cr0 = ex2(m0 - mn0), cr8 = ex2(m8 - mn8);
+    float sum0 = 0.f, sum8 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      sc[n][0] = ex2(sc[n][0] - mn0);
+      sc[n][1] = ex2(sc[n][1] - mn0);
+      sc[n][2] = ex2(sc[n][2] - mn8);
+      sc[n][3] = ex2(sc[n][3] - mn8);
+      sum0 += sc[n][0] + sc[n][1];
+      sum8 += sc[n][2] + sc[n][3];
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+      sum8 += __shfl_xor_sync(0xffffffffu, sum8, off);
+    }
+    l0 = cr0 * l0 + sum0;
+    l8 = cr8 * l8 + sum8;
+    m0 = mn0;
+    m8 = mn8;
+    // P (C fragments of the two n-tiles) as the A operand of one k-step
+    uint32_t pa[4];
+    pa[0] = pack_f2(sc[0][0], sc[0][1]);
+    pa[1] = pack_f2(sc[0][2], sc[0][3]);
+    pa[2] = pack_f2(sc[1][0], sc[1][1]);
+    pa[3] = pack_f2(sc[1][2], sc[1][3]);
+#pragma unroll
+    for (int dd = 0; dd < ND / 2; ++dd) {
+      uint32_t vf[4];
+      ldsm_x4_t(vf, vt + v_row * kLd + dd * 16 + v_col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[2 * dd][e] *= e < 2 ? cr0 : cr8;
+        o[2 * dd + 1][e] *= e < 2 ? cr0 : cr8;
+      }
+      mma_bf16(o[2 * dd], pa, vf[0], vf[1]);
+      mma_bf16(o[2 * dd + 1], pa, vf[2], vf[3]);
+    }
+  }
+
+  // merge the four warps' (m, l, acc) in warp order; the ring is free
+  cp_async_wait<0>();
+  __syncthreads();
+  float* ml_s = reinterpret_cast<float*>(smem16);  // [4][16][2]
+  float* acc_s = ml_s + 4 * kMaxRep * 2;           // [4][rep][kD]
+  if (t == 0) {
+    ml_s[(warp * kMaxRep + g) * 2] = m0;
+    ml_s[(warp * kMaxRep + g) * 2 + 1] = l0;
+    ml_s[(warp * kMaxRep + g + 8) * 2] = m8;
+    ml_s[(warp * kMaxRep + g + 8) * 2 + 1] = l8;
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (g < rep)
+      *reinterpret_cast<float2*>(acc_s + (warp * rep + g) * kD + c) =
+          make_float2(o[n][0], o[n][1]);
+    if (g + 8 < rep)
+      *reinterpret_cast<float2*>(acc_s + (warp * rep + g + 8) * kD + c) =
+          make_float2(o[n][2], o[n][3]);
+  }
+  __syncthreads();
+  const long long row0 =
+      ((static_cast<long long>(b) * hkv + h) * splits + s) * rep;
+  for (int i = threadIdx.x; i < rep * kD; i += kSplitThreads) {
+    const int r = i / kD, c = i % kD;
+    float mw[4], lw[4], big = kNegInf;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      mw[w] = ml_s[(w * kMaxRep + r) * 2];
+      lw[w] = ml_s[(w * kMaxRep + r) * 2 + 1];
+      if (lw[w] > 0.f) big = fmaxf(big, mw[w]);
+    }
+    float sl = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      if (lw[w] > 0.f) {
+        const float f = ex2(mw[w] - big);
+        sl += lw[w] * f;
+        acc += acc_s[(w * rep + r) * kD + c] * f;
+      }
+    }
+    part_acc[row0 * kD + i] = acc;
+    if (c == 0) {
+      part_ml[(row0 + r) * 2] = big;
+      part_ml[(row0 + r) * 2 + 1] = sl;
+    }
+  }
+}
+
+// Pass 2: one thread per 4 output columns of a (slot, q head) row merges
+// the slot's live splits in split order, in one pass (a running max, the
+// sum rescaled as it grows); small blocks spread it over the SMs.
+constexpr int kMergeThreads = 64;
+
+template <int kD>
+__global__ void __launch_bounds__(kMergeThreads)
+fd_merge_kernel(const float* __restrict__ part_acc,
+                const float* __restrict__ part_ml,
+                const int* __restrict__ lengths,
+                __nv_bfloat16* __restrict__ out, int nb, int hq, int hkv,
+                int smax, int splits, int chunk) {
+  constexpr int kC4 = kD / 4;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= static_cast<long long>(nb) * hq * kC4) return;
+  const int c = static_cast<int>(i % kC4) * 4;
+  const int row = static_cast<int>(i / kC4);  // b * hq + q head
+  const int qh = row % hq, b = row / hq;
+  const int rep = hq / hkv, h = qh / rep, r = qh % rep;
+  const int length = min(max(lengths[b], 0), smax);
+  const int n_live = (length + chunk - 1) / chunk;
+  const long long base = (static_cast<long long>(b) * hkv + h) * splits;
+  float big = kNegInf, sl = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < n_live; ++s) {
+    const long long pr = (base + s) * rep + r;
+    const float m = part_ml[pr * 2], l = part_ml[pr * 2 + 1];
+    const float4 a = *reinterpret_cast<const float4*>(part_acc + pr * kD + c);
+    if (l > 0.f) {  // every live split has l > 0; an empty one weighs 0
+      const float nbig = fmaxf(big, m);
+      const float fo = ex2(big - nbig), f = ex2(m - nbig);
+      sl = sl * fo + l * f;
+      acc.x = acc.x * fo + a.x * f;
+      acc.y = acc.y * fo + a.y * f;
+      acc.z = acc.z * fo + a.z * f;
+      acc.w = acc.w * fo + a.w * f;
+      big = nbig;
+    }
+  }
+  const float inv = sl > 0.f ? 1.f / sl : 0.f;
+  uint2 pk;
+  pk.x = pack_f2(acc.x * inv, acc.y * inv);
+  pk.y = pack_f2(acc.z * inv, acc.w * inv);
+  *reinterpret_cast<uint2*>(out + static_cast<long long>(row) * kD + c) = pk;
+}
+
+template <int kD>
+cudaError_t launch_split(const void* q, const void* k_cache,
+                         const void* v_cache, const void* lengths, void* out,
+                         void* scratch, int b, int hq, int hkv, int smax,
+                         long long stride_b, long long stride_s, int splits,
+                         int chunk, cudaStream_t stream) {
+  auto kern = fd_split_kernel<kD>;
+  const size_t smem = split_smem<kD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  float* part_acc = static_cast<float*>(scratch);
+  float* part_ml = part_acc + static_cast<long long>(b) * hq * splits * kD;
+  const unsigned blocks = static_cast<unsigned>(splits) * hkv * b;
+  kern<<<blocks, kSplitThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_cache),
+      static_cast<const __nv_bfloat16*>(v_cache),
+      static_cast<const int*>(lengths), part_acc, part_ml, b, hq, hkv, smax,
+      stride_b, stride_s, splits, chunk,
+      kLog2e / sqrtf(static_cast<float>(kD)));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n = static_cast<long long>(b) * hq * (kD / 4);
+  fd_merge_kernel<kD><<<static_cast<unsigned>((n + kMergeThreads - 1) /
+                                              kMergeThreads),
+                        kMergeThreads, 0, stream>>>(
+      part_acc, part_ml, static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), b, hq, hkv, smax, splits, chunk);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
-                   const void* lengths, void* out, int b, int hq, int hkv,
-                   int d, int smax, long long stride_b, long long stride_s,
-                   size_t smem, cudaStream_t stream) {
-  auto kern = fd_kernel<T>;
+cudaError_t launch_serial(const void* q, const void* k_cache,
+                          const void* v_cache, const void* lengths, void* out,
+                          int b, int hq, int hkv, int d, int smax,
+                          long long stride_b, long long stride_s, size_t smem,
+                          cudaStream_t stream) {
+  auto kern = fd_serial_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -274,11 +690,15 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
   return cudaGetLastError();
 }
 
-size_t smem_bytes(int rep, int d) {
+size_t serial_smem(int rep, int d) {
   return sizeof(float) *
          (2 * static_cast<size_t>(rep) * d +
           2 * static_cast<size_t>(kTile) * (d + 4) +
           static_cast<size_t>(rep) * kTile + 3 * static_cast<size_t>(rep));
+}
+
+bool split_ok(int hq, int hkv, int d, int dtype) {
+  return dtype == 1 && (d == 64 || d == 128) && hq / hkv <= kMaxRep;
 }
 
 }  // namespace
@@ -287,30 +707,60 @@ size_t smem_bytes(int rep, int d) {
 // contiguous (B, Hq, D); the caches are (B, Smax, Hkv, D) with the (Hkv, D)
 // tail contiguous and the given B and position strides, in elements. Needs
 // d % 4 == 0, d <= 256, and every pointer, stride and row of d elements
-// 16-byte aligned (the caller checks). Returns the cudaError_t of the launch
-// (0 on success). Launches on `stream` and does not synchronise.
+// 16-byte aligned (the caller checks).
+//
+// scratch == nullptr runs the serial design. Otherwise (bf16, D 64 or 128,
+// Hq / Hkv <= 16: swi_flash_decode_splits says so) the split design with
+// `splits` chunks of `chunk` positions (chunk % 64 == 0, splits * chunk >=
+// smax), and scratch holds B * Hq * splits * (D + 2) f32.
+//
+// Returns the cudaError_t of the launch (0 on success). Launches on
+// `stream` and does not synchronise.
 extern "C" int swi_flash_decode(const void* q, const void* k_cache,
                                 const void* v_cache, const void* lengths,
-                                void* out, int b, int hq, int hkv, int d,
-                                int smax, long long stride_b,
-                                long long stride_s, int dtype, void* stream) {
+                                void* out, void* scratch, int b, int hq,
+                                int hkv, int d, int smax, long long stride_b,
+                                long long stride_s, int splits, int chunk,
+                                int dtype, void* stream) {
   if (b <= 0 || hkv <= 0 || hq % hkv != 0 || d % 4 != 0 || d > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(hq / hkv, d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch != nullptr) {
+    if (!split_ok(hq, hkv, d, dtype) || splits <= 0 || chunk <= 0 ||
+        chunk % kSplitTile != 0 ||
+        static_cast<long long>(splits) * chunk < smax)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (d == 64)
+      return static_cast<int>(launch_split<64>(
+          q, k_cache, v_cache, lengths, out, scratch, b, hq, hkv, smax,
+          stride_b, stride_s, splits, chunk, s));
+    return static_cast<int>(launch_split<128>(
+        q, k_cache, v_cache, lengths, out, scratch, b, hq, hkv, smax,
+        stride_b, stride_s, splits, chunk, s));
+  }
+  const size_t smem = serial_smem(hq / hkv, d);
   if (dtype == 0)
-    return static_cast<int>(launch<float>(q, k_cache, v_cache, lengths, out,
-                                          b, hq, hkv, d, smax, stride_b,
-                                          stride_s, smem, s));
+    return static_cast<int>(launch_serial<float>(
+        q, k_cache, v_cache, lengths, out, b, hq, hkv, d, smax, stride_b,
+        stride_s, smem, s));
   if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(
+    return static_cast<int>(launch_serial<__nv_bfloat16>(
         q, k_cache, v_cache, lengths, out, b, hq, hkv, d, smax, stride_b,
         stride_s, smem, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// 1 when (hq, hkv, d, dtype) takes the split design, else 0.
+extern "C" int swi_flash_decode_splits(int hq, int hkv, int d, int dtype) {
+  return hkv > 0 && hq % hkv == 0 && split_ok(hq, hkv, d, dtype) ? 1 : 0;
+}
+
 // Shared memory bytes one launch needs, so the caller can refuse shapes the
 // card cannot hold before launching.
-extern "C" long long swi_flash_decode_smem(int hq, int hkv, int d) {
-  return static_cast<long long>(smem_bytes(hq / hkv, d));
+extern "C" long long swi_flash_decode_smem(int hq, int hkv, int d,
+                                           int dtype) {
+  if (swi_flash_decode_splits(hq, hkv, d, dtype))
+    return static_cast<long long>(d == 64 ? split_smem<64>()
+                                          : split_smem<128>());
+  return static_cast<long long>(serial_smem(hq / hkv, d));
 }

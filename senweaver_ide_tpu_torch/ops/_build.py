@@ -102,13 +102,17 @@ def _bind(name: str, cdll: ctypes.CDLL) -> None:
         occ.restype = i
     elif name == "flash_decode":
         fn = cdll.swi_flash_decode
-        fn.argtypes = [p, p, p, p, p,                # q k v lengths out
+        fn.argtypes = [p, p, p, p, p, p,   # q k v lengths out scratch
                        i, i, i, i, i,                # b hq hkv d smax
                        ctypes.c_longlong, ctypes.c_longlong,  # strides
+                       i, i,                         # splits, chunk
                        i, p]                         # dtype code, stream
         fn.restype = i
+        sp = cdll.swi_flash_decode_splits
+        sp.argtypes = [i, i, i, i]
+        sp.restype = i
         sm = cdll.swi_flash_decode_smem
-        sm.argtypes = [i, i, i]
+        sm.argtypes = [i, i, i, i]
         sm.restype = ctypes.c_longlong
 
 

@@ -38,6 +38,14 @@ from .attention import MASKED_THRESHOLD, NEG_INF
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)          # the kernels' template instances
 _INT32_MAX = 2 ** 31 - 1
+# The CUDA kernels behind each wrapper, for attributing profiler time:
+# f32 and bf16 instances, and dK/dV's fold pass.
+KERNEL_NAMES = {
+    "fwd": ("fa_fwd_kernel", "fa_fwd_mma_kernel"),
+    "dkdv": ("fa_bwd_dkdv_kernel", "fa_bwd_dkdv_mma_kernel",
+             "fa_bwd_dkdv_fold_kernel"),
+    "dq": ("fa_bwd_dq_kernel", "fa_bwd_dq_mma_kernel"),
+}
 
 
 def _bias_of(kv_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

@@ -15,12 +15,19 @@ Two versions of one function:
   for CPU tensors. A CUDA tensor never falls back: the kernel launches or
   the call raises.
 
+In bf16 the kernel splits each slot's positions into chunks over several
+blocks and merges their partial softmax states in a second pass;
+:func:`split_plan` picks the chunks on the host from the shapes alone, so
+no length is read back from the device.
+
 ``lengths[b]`` counts valid cache positions including the current
 token's freshly written k/v (the transformer writes, then attends). A
 slot with length 0 yields zeros, as the TPU kernel's ``safe_l`` does.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -30,6 +37,26 @@ from .attention import attention
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256        # the kernel's register prefetch bound
 _MAX_SMEM = 227 * 1024
+FD_TILE = 64               # positions a K/V tile of the split kernel holds
+BLOCKS_PER_SM = 4          # split blocks a plan asks for, per SM
+H100_SMS = 132
+# The CUDA kernels behind flash_decode, for attributing profiler time: the
+# split design's two passes and the serial design.
+KERNEL_NAMES = ("fd_split_kernel", "fd_merge_kernel", "fd_serial_kernel")
+
+
+def split_plan(b: int, hkv: int, smax: int,
+               sms: int = H100_SMS) -> tuple:
+    """(splits, chunk) of the split kernel for a (B, Smax, Hkv, D) cache:
+    ``chunk`` positions (a multiple of :data:`FD_TILE`) per block, block
+    s covering positions ``[s * chunk, (s + 1) * chunk)``, so that ``B *
+    Hkv * splits`` asks for about :data:`BLOCKS_PER_SM` blocks per SM.
+    Shapes only: the lengths stay on the device, and a block whose chunk
+    starts at or past its slot's length exits at once."""
+    tiles = max(1, -(-smax // FD_TILE))
+    want = max(1, -(-(BLOCKS_PER_SM * sms) // max(1, b * hkv)))
+    chunk = -(-tiles // min(tiles, want)) * FD_TILE
+    return -(-max(smax, 1) // chunk), chunk
 
 
 def _prepare(q, lengths):
@@ -55,6 +82,11 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.where((lengths > 0)[:, None, None, None], out,
                       torch.zeros((), dtype=out.dtype, device=out.device))
     return out[:, 0] if squeeze else out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(q, k_cache, v_cache, lengths):
@@ -130,17 +162,25 @@ def flash_decode(q: torch.Tensor,          # (B, 1, Hq, D) or (B, Hq, D)
     if b == 0:
         return out[:, 0] if squeeze else out
     lib = _build.library("flash_decode")
-    smem = lib.swi_flash_decode_smem(hq, hkv, d)
+    code = _DTYPE_CODES[q4.dtype]
+    smem = lib.swi_flash_decode_smem(hq, hkv, d, code)
     if smem > _MAX_SMEM:
         raise ValueError(f"flash_decode needs {smem} bytes of shared memory "
                          f"at Hq={hq} Hkv={hkv} D={d}; the card gives a "
                          f"block at most {_MAX_SMEM}")
+    splits, chunk, scratch = 0, 0, None
+    if lib.swi_flash_decode_splits(hq, hkv, d, code):
+        splits, chunk = split_plan(b, hkv, smax, _sm_count(q.device))
+        # fp32 partials: acc (B, Hkv, splits, rep, D), then (m, l) per row
+        scratch = torch.empty(b * hq * splits * (d + 2),
+                              dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.swi_flash_decode(
             q4.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), b, hq, hkv, d, smax,
-            k_cache.stride(0), k_cache.stride(1), _DTYPE_CODES[q4.dtype],
+            lengths.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, hq, hkv, d,
+            smax, k_cache.stride(0), k_cache.stride(1), splits, chunk, code,
             stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed with "

@@ -300,3 +300,48 @@ def _assert_kernel_close(got, want, dtype):
         bound = 1e-2 + 1e-2 * want.abs() + 5e-3 * want.abs().max()
         assert err.pow(2).mean().sqrt() <= 1e-2 * want.pow(2).mean().sqrt()
     assert bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["causal", "s17", "s65", "s1025",
+                                     "offsets_skv", "d64_window", "masked",
+                                     "non_causal_masked"])
+def test_cuda_dq_alone_matches_plain(variant):
+    """The bf16 dQ kernel fed the plain forward's lse and delta, so a fault
+    in the forward cannot hide one in dQ; two launches bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    spec = dict(CUDA_VARIANTS[variant])
+    opts = {n: spec.pop(n) for n in ("q_offset", "kv_offset", "causal")
+            if n in spec}
+    empty_row = spec.get("masked") == "row1_empty"
+    q, k, v, gout, mask, kw = _cuda_case(torch.bfloat16, **spec)
+    if empty_row:
+        mask[1] = False
+    kw.update(opts)
+    bias = tfa._bias_of(mask)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, gout))
+    r_out, r_lse = tfa.flash_attention_fwd_plain(qf, kf, vf, bias, **kw)
+    delta = tfa._delta(gf, r_out)
+    want = tfa._bwd_plain(qf, kf, vf, bias, gf, r_lse, delta, **kw)[0]
+    before = tfa.flash_attention_bwd_dq.launches
+    dq = tfa.flash_attention_bwd_dq(q, k, v, bias, gout, r_lse, delta, **kw)
+    again = tfa.flash_attention_bwd_dq(q, k, v, bias, gout, r_lse, delta,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_dq.launches == before + 2
+    _assert_kernel_close(dq.float(), want, torch.bfloat16)
+    assert torch.equal(dq, again)
+
+
+def test_kernel_names_are_the_sources_kernels():
+    """KERNEL_NAMES (what the train profile attributes to each K2 wrapper)
+    lists every kernel csrc/flash_attention.cu defines, each once."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(tfa.__file__), os.pardir,
+                            "csrc", "flash_attention.cu")).read()
+    defined = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                         r"\s+)?(\w+)\s*\(", src)
+    named = [n for names in tfa.KERNEL_NAMES.values() for n in names]
+    assert sorted(defined) == sorted(named)
