@@ -10,8 +10,15 @@ Phases, each fatal on failure:
    source, in parallel) and print nvcc's register / shared-memory report.
 3. Kernel vs plain, K1: paged_flash_decode at Qwen2.5-Coder-1.5B attention
    shapes on bf16, int8 and fp8 pools: ragged lengths, aliased tables
-   and poisoned dead blocks against the plain PyTorch version, then
-   kernel / plain times with CUDA events beside the bytes bound.
+   and poisoned dead blocks against the plain PyTorch version; lengths
+   on the split plan's chunk and tile edges (and 0: exact zeros); the
+   mixed step, prefill segments across chunk edges and segments whose
+   tiles' shorter row ends on a warp's 16-position step, in query tiles
+   and untiled; NaN past every length (or tile's reach) and a second
+   launch must leave the output bit-identical. Then kernel / plain
+   times with CUDA events beside the bytes bound at the decode step (16
+   rows, lengths 128..2048) and the mixed step (those 16 rows plus a
+   40-token and an 8-token prefill segment, T = 64, in query tiles).
 4. Serving: RolloutEngine at full qwen2.5-coder-1.5b width (random
    weights from --seed) answers 32 sampled requests on the bf16 pool,
    then short greedy runs on the int8 and fp8 ladders; the kernel's
@@ -75,7 +82,6 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_FLOPS = 67e12             # H100 SXM, non-tensor-core fp32
 # Kernel vs plain: both accumulate in fp32; a bf16 output rounds at
 # 2**-9 relative, so |kernel - plain_fp32| <= ATOL + RTOL * |plain_fp32|.
 KERNEL_ATOL = KERNEL_RTOL = 1e-2
@@ -242,20 +248,162 @@ def _poison(torch, pool, tables, lengths, bs, poison_block):
     return (k, v, ks, vs), tables
 
 
-def phase_kernel(torch, cfg, timer):
-    """paged_flash_decode against its plain version on the card."""
+# K1's mixed timing step: a 16-row decode batch plus two chunked-prefill
+# segments, as the engine's flat batch lays them out (decode rows first),
+# T = 64, the step budget: (first position, tokens) of each segment.
+K1_SEGMENTS = ((984, 40), (0, 8))
+K1_BS, K1_MB = 16, 128
+
+
+def _k1_err(out, ref):
+    """(max |kernel - plain|, whether every element is in tolerance)"""
+    diff = (out.float() - ref).abs()
+    within = diff <= KERNEL_ATOL + KERNEL_RTOL * ref.abs()
+    return float(diff.max()), bool(within.all())
+
+
+def _k1_nan_poison(torch, pool, tables, lengths, bs, q_tiles=None):
+    """Copies of the pool and tables where every (block, position) that no
+    entry's tile reaches holds NaN (an int8 payload 127 with a NaN scale)
+    and every table entry past a tile's reach points at an all-NaN block
+    appended to the pool. A tile reaches its longest entry's length."""
+    k, v, ks, vs = pool
+    lens = lengths.tolist()
+    reach = list(lens)
+    if q_tiles is not None:
+        for first, count in q_tiles.tolist():
+            reach[first:first + count] = [max(lens[first:first + count])] \
+                * count
+    nb, bs_ = k.shape[0], k.shape[1]
+    live = torch.zeros(nb + 1, bs_, dtype=torch.bool)
+    tbl = tables.cpu().clone()
+    for t, n in enumerate(reach):
+        nblk = -(-n // bs)
+        if nblk:
+            live[tbl[t, :nblk - 1].long()] = True
+            live[int(tbl[t, nblk - 1]), :n - (nblk - 1) * bs] = True
+        tbl[t, nblk:] = nb
+    dead = (~live).to(k.device)
+    out = []
+    for a in (k, v):
+        a = torch.cat([a, a[:1]])
+        if a.dtype == torch.int8:
+            a[dead] = 127
+        elif a.element_size() == 1:               # fp8 e4m3fn: NaN 0x7f
+            a.view(torch.uint8)[dead] = 0x7F
+        else:
+            a[dead] = float("nan")
+        out.append(a)
+    for s in (ks, vs):
+        if s is None:
+            out.append(None)
+            continue
+        s = torch.cat([s, s[:1]])
+        s[dead] = float("nan")
+        out.append(s)
+    return tuple(out), tbl.to(tables.device).contiguous()
+
+
+def _k1_check(torch, label, q, pool, tables, lengths, q_tiles=None):
+    """The kernel against its plain version on one batch: within
+    tolerance, exact zeros for length 0, bit-identical across two launches
+    and with NaN in every position no tile reaches. Returns the max
+    error."""
     from senweaver_ide_tpu_torch.ops.paged_attention import (
         paged_flash_decode, paged_flash_decode_plain)
-    hq, hkv, d, bs = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 16)
-    mb = 2048 // bs
+    bs = pool[0].shape[1]
+    out = paged_flash_decode(q, *pool[:2], tables, lengths, *pool[2:],
+                             q_tiles=q_tiles)
+    again = paged_flash_decode(q, *pool[:2], tables, lengths, *pool[2:],
+                               q_tiles=q_tiles)
+    torch.cuda.synchronize()
+    ref = paged_flash_decode_plain(q.float(), *pool[:2], tables, lengths,
+                                   *pool[2:])
+    e, ok = _k1_err(out, ref)
+    if not ok:
+        fail(f"paged_flash_decode {label}: kernel vs plain max err {e}")
+    if bool(out[lengths == 0].ne(0).any()):
+        fail(f"paged_flash_decode {label}: a length-0 row is not 0")
+    if not torch.equal(out, again):
+        fail(f"paged_flash_decode {label}: two launches on the same inputs "
+             f"differ")
+    ppool, ptables = _k1_nan_poison(torch, pool, tables, lengths, bs,
+                                    q_tiles)
+    out_p = paged_flash_decode(q, *ppool[:2], ptables, lengths, *ppool[2:],
+                               q_tiles=q_tiles)
+    torch.cuda.synchronize()
+    if not torch.equal(out_p, out):
+        fail(f"paged_flash_decode {label}: NaN past the lengths moved the "
+             f"output")
+    return e
+
+
+def _k1_seq_batch(torch, g, variant, cfg, seq_lens, entries):
+    """A flat batch over sequences of ``seq_lens`` tokens, each with its
+    own table row of K1_MB random blocks: ``entries`` lists (sequence,
+    position) pairs. Returns (q, pool, tables per entry, lengths, seq_row,
+    positions as host tensors)."""
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n = len(seq_lens)
+    nb = n * K1_MB
+    pool = _pool(torch, variant, nb, K1_BS, hkv, d, g)
+    seq_tables = torch.randperm(nb, generator=g, device="cuda").view(
+        n, K1_MB).to(torch.int32)
+    seq_row = torch.tensor([s for s, _ in entries])
+    positions = torch.tensor([p for _, p in entries])
+    tables = seq_tables[seq_row.cuda()].contiguous()
+    lengths = (positions + 1).to(torch.int32).cuda()
+    q = torch.randn(len(entries), hq, d, generator=g,
+                    device="cuda").bfloat16()
+    return q, pool, tables, lengths, seq_row, positions
+
+
+def k1_mixed_entries(decode_lengths):
+    """(sequence lengths, entries) of the mixed step: one decode entry per
+    decode length, then K1_SEGMENTS' prefill segments of two more
+    sequences."""
+    seq_lens = list(decode_lengths) + [p + n for p, n in K1_SEGMENTS]
+    entries = [(i, n - 1) for i, n in enumerate(decode_lengths)]
+    for j, (p0, n) in enumerate(K1_SEGMENTS):
+        entries += [(len(decode_lengths) + j, p) for p in range(p0, p0 + n)]
+    return seq_lens, entries
+
+
+def _k1_bound(pool, q, lengths, reach, n_tiles=0):
+    """(bytes, flops): the KV of every distinct (block, position) read
+    once at its stored width with its scales (``reach``: the positions
+    read in each table row), q read and out written once, the live table
+    entries, the lengths and the tiles."""
+    hkv, d = pool[0].shape[2], pool[0].shape[3]
+    per_pos = hkv * 2 * (d * pool[0].element_size()
+                         + (4 if pool[2] is not None else 0))
+    live_blocks = sum(-(-n // K1_BS) for n in reach)
+    nbytes = (sum(reach) * per_pos + 2 * q.numel() * 2 + live_blocks * 4
+              + lengths.numel() * 4 + n_tiles * 8)
+    flops = 4 * q.shape[1] * d * int(lengths.sum())
+    return nbytes, flops
+
+
+def phase_kernel(torch, cfg, timer):
+    """paged_flash_decode (K1) against its plain version on the card, then
+    its times at the decode and the mixed step shape beside the bound."""
+    from senweaver_ide_tpu_torch.ops.paged_attention import (
+        TILE_ROWS, kernel_resources, paged_flash_decode,
+        paged_flash_decode_plain, query_tiles)
+    from senweaver_ide_tpu_torch.ops.flash_decode import split_plan
+    hq, hkv, d, bs = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, K1_BS)
+    rep = hq // hkv
+    mb = K1_MB
+    cap = mb * bs
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(1)
     results = {}
-
-    def err_of(out, ref):
-        """(max |kernel - plain|, whether every element is in tolerance)"""
-        diff = (out.float() - ref).abs()
-        within = diff <= KERNEL_ATOL + KERNEL_RTOL * ref.abs()
-        return float(diff.max()), bool(within.all())
+    res = kernel_resources(d)
+    for name, r in res.items():
+        log(f"[kernel] split pass, {name} pool, D={d}: {r['registers']} "
+            f"registers/thread, {r['smem_bytes']} dynamic smem bytes, "
+            f"{r['threads']} threads, {r['blocks_per_sm']} blocks/SM "
+            f"resident")
 
     for variant in ("bf16", "int8", "fp8"):
         worst = 0.0
@@ -273,7 +421,7 @@ def phase_kernel(torch, cfg, timer):
         torch.cuda.synchronize()
         ref = paged_flash_decode_plain(q.float(), pool[0], pool[1], tables,
                                        lengths, pool[2], pool[3])
-        e, ok = err_of(out, ref)
+        e, ok = _k1_err(out, ref)
         if not ok:
             fail(f"{variant} ragged: kernel vs plain max err {e}")
         worst = max(worst, e)
@@ -296,12 +444,66 @@ def phase_kernel(torch, cfg, timer):
         ref_a = paged_flash_decode_plain(qa.float(), pool[0], pool[1],
                                          tables_a, lengths_a, pool[2],
                                          pool[3])
-        e, ok = err_of(out_a, ref_a)
+        e, ok = _k1_err(out_a, ref_a)
         if not ok:
             fail(f"{variant} aliased: kernel vs plain max err {e}")
         worst = max(worst, e)
 
-        # timing: one decode-shaped batch, 16 rows spread to 2048
+        # lengths on the split plan's chunk and tile edges (the batch's
+        # own plan), and 0
+        _, chunk = split_plan(11, hkv, cap, sms)
+        lens = [0, 1, 63, 64, 65, chunk - 1, chunk, chunk + 1,
+                2 * chunk + 1, cap - 1, cap]
+        q_e, pool_e, tables_e, lengths_e, _, _ = _k1_seq_batch(
+            torch, g, variant, cfg, lens, [(i, max(n, 1) - 1)
+                                           for i, n in enumerate(lens)])
+        lengths_e[0] = 0
+        e = _k1_check(torch, f"{variant} edges (chunk {chunk})", q_e,
+                      pool_e, tables_e, lengths_e)
+        worst = max(worst, e)
+        log(f"[kernel] {variant} lengths {lens} (chunk {chunk}): max "
+            f"|kernel - plain| {e:.3g}; length 0 exact zeros, NaN past each "
+            f"length and a second launch bit-identical")
+        # tiled against untiled against plain: the mixed step; segments
+        # across the chunk edges of their tiles' plan; and segments from
+        # positions 15, 31 and chunk + 47, whose first tile's shorter row
+        # ends on a warp's 16-position step (c0 + 16, 32, 48) inside a
+        # live split, so that step is wholly past that row's length
+        decode = torch.linspace(128, 2048, 16).round().int().tolist()
+        seq_lens, entries = k1_mixed_entries(decode)
+        per_tile = TILE_ROWS // rep
+        seg_tiles = 16 + 2 * -(-10 // per_tile)   # decode + 2 x 10 entries
+        _, chunk_t = split_plan(seg_tiles, hkv, cap, sms)
+        _, chunk_w = split_plan(seg_tiles + -(-10 // per_tile), hkv, cap,
+                                sms)
+        starts = {"edges": (chunk_t - 4, 2 * chunk_t - 7),
+                  "steps": (15, 31, chunk_w + 47)}
+        for p0s in starts.values():
+            for p0 in p0s:
+                seq_lens.append(p0 + 10)
+                entries += [(len(seq_lens) - 1, p)
+                            for p in range(p0, p0 + 10)]
+        cases = (("mixed step", entries[:64]),
+                 ("segments across chunk edges",
+                  entries[:16] + entries[64:84]),
+                 ("segments from warp-step edges",
+                  entries[:16] + entries[84:]))
+        for label, ents in cases:
+            q_m, pool_m, tables_m, lengths_m, seq_row, pos = _k1_seq_batch(
+                torch, g, variant, cfg, seq_lens, ents)
+            errs = []
+            for tiled in (True, False):
+                tiles = query_tiles(seq_row, pos, rep) if tiled else None
+                name = f"{TILE_ROWS}-row tiles" if tiled else "untiled"
+                e = _k1_check(torch, f"{variant} {label} {name}", q_m,
+                              pool_m, tables_m, lengths_m, tiles)
+                worst = max(worst, e)
+                errs.append(f"{name} {e:.3g}")
+            log(f"[kernel] {variant} {label}: T={len(ents)}, max |kernel - "
+                f"plain| " + ", ".join(errs) + "; NaN past the tiles' reach "
+                f"and a second launch bit-identical")
+
+        # timing 1: one decode-shaped batch, 16 rows spread to 2048
         tt = 16
         lengths_t = torch.linspace(128, 2048, tt, device="cuda").round().to(
             torch.int32)
@@ -315,37 +517,74 @@ def phase_kernel(torch, cfg, timer):
         kernel_ms = timer.ms(lambda: paged_flash_decode(*args))
         plain_ms = timer.ms(lambda: paged_flash_decode_plain(*args))
         ref_t = paged_flash_decode_plain(q_t.float(), *args[1:])
-        e, ok = err_of(paged_flash_decode(*args), ref_t)
+        e, ok = _k1_err(paged_flash_decode(*args), ref_t)
         if not ok:
             fail(f"{variant} timing batch: kernel vs plain max err {e}")
         worst = max(worst, e)
         # the bound: distinct KV positions the tables reach (distinct
         # tables here, so the sum of lengths) x heads x (K + V payload
         # + scales), plus q, out, the live table entries and lengths
-        positions = int(lengths_t.sum())
-        per_pos = hkv * 2 * (d * pool_t[0].element_size()
-                             + (4 if pool_t[2] is not None else 0))
-        live_blocks = int(((lengths_t + bs - 1) // bs).sum())
-        nbytes = (positions * per_pos + 2 * q_t.numel() * 2
-                  + live_blocks * 4 + tt * 4)
-        flops = 4 * hq * d * positions
+        nbytes, flops = _k1_bound(pool_t, q_t, lengths_t,
+                                  lengths_t.tolist())
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / FP32_FLOPS * 1e3
+        ops_ms = flops / BF16_FLOPS * 1e3
         # reference only, never called by the port: SDPA over K/V that
         # were gathered out of the pool beforehand
         sdpa_ms = _sdpa_pregathered_ms(torch, timer, args, hkv, bs)
+        splits, chunk = split_plan(tt, hkv, cap, sms)
+
+        # timing 2: the mixed step, T = 64 in query tiles
+        q_m, pool_m, tables_m, lengths_m, seq_row, pos = _k1_seq_batch(
+            torch, g, variant, cfg, *k1_mixed_entries(
+                lengths_t.tolist()))
+        tiles = query_tiles(seq_row, pos, rep)
+        margs = (q_m, pool_m[0], pool_m[1], tables_m, lengths_m, pool_m[2],
+                 pool_m[3])
+        tiles_dev = tiles.cuda()          # as forward_paged passes them
+        mixed_ms = timer.ms(lambda: paged_flash_decode(
+            *margs, q_tiles=tiles_dev))
+        untiled_ms = timer.ms(lambda: paged_flash_decode(*margs))
+        mixed_plain_ms = timer.ms(lambda: paged_flash_decode_plain(*margs))
+        e, ok = _k1_err(paged_flash_decode(*margs, q_tiles=tiles),
+                        paged_flash_decode_plain(q_m.float(), *margs[1:]))
+        if not ok:
+            fail(f"{variant} mixed timing batch: kernel vs plain max err "
+                 f"{e}")
+        worst = max(worst, e)
+        reach = lengths_t.tolist() + [p + n for p, n in K1_SEGMENTS]
+        m_bytes, m_flops = _k1_bound(pool_m, q_m, lengths_m, reach,
+                                     tiles.shape[0])
+        m_bound = max(m_bytes / HBM_BYTES_PER_S, m_flops / BF16_FLOPS) * 1e3
+        m_splits, m_chunk = split_plan(tiles.shape[0], hkv, cap, sms)
         results[variant] = {
             "max_abs_err": worst, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "flops": flops,
-            "sdpa_pregathered_ms": sdpa_ms}
+            "bytes": nbytes, "flops": flops, "splits": splits,
+            "chunk": chunk, "sdpa_pregathered_ms": sdpa_ms,
+            "mixed_ms": mixed_ms, "mixed_untiled_ms": untiled_ms,
+            "mixed_plain_ms": mixed_plain_ms, "mixed_bound_ms": m_bound,
+            "mixed_bound_by": "bytes" if m_bytes / HBM_BYTES_PER_S >=
+            m_flops / BF16_FLOPS else "operations",
+            "mixed_bytes": m_bytes, "mixed_tiles": int(tiles.shape[0]),
+            "mixed_splits": m_splits, "mixed_chunk": m_chunk,
+            "resources": res[variant]}
         log(f"[kernel] {variant}: max_abs_err {worst:.3g} (tol "
-            f"{KERNEL_ATOL}+{KERNEL_RTOL}*|ref|); T={tt} lengths 128..2048: "
-            f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes} bytes, {flops} "
-            f"flops); SDPA on pre-gathered K/V (reference only) "
-            f"{sdpa_ms:.4f} ms")
+            f"{KERNEL_ATOL}+{KERNEL_RTOL}*|ref|); decode T={tt} lengths "
+            f"128..2048, {splits} splits of {chunk}: kernel "
+            f"{kernel_ms:.4f} ms = {nbytes / kernel_ms / 1e9:.3f} TB/s, "
+            f"{max(bytes_ms, ops_ms) / kernel_ms:.3f} of the bound; plain "
+            f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+            f"({nbytes} bytes, {flops} flops); SDPA on pre-gathered K/V "
+            f"(reference only) {sdpa_ms:.4f} ms")
+        log(f"[kernel] {variant}: mixed step T={q_m.shape[0]} (16 decode "
+            f"rows, segments {K1_SEGMENTS}) in {tiles.shape[0]} tiles, "
+            f"{m_splits} splits of {m_chunk}: kernel {mixed_ms:.4f} ms = "
+            f"{m_bound / mixed_ms:.3f} of the bound, untiled "
+            f"{untiled_ms:.4f} ms; plain "
+            f"{mixed_plain_ms:.4f} ms, bound "
+            f"{m_bound:.4f} ms ({m_bytes} bytes: each distinct (block, "
+            f"position) once)")
     return results
 
 
@@ -1378,7 +1617,18 @@ def main(argv=None) -> int:
             "library_ms": None,
             "library_note": "no single PyTorch call reads KV through a "
                             "block table",
-            "sdpa_pregathered_ms": r["sdpa_pregathered_ms"]})
+            "sdpa_pregathered_ms": r["sdpa_pregathered_ms"],
+            "splits": r["splits"], "chunk": r["chunk"],
+            "mixed_ms": r["mixed_ms"],
+            "mixed_untiled_ms": r["mixed_untiled_ms"],
+            "mixed_plain_ms": r["mixed_plain_ms"],
+            "mixed_bound_ms": r["mixed_bound_ms"],
+            "mixed_bound_by": r["mixed_bound_by"],
+            "mixed_bytes": r["mixed_bytes"],
+            "mixed_tiles": r["mixed_tiles"],
+            "mixed_splits": r["mixed_splits"],
+            "mixed_chunk": r["mixed_chunk"],
+            "resources": r["resources"]})
     replaces = {"fwd": "senweaver_ide_tpu/ops/flash_attention.py:48",
                 "dkdv": "senweaver_ide_tpu/ops/flash_attention.py:177",
                 "dq": "senweaver_ide_tpu/ops/flash_attention.py:177"}

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The attention kernels of one tree, each on its own: K2 (flash
-attention, bf16) by default, K3 (flash_decode) with ``--k3``.
+attention, bf16) by default, K3 (flash_decode) with ``--k3``, K1
+(paged_flash_decode) with ``--k1``.
 
-    python3 scripts/torch_flash_ab.py TAG [--k3]     # from a tree's root
+    python3 scripts/torch_flash_ab.py TAG [--k3 | --k1]  # from a tree's root
 
 K2: holds the forward, the dK/dV and the dQ kernel separately against
 their plain versions on the training path's shape and the tiles' edge
@@ -21,6 +22,15 @@ tails and a second launch bit-identical), then times it the same way at
 16 slots x 4096 positions (lengths 512..4096) at the Mistral-7B heads
 (32/8) and the Qwen2.5-Coder-1.5B heads (12/2), beside SDPA with a length
 mask.
+
+K1: holds paged_flash_decode against its plain version on bf16, int8 and
+fp8 pools (Qwen2.5-Coder-1.5B heads 12/2, D 128, block 16, 128 blocks a
+table row) at lengths on chunk and tile edges and on the mixed step, in
+query tiles where the tree has them (a second launch bit-identical),
+then times it at the decode step (16 rows, lengths 128..2048) and the
+mixed step (those rows plus a 40-token and an 8-token prefill segment,
+T = 64) beside the bytes bound. The batches come from this script's own
+tree's ``chip_smoke.py``, so both trees run the same inputs.
 
 To compare two designs on one card, run it from both trees' roots in one
 command; every line carries TAG. Needs a CUDA card.
@@ -245,14 +255,114 @@ def _time_k3(c, torch, tag, timer, no_spin, batch, F, flash_decode):
         _profile(torch, timer, calls, r"(?<![A-Za-z])fd_\w*?kernel", tag)
 
 
+def _this_tree_smoke():
+    """chip_smoke.py of the tree this script lives in (the batch functions
+    of K1's cases), whichever tree's package is imported."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("k1_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_k1(c, torch, tag, plans=(None,)):
+    from senweaver_ide_tpu_torch.models import qwen2_5_coder_1_5b
+    from senweaver_ide_tpu_torch.ops import flash_decode as fdm
+    from senweaver_ide_tpu_torch.ops import paged_attention as pam
+    cur = _this_tree_smoke()
+    cfg = qwen2_5_coder_1_5b()
+    rep = cfg.num_heads // cfg.num_kv_heads
+    tiled = hasattr(pam, "query_tiles")
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def call(q, pool, tables, lengths, tiles):
+        kw = {} if tiles is None else {"q_tiles": tiles}
+        return pam.paged_flash_decode(q, *pool[:2], tables, lengths,
+                                      *pool[2:], **kw)
+
+    def batch(variant, seq_lens, entries):
+        q, pool, tables, lengths, seq_row, pos = cur._k1_seq_batch(
+            torch, g, variant, cfg, seq_lens, entries)
+        # on the card, as forward_paged passes them
+        tiles = pam.query_tiles(seq_row, pos, rep).cuda() if tiled else None
+        return q, pool, tables, lengths, tiles
+
+    decode = torch.linspace(128, 2048, 16).round().int().tolist()
+    lens = [1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 257, 2047, 2048]
+    right = True
+    for variant in ("bf16", "int8", "fp8"):
+        for label, spec in (
+                ("edges", (lens, [(i, n - 1) for i, n in enumerate(lens)])),
+                ("mixed step", cur.k1_mixed_entries(decode))):
+            q, pool, tables, lengths, tiles = batch(variant, *spec)
+            try:
+                out, again = (call(q, pool, tables, lengths, tiles)
+                              for _ in range(2))
+                torch.cuda.synchronize()
+                ref = pam.paged_flash_decode_plain(q.float(), *pool[:2],
+                                                   tables, lengths,
+                                                   *pool[2:])
+                diff = (out.float() - ref).abs()
+                good = bool((diff <= c.KERNEL_ATOL
+                             + c.KERNEL_RTOL * ref.abs()).all())
+                same = torch.equal(out, again)
+                msg = (f"max err {float(diff.max()):.3g}"
+                       f"{'' if good else ' FAIL'}, two launches "
+                       f"{'bit-identical' if same else 'DIFFER'}")
+                right &= good and same
+            except Exception:  # report and go on
+                right = False
+                msg = f"raised {traceback.format_exc().splitlines()[-1]}"
+            print(f"[{tag}] k1 {variant} {label}"
+                  f"{' (tiled)' if tiles is not None else ''}: {msg}",
+                  flush=True)
+    print(f"[{tag}] k1 right: {right}", flush=True)
+    if not right:
+        return False
+    timer = c.Timer(torch)
+    default = getattr(fdm, "BLOCKS_PER_SM", None)
+    for per_sm in plans:
+        if per_sm is not None:
+            fdm.BLOCKS_PER_SM = per_sm
+            print(f"[{tag}] k1 plan: BLOCKS_PER_SM {per_sm}", flush=True)
+        for variant in ("bf16", "int8", "fp8"):
+            for label, spec in (
+                    ("decode T=16", (decode, [(i, n - 1) for i, n in
+                                              enumerate(decode)])),
+                    ("mixed T=64", cur.k1_mixed_entries(decode))):
+                q, pool, tables, lengths, tiles = batch(variant, *spec)
+                reach = spec[0]
+                nbytes, _ = cur._k1_bound(pool, q, lengths, reach,
+                                          0 if tiles is None
+                                          else tiles.shape[0])
+                calls = {"k1": lambda: call(q, pool, tables, lengths,
+                                            tiles)}
+                ms = [timer.ms(calls["k1"]) for _ in range(2)]
+                print(f"[{tag}] k1 {variant} {label}"
+                      f"{' tiled' if tiles is not None else ''}: bytes "
+                      f"bound {nbytes / c.HBM_BYTES_PER_S * 1e3:.4f} ms; "
+                      f"ms, two rounds: {ms[0]:.4f}, {ms[1]:.4f}",
+                      flush=True)
+                _profile(torch, timer, calls, r"pfd_\w*?kernel", tag)
+    if default is not None:
+        fdm.BLOCKS_PER_SM = default
+    return True
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tag")
     ap.add_argument("--k3", action="store_true",
                     help="flash_decode (K3) instead of the K2 kernels")
+    ap.add_argument("--k1", action="store_true",
+                    help="paged_flash_decode (K1) instead of the K2 "
+                         "kernels")
     ap.add_argument("--blocks-per-sm", default="",
-                    help="K3: comma-separated BLOCKS_PER_SM values of the "
-                         "split plan to time besides the tree's own")
+                    help="K3 and K1: comma-separated BLOCKS_PER_SM values "
+                         "of the split plan to time besides the tree's "
+                         "own")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -261,9 +371,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as c
     c.phase_device(torch)
+    plans = [None] + [int(x) for x in args.blocks_per_sm.split(",") if x]
     if args.k3:
-        plans = [None] + [int(x) for x in args.blocks_per_sm.split(",") if x]
         ok = run_k3(c, torch, args.tag, plans)
+    elif args.k1:
+        ok = run_k1(c, torch, args.tag, plans)
     else:
         ok = run_k2(c, torch, args.tag)
     return 0 if ok else 1

@@ -56,6 +56,7 @@ def main(argv=None) -> int:
     from senweaver_ide_tpu_torch.models import (init_params, mistral_7b,
                                                 qwen2_5_coder_1_5b)
     from senweaver_ide_tpu_torch.ops import flash_decode as fd_mod
+    from senweaver_ide_tpu_torch.ops import paged_attention as pa_mod
     from senweaver_ide_tpu_torch.rollout import RolloutEngine
     from torch.profiler import ProfilerActivity, profile
 
@@ -98,7 +99,7 @@ def main(argv=None) -> int:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d} calls  "
               f"{_device_us(e) / busy_us:6.3f}  {e.key[:90]}")
     name, tags = (("flash_decode (K3)", fd_mod.KERNEL_NAMES) if args.slots
-                  else ("paged_flash_decode (K1)", ("pfd_kernel",)))
+                  else ("paged_flash_decode (K1)", pa_mod.KERNEL_NAMES))
     per_tag = {tag: sum(_device_us(e) for e in events if tag in e.key)
                for tag in tags}
     attn = sum(per_tag.values())

@@ -67,13 +67,14 @@
 
 #include <cstdint>
 
+#include "split_kv.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;          // positions staged per iteration
 constexpr int kMaxD = 256;         // head_dim bound of the register prefetch
-constexpr float kNegInf = -1e30f;  // finite, as in the reference kernel
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -287,74 +288,8 @@ fd_serial_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
 }
 
 // -- bf16 split-KV: the serving path ------------------------------------------
-
-constexpr int kSplitTile = 64;     // positions a K/V tile holds
-constexpr int kSplitThreads = 128;  // 4 warps, 16 positions of a tile each
-constexpr int kStages = 2;         // the cp.async ring
-constexpr int kMaxRep = 16;        // query rows of one mma A operand
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy that does not pass through registers;
-// `valid` false writes 16 zero bytes and reads nothing (src-size 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l names row l % 8 of
-// matrix l / 8. Plain: lane T gets M[T/4][2(T%4)..+1] of each; trans: lane
-// T gets M[2(T%4)..+1][T/4].
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// mma.sync m16n8k16, bf16 in, fp32 accumulate. With g = lane / 4 and t =
-// lane % 4: A regs hold A[g][2t..], A[g+8][2t..], A[g][2t+8..],
-// A[g+8][2t+8..]; B regs B[2t..2t+1][g], B[2t+8..2t+9][g]; C holds
-// C[g][2t..2t+1] then C[g+8][2t..2t+1]. The lower index sits in the lower
-// 16 bits.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x; ex2(-inf) = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+// (its PTX wrappers, per-warp step and merges are split_kv.cuh's, shared
+// with K1)
 
 template <int kD>
 constexpr size_t split_smem() {  // the ring; the end-of-block merge reuses it
@@ -471,14 +406,8 @@ fd_split_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* kt = ring + 2 * (j % kStages) * kTileE;
     const __nv_bfloat16* vt = kt + kTileE;
 
-    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      uint32_t kf[4];
-      ldsm_x4(kf, kt + k_row * kLd + kk * 16 + k_col);
-      mma_bf16(sc[0], qa[kk], kf[0], kf[1]);
-      mma_bf16(sc[1], qa[kk], kf[2], kf[3]);
-    }
+    float sc[2][4];
+    score_step<kD>(sc, qa, kt + k_row * kLd + k_col);
     // positions past the length only on the tile that holds it
     const int p0 = c0 + j * TK + 16 * warp;
     const bool edge = c0 + j * TK + TK > c1;
@@ -490,52 +419,8 @@ fd_split_kernel(const __nv_bfloat16* __restrict__ q,
         if (edge && p0 + 8 * n + 2 * t + (e & 1) >= c1)
           sc[n][e] = -__int_as_float(0x7f800000);
       }
-    float mx0 = fmaxf(fmaxf(sc[0][0], sc[0][1]), fmaxf(sc[1][0], sc[1][1]));
-    float mx8 = fmaxf(fmaxf(sc[0][2], sc[0][3]), fmaxf(sc[1][2], sc[1][3]));
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx8 = fmaxf(mx8, __shfl_xor_sync(0xffffffffu, mx8, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn8 = fmaxf(m8, mx8);
-    const float cr0 = ex2(m0 - mn0), cr8 = ex2(m8 - mn8);
-    float sum0 = 0.f, sum8 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      sc[n][0] = ex2(sc[n][0] - mn0);
-      sc[n][1] = ex2(sc[n][1] - mn0);
-      sc[n][2] = ex2(sc[n][2] - mn8);
-      sc[n][3] = ex2(sc[n][3] - mn8);
-      sum0 += sc[n][0] + sc[n][1];
-      sum8 += sc[n][2] + sc[n][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum8 += __shfl_xor_sync(0xffffffffu, sum8, off);
-    }
-    l0 = cr0 * l0 + sum0;
-    l8 = cr8 * l8 + sum8;
-    m0 = mn0;
-    m8 = mn8;
-    // P (C fragments of the two n-tiles) as the A operand of one k-step
-    uint32_t pa[4];
-    pa[0] = pack_f2(sc[0][0], sc[0][1]);
-    pa[1] = pack_f2(sc[0][2], sc[0][3]);
-    pa[2] = pack_f2(sc[1][0], sc[1][1]);
-    pa[3] = pack_f2(sc[1][2], sc[1][3]);
-#pragma unroll
-    for (int dd = 0; dd < ND / 2; ++dd) {
-      uint32_t vf[4];
-      ldsm_x4_t(vf, vt + v_row * kLd + dd * 16 + v_col);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        o[2 * dd][e] *= e < 2 ? cr0 : cr8;
-        o[2 * dd + 1][e] *= e < 2 ? cr0 : cr8;
-      }
-      mma_bf16(o[2 * dd], pa, vf[0], vf[1]);
-      mma_bf16(o[2 * dd + 1], pa, vf[2], vf[3]);
-    }
+    softmax_pv_step<kD, false>(sc, m0, m8, l0, l8, o,
+                               vt + v_row * kLd + v_col, nullptr);
   }
 
   // merge the four warps' (m, l, acc) in warp order; the ring is free
@@ -543,44 +428,14 @@ fd_split_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   float* ml_s = reinterpret_cast<float*>(smem16);  // [4][16][2]
   float* acc_s = ml_s + 4 * kMaxRep * 2;           // [4][rep][kD]
-  if (t == 0) {
-    ml_s[(warp * kMaxRep + g) * 2] = m0;
-    ml_s[(warp * kMaxRep + g) * 2 + 1] = l0;
-    ml_s[(warp * kMaxRep + g + 8) * 2] = m8;
-    ml_s[(warp * kMaxRep + g + 8) * 2 + 1] = l8;
-  }
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (g < rep)
-      *reinterpret_cast<float2*>(acc_s + (warp * rep + g) * kD + c) =
-          make_float2(o[n][0], o[n][1]);
-    if (g + 8 < rep)
-      *reinterpret_cast<float2*>(acc_s + (warp * rep + g + 8) * kD + c) =
-          make_float2(o[n][2], o[n][3]);
-  }
+  stash_warp<kD>(ml_s, acc_s, rep, m0, l0, m8, l8, o);
   __syncthreads();
   const long long row0 =
       ((static_cast<long long>(b) * hkv + h) * splits + s) * rep;
   for (int i = threadIdx.x; i < rep * kD; i += kSplitThreads) {
     const int r = i / kD, c = i % kD;
-    float mw[4], lw[4], big = kNegInf;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      mw[w] = ml_s[(w * kMaxRep + r) * 2];
-      lw[w] = ml_s[(w * kMaxRep + r) * 2 + 1];
-      if (lw[w] > 0.f) big = fmaxf(big, mw[w]);
-    }
-    float sl = 0.f, acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      if (lw[w] > 0.f) {
-        const float f = ex2(mw[w] - big);
-        sl += lw[w] * f;
-        acc += acc_s[(w * rep + r) * kD + c] * f;
-      }
-    }
-    part_acc[row0 * kD + i] = acc;
+    float big, sl;
+    part_acc[row0 * kD + i] = merge_warps<kD>(ml_s, acc_s, rep, r, c, big, sl);
     if (c == 0) {
       part_ml[(row0 + r) * 2] = big;
       part_ml[(row0 + r) * 2 + 1] = sl;
@@ -611,28 +466,8 @@ fd_merge_kernel(const float* __restrict__ part_acc,
   const int length = min(max(lengths[b], 0), smax);
   const int n_live = (length + chunk - 1) / chunk;
   const long long base = (static_cast<long long>(b) * hkv + h) * splits;
-  float big = kNegInf, sl = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < n_live; ++s) {
-    const long long pr = (base + s) * rep + r;
-    const float m = part_ml[pr * 2], l = part_ml[pr * 2 + 1];
-    const float4 a = *reinterpret_cast<const float4*>(part_acc + pr * kD + c);
-    if (l > 0.f) {  // every live split has l > 0; an empty one weighs 0
-      const float nbig = fmaxf(big, m);
-      const float fo = ex2(big - nbig), f = ex2(m - nbig);
-      sl = sl * fo + l * f;
-      acc.x = acc.x * fo + a.x * f;
-      acc.y = acc.y * fo + a.y * f;
-      acc.z = acc.z * fo + a.z * f;
-      acc.w = acc.w * fo + a.w * f;
-      big = nbig;
-    }
-  }
-  const float inv = sl > 0.f ? 1.f / sl : 0.f;
-  uint2 pk;
-  pk.x = pack_f2(acc.x * inv, acc.y * inv);
-  pk.y = pack_f2(acc.z * inv, acc.w * inv);
-  *reinterpret_cast<uint2*>(out + static_cast<long long>(row) * kD + c) = pk;
+  merge_splits<kD>(part_acc, part_ml, base * rep + r, rep, n_live, c,
+                   out + static_cast<long long>(row) * kD);
 }
 
 template <int kD>

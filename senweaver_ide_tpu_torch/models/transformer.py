@@ -39,7 +39,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.flash_decode import flash_decode
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import (paged_flash_decode,
-                                   paged_flash_decode_plain)
+                                   paged_flash_decode_plain, query_tiles)
 from ..ops.rotary import apply_rope, rope_cos_sin
 from .config import ModelConfig
 
@@ -595,7 +595,8 @@ def _paged_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
                  keep: torch.Tensor, write_block: torch.Tensor,
                  write_off: torch.Tensor, use_kernel: bool,
                  k_scale_pool: Optional[torch.Tensor] = None,
-                 v_scale_pool: Optional[torch.Tensor] = None
+                 v_scale_pool: Optional[torch.Tensor] = None,
+                 q_tiles: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """One transformer block over one layer's paged pool.
 
@@ -607,7 +608,8 @@ def _paged_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
     before the attention read, so a prefill chunk's later tokens see its
     earlier ones within the same step. ``tables_tok`` is each entry's
     table row ``(T, MB)`` int32 and ``lengths`` its valid count
-    ``positions + 1``."""
+    ``positions + 1``; ``q_tiles`` the kernel's query tiles
+    (``ops.paged_attention.query_tiles``), or None."""
     t = x.shape[0]
     h = rms_norm(x, lp["attn_norm"], c.rms_norm_eps)
     q, k, v = _qkv(c, lp, h, cos, sin)       # q (T,1,Hq,Dh), k/v (T,1,Hkv,Dh)
@@ -626,7 +628,7 @@ def _paged_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
         v_pool[write_block, write_off] = v_new.to(v_pool.dtype)
     attend = paged_flash_decode if use_kernel else paged_flash_decode_plain
     out = attend(q[:, 0], k_pool, v_pool, tables_tok, lengths,
-                 k_scale_pool, v_scale_pool)
+                 k_scale_pool, v_scale_pool, q_tiles=q_tiles)
     x = x + _dense(out.reshape(t, 1, c.q_dim), lp, "wo")
     return _mlp(c, lp, x)
 
@@ -672,6 +674,15 @@ def forward_paged(
     keep = keep_host.to(dev)
     wb = wb_host[keep_host].to(dev)
     wo = write_off.to("cpu", torch.int64)[keep_host].to(dev)
+    q_tiles = None
+    if use_kernel and seq_row.device.type == "cpu" \
+            and positions.device.type == "cpu":
+        # one KV read per chunked-prefill tile, built on the host (no
+        # device sync; well-formed by construction) and moved to the card
+        # once for every layer's call, which takes device tiles unchecked
+        q_tiles = query_tiles(seq_row, positions,
+                              c.num_heads // c.num_kv_heads).to(
+                                  dev, non_blocking=True)
     tokens = tokens.to(dev, torch.int64)
     positions = positions.to(dev, torch.int64)
     tables_tok = tables.to(dev, torch.int64)[seq_row.to(dev, torch.int64)]
@@ -693,5 +704,6 @@ def forward_paged(
             kv = (pool.k[i], pool.v[i], None, None)
         x = _paged_layer(c, lp, x, cos, sin, kv[0], kv[1], tables_tok,
                          lengths, keep, wb, wo, use_kernel,
-                         k_scale_pool=kv[2], v_scale_pool=kv[3])
+                         k_scale_pool=kv[2], v_scale_pool=kv[3],
+                         q_tiles=q_tiles)
     return _logits(params, c, x)[:, 0], pool

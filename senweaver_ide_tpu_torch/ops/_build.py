@@ -4,8 +4,9 @@ Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds). Builds happen at first
 use, never at import, into ``senweaver_ide_tpu_torch/_build/`` (listed in
-``.gitignore``); the file name carries a hash of the source and flags,
-so an edited source rebuilds and an unchanged one loads as is.
+``.gitignore``); the file name carries a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source or header
+rebuilds and an unchanged one loads as is.
 :func:`build_all` starts one ``nvcc`` per source at once.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import glob
 import hashlib
 import os
 import shutil
@@ -69,6 +71,10 @@ def _target(name: str, nvcc: str) -> tuple:
     src = os.path.join(_PKG_DIR, SOURCES[name])
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read())
+    # the shared headers the sources include
+    for hdr in sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cuh"))):
+        with open(hdr, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
     out = os.path.join(BUILD_DIR,
                        f"lib{name}_{digest.hexdigest()[:16]}.so")
@@ -80,14 +86,22 @@ def _bind(name: str, cdll: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "paged_attention":
         fn = cdll.swi_paged_flash_decode
-        fn.argtypes = [p, p, p, p, p, p, p, p,      # tensors
-                       i, i, i, i, i, i,            # t hq hkv d bs mb
-                       i, i,                        # q / kv dtype codes
-                       p]                           # stream
+        fn.argtypes = [p] * 10 + [      # q k v scales tables lengths
+                                        # tiles out scratch
+                       i, i, i, i, i, i, i,   # t tiles hq hkv d bs mb
+                       i, i,                  # splits, chunk
+                       i, i,                  # q / kv dtype codes
+                       p]                     # stream
         fn.restype = i
+        sp = cdll.swi_paged_flash_decode_splits
+        sp.argtypes = [i, i, i, i, i]
+        sp.restype = i
         sm = cdll.swi_paged_flash_decode_smem
-        sm.argtypes = [i, i, i]
+        sm.argtypes = [i, i, i, i, i]
         sm.restype = ctypes.c_longlong
+        occ = cdll.swi_paged_flash_decode_occupancy
+        occ.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+        occ.restype = i
     elif name == "flash_attention":
         ll = ctypes.POINTER(ctypes.c_longlong)
         # tensor pointers, then the dims and strides arrays, dtype, stream

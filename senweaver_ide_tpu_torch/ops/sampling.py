@@ -21,9 +21,11 @@ def apply_temperature(logits: torch.Tensor,
 
 
 def apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """Mask all but the k highest logits."""
+    """Mask all but the k highest logits. A k past the vocabulary keeps
+    every logit, as the JAX version's clamped sort index does."""
     if k <= 0:
         return logits
+    k = min(k, logits.shape[-1])
     kth = torch.topk(logits, k, dim=-1).values[..., -1:]
     return torch.where(logits < kth, NEG_INF, logits)
 

@@ -244,3 +244,51 @@ def test_params_on_wrong_device_raise(weights):
     meta = {"embed": torch.empty(1, device="meta")}
     with pytest.raises(ValueError, match="params live on"):
         eng.update_params(meta)
+
+
+def test_query_tiles_on_engine_plans(weights):
+    """The kernel's query tiles, built from every fused step's flat batch
+    of a CPU engine run (decode rows, then prefill segments cut by the
+    step budget): they cover the entries in order, never cross a table
+    row or a position gap, hold at most TILE_ROWS // rep entries (one m16
+    row block of the kernel; at most 64 // rep), and keep decode rows
+    alone."""
+    from senweaver_ide_tpu_torch.ops.paged_attention import (
+        TILE_ROWS, check_query_tiles, query_tiles)
+    _, _, tparams, tcfg = weights
+    rep = tcfg.num_heads // tcfg.num_kv_heads
+    cap = TILE_ROWS // rep
+    eng = RolloutEngine(tparams, tcfg, num_slots=3, max_len=128,
+                        sample=SampleParams(0.0, 0, 1.0),
+                        engine_config=EngineConfig(block_size=4,
+                                                   step_tokens=40),
+                        device="cpu")
+    plans = []
+    assemble = eng._assemble_paged_plan
+
+    def capture():
+        plan = assemble()
+        if plan is not None:
+            plans.append(plan)
+        return plan
+
+    eng._assemble_paged_plan = capture
+    for n in (70, 45, 9, 33, 3):
+        eng.submit(list(range(1, n + 1)), max_new_tokens=12)
+    eng.run()
+    assert plans and any(len(p[5]) and len(p[6]) for p in plans)
+    long_runs = 0
+    for _, rows, pos, _, _, decode_rows, _ in plans:
+        tiles = query_tiles(torch.tensor(rows), torch.tensor(pos), rep)
+        check_query_tiles(tiles, len(rows), rep)
+        decode_idx = {i for i, _, _ in decode_rows}
+        for first, count in tiles.tolist():
+            span = range(first, first + count)
+            assert count <= cap <= 64 // rep
+            assert len({rows[i] for i in span}) == 1
+            assert [pos[i] for i in span] == list(
+                range(pos[first], pos[first] + count))
+            if first in decode_idx:
+                assert count == 1
+            long_runs += count == cap
+    assert long_runs > 0          # a segment longer than a tile was cut

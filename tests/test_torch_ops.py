@@ -138,6 +138,15 @@ def test_top_k_and_temperature(rng):
            jax_sampling.apply_temperature(jnp.asarray(logits), 0.7))
 
 
+@pytest.mark.parametrize("k", [8, 20])
+def test_top_k_at_or_past_vocab_keeps_all(rng, k):
+    logits = _randn(rng, 2, 8)
+    got = t_sampling.apply_top_k(torch.from_numpy(logits), k)
+    ref = jax_sampling.apply_top_k(jnp.asarray(logits), k)
+    _close(got, ref)
+    np.testing.assert_array_equal(got.numpy(), logits)
+
+
 @pytest.mark.parametrize("cutoff", [None, 8, 128])
 def test_top_p(rng, cutoff):
     logits = 3.0 * _randn(rng, 4, 200)
