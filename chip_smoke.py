@@ -63,8 +63,26 @@ Phases, each fatal on failure:
 11. Mistral logits: one ring decode step, K3 vs einsum; prefill_chunked
     of 4096 tokens then 64 decode steps past the window vs the no-cache
     forward with the window.
-12. A JSON line with every kernel's numbers, the card line, and last the
-    JSON ok line.
+12. The online GRPO round (after phase 7, on its trained 1.5B weights,
+    tracing on): one shared paged engine (8 slots, max_len 4096,
+    SampleParams()), 2 tasks x 4 agent-mode RolloutSessions (ByteTokenizer,
+    64 new tokens a call, the assembled system message without tool
+    definitions), grpo_round with max_parallel 8, attn_impl="flash", remat,
+    accum 4 and no reward override: the trace reward head on the card
+    scores every episode. Fails on an episode without a scored trace, a
+    card head more than 1e-6 from the host head over the round's feature
+    rows, K1 launches != layers x fused steps, K2 launches != layers x
+    accum x epochs (x2 forward under remat), a non-finite metric,
+    |ratio_mean - 1| past phase 7's tolerance, a missing span or runtime
+    ledger entry, or a stats() key of the JAX engine missing. Then
+    update_params, one more session and check_leaks. Random weights at
+    this vocabulary decode to mostly empty text, so groups tie on the
+    trace reward and the update is a zero-advantage step: the phase
+    prints zero_advantage_group_fraction and the round's collect /
+    batch_build / train seconds.
+13. A JSON line with every kernel's numbers (``launches_round`` on K1
+    bf16 and K2: the round's counts), the card line, and last the JSON ok
+    line.
 
 Exits non-zero, printing no result, without CUDA or without the
 ``senweaver_ide_tpu_torch`` package beside this file.
@@ -129,6 +147,39 @@ SLOTS_NUM, SLOTS_MAX_LEN = 16, 8192
 SLOTS_TRAFFIC = ((256, 1024, 20, 128), (3900, 4000, 2, 256),
                  (5000, 6000, 2, 64))
 LOGITS_PAST = 64          # ring decode steps past the window, phase 11
+
+
+# The online GRPO round (phase_round): sessions on one shared engine
+ROUND_TASKS = ("Add a function `add(a, b)` to utils.py that returns a + b.",
+               "Write a README.md that explains how to run the tests.")
+ROUND_GROUP, ROUND_NEW_TOKENS, ROUND_SLOTS, ROUND_MAX_LEN = 4, 64, 8, 4096
+ROUND_ACCUM, ROUND_EPOCHS = 4, 1
+# card head vs the plain head on the host, per dim and final reward
+HEAD_TOL = 1e-6
+# every key the JAX engine's stats() returns on the paged layout; the
+# port's must hold them all (tests/test_torch_rl_loop.py holds this list
+# against the JAX engine)
+JAX_STATS_KEYS_PAGED = (
+    "batched_prefill_slots", "batched_prefills", "branch_forks",
+    "continuation_delta_tokens", "continuations", "decode_steps",
+    "group_degrades", "group_forks", "group_prefill_tokens_avoided",
+    "group_prefills", "hold_evictions", "kv_allocs", "kv_blocks_free",
+    "kv_blocks_total", "kv_bytes_device", "kv_bytes_host",
+    "kv_bytes_per_block", "kv_cow_copies", "kv_dtype", "kv_evictions",
+    "kv_exhaustions", "kv_grafts", "kv_install_copies", "kv_paged",
+    "kv_preemption_storms", "kv_preemptions", "kv_pressure",
+    "kv_releases", "kv_swap_ins", "kv_swap_outs", "kv_swapped_blocks",
+    "migrations_in", "migrations_out", "prefill_tokens", "prefills",
+    "prefix_cache_hits", "prefix_cache_misses", "prefix_evictions",
+    "prefix_exports", "prefix_host_exports", "prefix_imports",
+    "prefix_installs", "prefix_prefills", "prefix_swap_ins",
+    "prefix_swap_outs", "prefix_tokens_reused", "queue_depth",
+    "slots_active", "spec_accepted", "spec_feed_tokens", "spec_proposed",
+    "spec_rollbacks", "spec_rounds", "spec_wasted", "tokens_emitted",
+    "weight_quant")
+ROUND_SPANS = ("grpo_round", "collect", "batch_build", "train_step",
+               "trainer.grpo_step", "agent.turn", "engine.decode_step")
+ROUND_LEDGER = ("engine.fused_step", "trainer.grpo_step")
 
 
 def fail(msg: str) -> None:
@@ -1369,6 +1420,187 @@ def phase_train(torch, cfg, params, seed, smi):
     return launches
 
 
+def phase_round(torch, cfg, params, seed, smi):
+    """The online GRPO round at full width: 2 tasks x 4 agent sessions on
+    one shared engine (K1), every episode scored by the trace reward
+    head on the card, grpo_round's update with the flash kernels (K2),
+    then the publish and one more session."""
+    import dataclasses
+    import functools
+    import tempfile
+
+    import numpy as np
+    from senweaver_ide_tpu_torch import obs
+    from senweaver_ide_tpu_torch.models import ByteTokenizer
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    from senweaver_ide_tpu_torch.rewards import reward_head, score_traces
+    from senweaver_ide_tpu_torch.rewards.head import DIM_NAMES
+    from senweaver_ide_tpu_torch.rollout import (EnginePolicyClient,
+                                                 RolloutEngine,
+                                                 RolloutSession,
+                                                 SampleParams)
+    from senweaver_ide_tpu_torch.traces import batch_features
+    from senweaver_ide_tpu_torch.training import (grpo_round,
+                                                  make_optimizer,
+                                                  make_train_state)
+    tcfg = dataclasses.replace(cfg, attn_impl="flash", remat=TRAIN_REMAT)
+    layers = tcfg.num_layers
+    tok = ByteTokenizer()
+    # tracing on, and a fresh runtime ledger: the checks below read only
+    # what this phase recorded
+    obs.set_profiler(obs.RuntimeProfiler())
+    tracer = obs.enable()
+    tracer.clear()
+    engine = RolloutEngine(params, tcfg, num_slots=ROUND_SLOTS,
+                           max_len=ROUND_MAX_LEN, sample=SampleParams(),
+                           eos_id=tok.eos_id, seed=seed, device="cuda")
+    work = tempfile.mkdtemp(prefix="chip_smoke_round_")
+    sessions = []
+
+    def make_session():
+        client = EnginePolicyClient(
+            engine, tok, model_name=tcfg.name,
+            default_max_new_tokens=ROUND_NEW_TOKENS, record_calls=True)
+        sess = RolloutSession(client, os.path.join(work, f"ws{len(sessions)}"),
+                              include_tool_definitions=False)
+        sessions.append(sess)
+        return sess
+
+    state = make_train_state(tcfg, params=params,
+                             optimizer=make_optimizer(TRAIN_LR))
+    steps0 = engine.stats()["decode_steps"]
+    k2 = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkdv,
+          fa.flash_attention_bwd_dq)
+    paged_flash_decode.launches = 0
+    for w in k2:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = grpo_round(state, tcfg, None, make_session, list(ROUND_TASKS),
+                     group_size=ROUND_GROUP, pad_id=tok.pad_id,
+                     max_len=ROUND_MAX_LEN, max_parallel=ROUND_SLOTS,
+                     accum_steps=ROUND_ACCUM, ppo_epochs=ROUND_EPOCHS,
+                     engine=engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k1": paged_flash_decode.launches,
+                "fwd": fa.flash_attention_fwd.launches,
+                "dkdv": fa.flash_attention_bwd_dkdv.launches,
+                "dq": fa.flash_attention_bwd_dq.launches}
+    spans = {}
+    for rec in tracer.spans():
+        spans.setdefault(rec.name, []).append(rec.duration_ms / 1e3)
+    ledger = obs.get_profiler().ledger()
+    obs.disable()
+
+    # every episode traced and scored by the card head
+    n_eps = len(ROUND_TASKS) * ROUND_GROUP
+    if len(out.episodes) != n_eps or len(sessions) != n_eps:
+        fail(f"round: {len(out.episodes)} episodes from {len(sessions)} "
+             f"sessions, expected {n_eps}")
+    traces = []
+    for i, sess in enumerate(sessions):
+        trs = sess.collector.get_all_traces()
+        if (len(trs) != 1 or trs[0].summary.final_reward is None
+                or not trs[0].summary.reward_dimensions):
+            fail(f"episode {i}: {len(trs)} trace(s), final_reward "
+                 f"{trs[0].summary.final_reward if trs else None}")
+        traces.append(trs[0])
+    feats = batch_features(traces)
+    host = reward_head(torch.from_numpy(feats))
+    dims_of = [{d["name"]: d["value"] for d in t.summary.reward_dimensions}
+               for t in traces]
+    head_err = 0.0
+    for i, t in enumerate(traces):
+        want = {DIM_NAMES[j]: float(host.dims[i, j])
+                for j in range(len(DIM_NAMES)) if host.mask[i, j] > 0.5}
+        if set(want) != set(dims_of[i]):
+            fail(f"episode {i}: card head dims {sorted(dims_of[i])} != "
+                 f"host head dims {sorted(want)}")
+        head_err = max([head_err, abs(t.summary.final_reward
+                                      - float(host.final_reward[i]))]
+                       + [abs(dims_of[i][k] - v) for k, v in want.items()])
+    batch = score_traces(traces).cpu()      # the batched head on the card
+    head_err = max(head_err, float((batch - host.final_reward).abs().max()))
+    if not head_err <= HEAD_TOL:
+        fail(f"trace reward head: card vs host differ by {head_err} "
+             f"(tol {HEAD_TOL})")
+    rewards = [e.reward for e in out.episodes]
+    if [e.task_idx for e in out.episodes] != sorted(
+            e.task_idx for e in out.episodes):
+        fail("round episodes are not in (task_idx, g) order")
+
+    # launches: K1 per fused step of the collection, K2 per microbatch
+    steps = engine.stats()["decode_steps"] - steps0
+    if launches["k1"] != layers * steps:
+        fail(f"round: K1 launches {launches['k1']} != {layers} x {steps} "
+             f"fused steps")
+    per_pass = layers * ROUND_ACCUM * ROUND_EPOCHS
+    expect = {"fwd": per_pass * (2 if TRAIN_REMAT else 1),
+              "dkdv": per_pass, "dq": per_pass}
+    got = {k: launches[k] for k in expect}
+    if got != expect:
+        fail(f"round: K2 launches {got} != expected {expect}")
+    m = out.metrics
+    bad = [k for k, v in list(m.items()) + list(out.health.items())
+           if not np.isfinite(v)]
+    if bad or not m:
+        fail(f"round: non-finite or missing metrics {bad or m}")
+    ratio_err = abs(m["ratio_mean"] - 1.0)
+    if not ratio_err < RATIO_TOL:
+        fail(f"round: |ratio_mean - 1| = {ratio_err} >= {RATIO_TOL}")
+    missing = [n for n in ROUND_SPANS if n not in spans]
+    if missing:
+        fail(f"round: spans missing {missing} (have {sorted(spans)})")
+    missing = [n for n in ROUND_LEDGER if n not in ledger]
+    if missing:
+        fail(f"round: runtime ledger entries missing {missing}")
+    stats = engine.stats()
+    missing = [k for k in JAX_STATS_KEYS_PAGED if k not in stats]
+    if missing:
+        fail(f"engine stats() lacks JAX keys {missing}")
+
+    # publish, one more session, no leaked blocks
+    engine.update_params(out.state.params)
+    more = make_session()
+    try:
+        turn = more.run_turn(ROUND_TASKS[0])
+    finally:
+        more.close()
+    if turn.trace is None or turn.trace.summary.final_reward is None:
+        fail("post-publish session produced no scored trace")
+    engine._alloc.check_leaks()
+
+    gen = sum(len(t.completion_ids) for t in out.trajectories)
+    collect_s = sum(spans["collect"])
+    calls = sum(e.n_calls for e in out.episodes)
+    log(f"[round] {tcfg.name}, {layers} layers, {tcfg.dtype}: "
+        f"{len(ROUND_TASKS)} tasks x {ROUND_GROUP} agent sessions on one "
+        f"paged engine ({ROUND_SLOTS} slots, max_len {ROUND_MAX_LEN}, "
+        f"SampleParams(), ByteTokenizer, include_tool_definitions=False), "
+        f"{calls} LLM calls, {len(out.trajectories)} trajectories, prompts "
+        f"{min(len(t.prompt_ids) for t in out.trajectories)}.."
+        f"{max(len(t.prompt_ids) for t in out.trajectories)} tokens, "
+        f"{gen} generated; K1 launches {launches['k1']} = {layers} x "
+        f"{steps} fused steps; K2 {got} = expected")
+    log(f"[round] {smi}. Smoke figures, not a benchmark: round wall "
+        f"{wall:.3f} s; collect_s {collect_s:.3f}, batch_build_s "
+        f"{sum(spans['batch_build']):.3f}, train_s "
+        f"{sum(spans['train_step']):.3f}; {gen / collect_s:.1f} generated "
+        f"tokens/s over the collection")
+    log(f"[round] rewards from the trace reward head on the card over "
+        f"random weights (not a learning signal): {sorted(set(rewards))}; "
+        f"zero_advantage_group_fraction "
+        f"{out.health.get('zero_advantage_group_fraction')}; card vs host "
+        f"head max |diff| {head_err:.3g} (tol {HEAD_TOL}); |ratio_mean - 1| "
+        f"{ratio_err:.3g} (tol {RATIO_TOL}); loss {m['loss']:.6g}, "
+        f"grad_norm {m['grad_norm']:.6g}; update_skipped "
+        f"{out.update_skipped}")
+    return launches
+
+
 def _k3_launches(reset):
     from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
     if reset is not None:
@@ -1587,6 +1819,7 @@ def main(argv=None) -> int:
     int8_launches = phase_slots_int8(torch, cfg, params, args.seed)
     flash = phase_flash(torch, cfg, timer)
     train_launches = phase_train(torch, cfg, params, args.seed, smi)
+    round_launches = phase_round(torch, cfg, params, args.seed, smi)
     # the 1.5B weights (trained in place) make way for mistral-7b
     del params
     gc.collect()
@@ -1609,6 +1842,8 @@ def main(argv=None) -> int:
             "source": "senweaver_ide_tpu_torch/csrc/paged_attention.cu",
             "replaces": "senweaver_ide_tpu/ops/paged_attention.py:53",
             "launches": launches[variant],
+            "launches_round": (round_launches["k1"] if variant == "bf16"
+                               else None),
             "max_abs_err": r["max_abs_err"],
             "tolerance": f"{KERNEL_ATOL} + {KERNEL_RTOL} * |plain|",
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
@@ -1641,6 +1876,7 @@ def main(argv=None) -> int:
             "source": "senweaver_ide_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces[kname],
             "launches": train_launches[kname],
+            "launches_round": round_launches[kname],
             "max_abs_err": r["max_abs_err"],
             "tolerance": _fa_tol_text(FA_TOL[FA_ERR_OF[kname][0]]),
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],

@@ -6,8 +6,10 @@ layout module by module (``models/transformer.py`` ↔
 ``tests/test_torch_*.py`` suite. It imports torch and numpy and nothing
 of JAX or of the JAX package.
 
-Ported so far: the paged serving path, the GRPO trainer and the slot
-layout.
+Ported so far: the paged serving path, the GRPO trainer, the slot
+layout, and the online GRPO round on them (agent sessions on one shared
+engine, traces, the trace reward head, ``grpo_round``) with its
+observability plane.
 
 - ``models``   — presets, the no-cache (training), contiguous-cache and
                  paged forwards, the numpy weight bridge.
@@ -18,8 +20,19 @@ layout.
                  contiguous cache.
 - ``rollout``  — the paged KV pool and allocator, the continuous-
                  batching ``RolloutEngine`` on the paged and slot
-                 layouts, and the ``generate`` loops.
-- ``training`` — GRPO, batching, LoRA and the trainer.
+                 layouts, the ``generate`` loops, and the sessions
+                 (``RolloutSession``, ``EnginePolicyClient``).
+- ``training`` — GRPO, batching, LoRA, the trainer (with the guarded
+                 step), the round-health diagnostics and ``rl_loop``
+                 (``collect_group_trajectories``, ``grpo_round``).
+- ``rewards``  — the 9-dimension trace reward head (torch, on the card).
+- ``obs``      — tracing, metrics, telemetry, the fleet plane, and the
+                 torch runtime profiler (``runtime_profile``).
+- ``agents``, ``tools``, ``prompts``, ``traces``, ``resilience``,
+  ``context``, ``editor``, ``services`` — the host-pure agent stack
+                 around a session, copied from the JAX package
+                 (``tests/test_torch_copies.py`` holds each copy to its
+                 original).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.

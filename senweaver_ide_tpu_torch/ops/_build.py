@@ -7,7 +7,9 @@ use, never at import, into ``senweaver_ide_tpu_torch/_build/`` (listed in
 ``.gitignore``); the file name carries a hash of the source, the shared
 ``csrc/*.cuh`` headers and the flags, so an edited source or header
 rebuilds and an unchanged one loads as is.
-:func:`build_all` starts one ``nvcc`` per source at once.
+:func:`build_all` starts one ``nvcc`` per source at once; a build that
+runs inside a profiled call (``obs/runtime_profile.py``) counts as that
+call's compile.
 """
 
 from __future__ import annotations
@@ -167,6 +169,10 @@ def build_all(names: Optional[Iterable[str]] = None) -> List[BuiltLibrary]:
                 _loaded[n] = BuiltLibrary(name=n, path=out, cdll=cdll,
                                           build_seconds=secs,
                                           ptxas_log=log)
+            if any(proc is not None for *_, proc in procs):
+                # a build inside a profiled call is that call's compile
+                from ..obs.runtime_profile import note_compile
+                note_compile(time.perf_counter() - t0)
         return [_loaded[n] for n in names]
 
 

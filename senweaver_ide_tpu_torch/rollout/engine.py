@@ -29,7 +29,16 @@ token and length), with the flash-decode kernel on the card when
 
 Shared prefixes, held-slot continuations, speculation, adapters, groups,
 migration and tensor-parallel meshes belong to later slices and raise
-where requested.
+where requested; :meth:`RolloutEngine.stats` reports their counters as 0
+so the key set is the JAX engine's.
+
+Observability is the JAX engine's, under its names: the step bodies run
+under the runtime ledger entries ``engine.fused_step`` (paged) and
+``engine.decode_step`` (slots), each step's one device→host copy goes
+through ``profiled_device_get``, the spans ``engine.decode_step``,
+``engine.prefill`` and ``engine.prefill_batch`` and the
+``senweaver_engine_*`` counters record while tracing is on, and the
+allocator publishes the ``senweaver_kv_*`` gauges.
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ from ..models.config import ModelConfig
 from ..models.transformer import (KVCache, Params, _is_ring, forward,
                                   forward_paged, init_kv_cache,
                                   ring_capacity)
+from ..obs import get_registry, get_tracer
+from ..obs.runtime_profile import ProfiledFunction, profiled_device_get
 from ..ops.sampling import sample_token, sampled_logprob
 from .paged_kv import (BlockAllocator, BlocksExhausted, copy_blocks,
                        init_paged_pool, pool_bytes_per_block,
@@ -257,6 +268,39 @@ def _pool_decode_step(params: Params, config: ModelConfig,
     return next_tok, logp, new_cache._replace(length=length)
 
 
+@torch.no_grad()
+def _paged_fused_step(params: Params, config: ModelConfig,
+                      toks: torch.Tensor, tables: torch.Tensor,
+                      seq_row: torch.Tensor, positions: torch.Tensor,
+                      write_block: torch.Tensor, write_off: torch.Tensor,
+                      pool, generator: torch.Generator,
+                      sample: SampleParams, use_kernel: bool) -> tuple:
+    """forward_paged + in-step sampling over one flat token batch;
+    returns (next tokens, their log-probs, pool) on the device."""
+    logits, pool = forward_paged(
+        params, config, toks, pool=pool, tables=tables, seq_row=seq_row,
+        positions=positions, write_block=write_block, write_off=write_off,
+        use_kernel=use_kernel)
+    next_tok = sample_token(logits, generator,
+                            temperature=sample.temperature,
+                            top_k=sample.top_k, top_p=sample.top_p)
+    return next_tok, sampled_logprob(logits, next_tok), pool
+
+
+# Runtime observatory wiring (obs/runtime_profile.py): the two step
+# drivers keep their ledgers and device-time histograms under the JAX
+# engine's names. Params/config (args 0-1) are skipped from the per-call
+# signature scan. The fused step takes exact-size token batches (eager
+# PyTorch needs no padding ladder), so its signatures span every token
+# count up to the step budget times the table-width buckets; the storm
+# threshold sits above that, and only an unbounded stream trips it.
+_pool_decode_step = ProfiledFunction(
+    _pool_decode_step, "engine.decode_step", skip_args=(0, 1))
+_paged_fused_step = ProfiledFunction(
+    _paged_fused_step, "engine.fused_step", skip_args=(0, 1),
+    storm_threshold=1024)
+
+
 class RolloutEngine:
     """Continuous batching on one device, over a paged KV pool or the
     contiguous slot cache."""
@@ -331,10 +375,28 @@ class RolloutEngine:
         else:
             self._init_paged(ec)
         self._slot_req: List[Optional[_Request]] = [None] * num_slots  # guarded-by: _lock
+        # The JAX engine's counters, all of them: those of features this
+        # port has not taken yet (prefixes, continuations, speculation,
+        # migration, groups) stay 0.
         self._stats = {"prefills": 0, "prefill_tokens": 0,  # guarded-by: _lock
                        "batched_prefills": 0, "batched_prefill_slots": 0,
+                       "prefix_installs": 0, "prefix_tokens_reused": 0,
+                       "prefix_evictions": 0, "prefix_prefills": 0,
+                       "prefix_imports": 0, "prefix_exports": 0,
+                       "prefix_cache_hits": 0, "prefix_cache_misses": 0,
+                       "continuations": 0, "continuation_delta_tokens": 0,
                        "decode_steps": 0, "tokens_emitted": 0,
-                       "kv_preemptions": 0, "kv_preemption_storms": 0}
+                       "hold_evictions": 0, "kv_preemptions": 0,
+                       "prefix_swap_outs": 0, "prefix_swap_ins": 0,
+                       "kv_preemption_storms": 0,
+                       "prefix_host_exports": 0,
+                       "spec_rounds": 0, "spec_proposed": 0,
+                       "spec_accepted": 0, "spec_wasted": 0,
+                       "spec_feed_tokens": 0, "spec_rollbacks": 0,
+                       "migrations_out": 0, "migrations_in": 0,
+                       "group_prefills": 0, "group_forks": 0,
+                       "group_prefill_tokens_avoided": 0,
+                       "group_degrades": 0, "branch_forks": 0}
         # Bounded admission (None = unbounded): submit() raises QueueFull
         # past this many QUEUED requests.
         self.max_queue = max_queue
@@ -363,7 +425,12 @@ class RolloutEngine:
                                     kv_dtype_per_layer=ec.kv_dtype_per_layer,
                                     device=self.device)
         self._alloc = BlockAllocator(
-            nb, bs, bytes_per_block=pool_bytes_per_block(self.pool))
+            nb, bs, registry=get_registry(),
+            bytes_per_block=pool_bytes_per_block(self.pool))
+        self._storm_total = get_registry().counter(
+            "senweaver_kv_preemption_storms_total",
+            "Requests preempted EngineConfig.max_preempts times and "
+            "latched non-preemptible (starvation guard).")
         # host-side block table + fill level + decode cursor per row
         self._tables: List[List[int]] = [[] for _ in range(num_slots)]  # guarded-by: _lock
         self._row_len: List[int] = [0] * num_slots  # guarded-by: _lock
@@ -458,6 +525,8 @@ class RolloutEngine:
         pool occupancy and preemptions."""
         with self._lock:
             out = dict(self._stats)
+            # int8 weight serving (models/quantize.py) is not ported
+            out["weight_quant"] = 0
             out["queue_depth"] = len(self._queue)
             out["slots_active"] = sum(r is not None for r in self._slot_req)
             out["kv_paged"] = int(self.kv_layout == "paged")
@@ -469,9 +538,12 @@ class RolloutEngine:
             out["kv_blocks_free"] = self._alloc.free_blocks
             out["kv_pressure"] = (self._alloc.used_blocks
                                   / self._alloc.num_blocks)
+            # no host-RAM tier yet: nothing is swapped out
+            out["kv_swapped_blocks"] = 0
             out["kv_dtype"] = self.engine_config.kv_dtype
             out["kv_bytes_per_block"] = self._alloc.bytes_per_block
             out["kv_bytes_device"] = self._alloc.used_bytes
+            out["kv_bytes_host"] = self._alloc.swapped_bytes
             out["paged_kernel"] = int(self._use_paged_kernel)
             return out
 
@@ -529,6 +601,7 @@ class RolloutEngine:
             # starvation latch: this request is now non-preemptible
             self._storm_rids.add(req.rid)
             self._stats["kv_preemption_storms"] += 1
+            self._storm_total.inc()
 
     def _reclaim_blocks(self, row: int, committed) -> bool:
         # guarded-by: caller
@@ -703,21 +776,17 @@ class RolloutEngine:
 
     def _fused_step(self, toks_l, rows_l, pos_l, wb_l, wo_l):
         # guarded-by: caller
-        """forward_paged + in-step sampling over the flat batch; returns
-        host (tokens, log-probs) lists from ONE device→host copy."""
+        """The fused step over the flat batch; returns host (tokens,
+        log-probs) lists from ONE device→host copy."""
         as_t = lambda xs: torch.tensor(xs, dtype=torch.int64)   # noqa: E731
-        logits, self.pool = forward_paged(
-            self.params, self.config, as_t(toks_l), pool=self.pool,
-            tables=self._tables_device(), seq_row=as_t(rows_l),
-            positions=as_t(pos_l), write_block=as_t(wb_l),
-            write_off=as_t(wo_l), use_kernel=self._use_paged_kernel)
-        s = self.sample
-        next_tok = sample_token(logits, self._gen,
-                                temperature=s.temperature, top_k=s.top_k,
-                                top_p=s.top_p)
-        logp = sampled_logprob(logits, next_tok)
+        next_tok, logp, self.pool = _paged_fused_step(
+            self.params, self.config, as_t(toks_l), self._tables_device(),
+            as_t(rows_l), as_t(pos_l), as_t(wb_l), as_t(wo_l), self.pool,
+            self._gen, self.sample, self._use_paged_kernel)
         # token ids (< 2**24) and f32 log-probs are both exact in f64
-        host = torch.stack([next_tok.double(), logp.double()]).cpu()
+        host = profiled_device_get(
+            torch.stack([next_tok.double(), logp.double()]),
+            fn="engine.fused_step")
         return [int(x) for x in host[0].tolist()], host[1].tolist()
 
     def _step_paged(self) -> Dict[int, List[int]]:
@@ -728,13 +797,19 @@ class RolloutEngine:
         if plan is None:
             return emitted
         toks_l, rows_l, pos_l, wb_l, wo_l, decode_rows, job_rows = plan
-        toks, logps = self._fused_step(toks_l, rows_l, pos_l, wb_l, wo_l)
-        self._stats["decode_steps"] += 1
+        tracer = get_tracer()
+        with tracer.span("engine.decode_step",
+                         active=len(decode_rows) + len(job_rows)):
+            toks, logps = self._fused_step(toks_l, rows_l, pos_l, wb_l,
+                                           wo_l)
+            self._stats["decode_steps"] += 1
+        n_emitted = 0
         for idx, row, req in decode_rows:
             tok = toks[idx]
             req.tokens.append(tok)
             req.logps.append(logps[idx])
             self._stats["tokens_emitted"] += 1
+            n_emitted += 1
             emitted.setdefault(req.rid, []).append(tok)
             self._row_len[row] += 1
             self._cur_tok_host[row] = tok
@@ -755,6 +830,7 @@ class RolloutEngine:
                 req.tokens.append(tok)
                 req.logps.append(logps[last_idx])
                 self._stats["tokens_emitted"] += 1
+                n_emitted += 1
                 emitted.setdefault(req.rid, []).append(tok)
                 self._cur_tok_host[row] = tok
                 if ((req.eos_id is not None and tok == req.eos_id)
@@ -762,8 +838,21 @@ class RolloutEngine:
                     self._finish_request(req, row)
             else:
                 self._cur_tok_host[row] = job.after_tok
+        if tracer.enabled:
+            self._count_step(n_emitted)
+        self._alloc.publish_fragmentation(
+            sum(self._row_len[s] for s in range(self.num_slots)
+                if self._tables[s]))
         self._schedule_paged()
         return emitted
+
+    @staticmethod
+    def _count_step(n_emitted: int) -> None:
+        reg = get_registry()
+        reg.counter("senweaver_engine_decode_steps_total",
+                    "Pool decode steps executed.").inc()
+        reg.counter("senweaver_engine_tokens_total",
+                    "Tokens emitted by the rollout engine.").inc(n_emitted)
 
     # -- slot layout (the contiguous KVCache) ------------------------------
 
@@ -779,16 +868,23 @@ class RolloutEngine:
         active_list = [r is not None for r in self._slot_req]
         if not any(active_list):
             return emitted
-        active = torch.tensor(active_list, device=self.device)
-        next_tok, logp, self.cache = _pool_decode_step(
-            self.params, self.config, self.cur_tok, active, self.cache,
-            self._gen, self.sample)
-        self.cur_tok = next_tok
-        self._stats["decode_steps"] += 1
-        # ONE device→host copy for tokens, log-probs and lengths (token ids
-        # < 2**24, f32 log-probs and int32 lengths are exact in f64)
-        host = torch.stack([next_tok.double(), logp.double(),
-                            self.cache.length.double()]).cpu()
+        tracer = get_tracer()
+        with tracer.span("engine.decode_step", active=sum(active_list)):
+            active = torch.tensor(active_list, device=self.device)
+            next_tok, logp, self.cache = _pool_decode_step(
+                self.params, self.config, self.cur_tok, active, self.cache,
+                self._gen, self.sample)
+            self.cur_tok = next_tok
+            self._stats["decode_steps"] += 1
+            # ONE device→host copy for tokens, log-probs and lengths
+            # (token ids < 2**24, f32 log-probs and int32 lengths are exact
+            # in f64)
+            host = profiled_device_get(
+                torch.stack([next_tok.double(), logp.double(),
+                             self.cache.length.double()]),
+                fn="engine.decode_step")
+        if tracer.enabled:
+            self._count_step(sum(active_list))
         toks = [int(x) for x in host[0].tolist()]
         logps, lengths = host[1].tolist(), host[2].tolist()
         for slot, req in enumerate(self._slot_req):
@@ -857,6 +953,12 @@ class RolloutEngine:
 
     def _schedule_single(self, req: _Request, slot: int) -> None:
         # guarded-by: caller
+        with get_tracer().span("engine.prefill", slot=slot,
+                               tokens=len(req.prompt), prefix=False):
+            self._schedule_single_impl(req, slot)
+
+    def _schedule_single_impl(self, req: _Request, slot: int) -> None:
+        # guarded-by: caller
         req.slot = slot
         self._slot_req[slot] = req
         true_len = len(req.prompt)
@@ -882,6 +984,13 @@ class RolloutEngine:
         # guarded-by: caller
         """One batched forward prefills the whole group (no row padding:
         eager PyTorch does not recompile per batch size)."""
+        with get_tracer().span("engine.prefill_batch", slots=len(group),
+                               bucket=bucket):
+            self._schedule_batch_impl(group, slots, bucket)
+
+    def _schedule_batch_impl(self, group: List[_Request], slots: List[int],
+                             bucket: int) -> None:
+        # guarded-by: caller
         rows = []
         for req, slot in zip(group, slots):
             req.slot = slot

@@ -13,8 +13,9 @@ refcounted sharing (``fork``), copy-on-write (``cow_target`` +
 :func:`copy_blocks`) and typed backpressure (:class:`BlocksExhausted`).
 
 The allocator is pure host bookkeeping behind its own reentrant lock (lock
-order engine → allocator). It publishes no metrics yet: the metrics
-registry comes with the observability slice.
+order engine → allocator). It publishes the ``senweaver_kv_*`` gauges and
+counters the JAX package's allocator does into the metrics registry
+(``obs``).
 
 **Quantized KV ladder** (``EngineConfig.kv_dtype``): the pool can store
 int8/fp8 payloads plus per-(block, position, head) f32 absmax scales,
@@ -32,6 +33,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
+from ..obs.runtime_profile import ProfiledFunction
 
 # The serving-wide KV precision ladder. "bf16" means "full width": the
 # pool stores the model dtype (bf16 for the real presets, f32 in the test
@@ -206,20 +208,83 @@ class BlockAllocator:
     allocator)."""
 
     def __init__(self, num_blocks: int, block_size: int, *,
-                 bytes_per_block: int = 0):
+                 registry=None, bytes_per_block: int = 0):
         if num_blocks <= 0 or block_size <= 0:
             raise ValueError("num_blocks and block_size must be positive")
         self.num_blocks = num_blocks
         self.block_size = block_size
-        # Device bytes per block (see pool_bytes_per_block); 0 = unknown.
+        # Device bytes per block (see pool_bytes_per_block); 0 = unknown,
+        # and the byte gauges then publish 0.
         self.bytes_per_block = int(bytes_per_block)
+        # blocks resident only in a host-RAM tier (none until the KV
+        # pressure slice ports the tier)
+        self._swapped_blocks = 0
         self._lock = threading.RLock()
         # LIFO free list: recently freed blocks are reused first.
         self._free: List[int] = list(range(num_blocks - 1, -1, -1))  # guarded-by: _lock
         self._ref: List[int] = [0] * num_blocks  # guarded-by: _lock
         self._counters: Dict[str, int] = {  # guarded-by: _lock
             "allocs": 0, "releases": 0, "grafts": 0, "cow_copies": 0,
-            "exhaustions": 0}
+            "exhaustions": 0, "install_copies": 0, "evictions": 0,
+            "swap_outs": 0, "swap_ins": 0}
+        if registry is None:
+            from ..obs import get_registry
+            registry = get_registry()
+        self._blocks_total_gauge = registry.gauge(
+            "senweaver_kv_blocks_total",
+            "KV block-pool capacity of the most recently updated engine.")
+        self._blocks_free_gauge = registry.gauge(
+            "senweaver_kv_blocks_free",
+            "Free KV blocks in the pool.")
+        self._util_gauge = registry.gauge(
+            "senweaver_kv_pool_utilization",
+            "Fraction of KV blocks currently allocated (0..1).")
+        self._frag_gauge = registry.gauge(
+            "senweaver_kv_fragmentation",
+            "Internal fragmentation: fraction of allocated KV-block "
+            "capacity holding no token (partial last blocks).")
+        self._cow_total = registry.counter(
+            "senweaver_kv_cow_copies_total",
+            "Copy-on-write block copies (first divergent write into a "
+            "shared block).")
+        self._graft_total = registry.counter(
+            "senweaver_kv_prefix_grafts_total",
+            "Prefix installs served by block-table graft (refcount bump, "
+            "zero KV bytes copied).")
+        self._install_copy_total = registry.counter(
+            "senweaver_kv_install_copies_total",
+            "Prefix installs that copied KV buffers into place (slot "
+            "layout, or paged cross-engine import scatter).")
+        self._exhaustion_total = registry.counter(
+            "senweaver_kv_exhaustion_rejections_total",
+            "Allocations refused because the block pool was exhausted "
+            "(preemptions + admission rejections).")
+        self._eviction_total = registry.counter(
+            "senweaver_kv_evictions_total",
+            "Prefix entries dropped by scored eviction (cold, unshared: "
+            "cheapest to recompute).")
+        self._swap_out_total = registry.counter(
+            "senweaver_kv_swaps_out_total",
+            "KV blocks swapped from the device pool to the host-RAM "
+            "tier (warm prefixes under pressure).")
+        self._swap_in_total = registry.counter(
+            "senweaver_kv_swaps_in_total",
+            "KV blocks restored from the host-RAM tier into the device "
+            "pool (on-demand prefix reuse).")
+        self._swapped_gauge = registry.gauge(
+            "senweaver_kv_swapped_blocks",
+            "KV blocks currently resident only in the host-RAM tier.")
+        # byte twins of the block gauges: a quantized pool's block holds
+        # fewer bytes, so capacity math happens in bytes
+        self._bytes_device_gauge = registry.gauge(
+            "senweaver_kv_bytes_device",
+            "Device bytes held by allocated KV blocks (payload + "
+            "scales + full-width prefix layers).")
+        self._bytes_host_gauge = registry.gauge(
+            "senweaver_kv_bytes_host",
+            "Host-RAM bytes held by KV blocks swapped to the host "
+            "tier.")
+        self._publish_gauges()
 
     @property
     def free_blocks(self) -> int:
@@ -234,6 +299,11 @@ class BlockAllocator:
         """Device bytes held by allocated blocks (0 when the allocator
         was built without a ``bytes_per_block``)."""
         return self.used_blocks * self.bytes_per_block
+
+    @property
+    def swapped_bytes(self) -> int:
+        """Host-tier bytes held by swapped-out blocks."""
+        return self._swapped_blocks * self.bytes_per_block
 
     def refcount(self, block: int) -> int:
         return self._ref[block]
@@ -266,11 +336,13 @@ class BlockAllocator:
         with self._lock:
             if n > len(self._free):
                 self._counters["exhaustions"] += 1
+                self._exhaustion_total.inc()
                 raise BlocksExhausted(n, len(self._free), self.num_blocks)
             blocks = [self._free.pop() for _ in range(n)]
             for b in blocks:
                 self._ref[b] = 1
             self._counters["allocs"] += n
+            self._publish_gauges()
             return blocks
 
     def retain(self, blocks: Sequence[int]) -> None:
@@ -296,6 +368,7 @@ class BlockAllocator:
                 if self._ref[b] == 0:
                     self._free.append(b)
                     self._counters["releases"] += 1
+            self._publish_gauges()
 
     def fork(self, table: Sequence[int]) -> List[int]:
         """A new table aliasing every block of ``table`` (the graft:
@@ -317,6 +390,7 @@ class BlockAllocator:
             for b in real:
                 self._ref[b] += n
             self._counters["grafts"] += n
+            self._graft_total.inc(n)
             return [list(table) for _ in range(n)]
 
     def cow_target(self, block: int) -> Optional[int]:
@@ -334,4 +408,30 @@ class BlockAllocator:
             # drop our reference only after the fresh block is granted
             self.release([block])
             self._counters["cow_copies"] += 1
+            self._cow_total.inc()
             return fresh
+
+    # -- gauges ----------------------------------------------------------
+    def _publish_gauges(self) -> None:
+        # guarded-by: caller
+        free = len(self._free)
+        self._blocks_total_gauge.set(self.num_blocks)
+        self._blocks_free_gauge.set(free)
+        used = self.num_blocks - free
+        self._util_gauge.set(used / self.num_blocks)
+        self._bytes_device_gauge.set(used * self.bytes_per_block)
+
+    def publish_fragmentation(self, used_tokens: int) -> None:
+        """Internal-fragmentation gauge: ``used_tokens`` positions live
+        across ``used_blocks * block_size`` allocated capacity; the
+        difference is stranded tail space in partial last blocks."""
+        with self._lock:
+            cap = self.used_blocks * self.block_size
+            frac = 0.0 if cap == 0 else 1.0 - (used_tokens / cap)
+            self._frag_gauge.set(max(0.0, frac))
+
+
+# Runtime observatory wiring (obs/runtime_profile.py): block movement is
+# profiled under the JAX package's name.
+copy_blocks = ProfiledFunction(copy_blocks, "paged_kv.copy",
+                               storm_threshold=32)

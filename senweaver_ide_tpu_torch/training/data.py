@@ -4,8 +4,10 @@ A copy of the JAX package's ``training/data.py`` builders: a trajectory
 is (prompt_ids, completion_ids, reward, group_id) plus the behaviour
 log-probs the engine recorded at sample time and, for tree rollouts, its
 branch points. Batches pad to a power-of-two bucket with a completion
-mask so the objective scores generated tokens only. The mesh padding and
-placement helpers belong to the parallel-layout slice.
+mask so the objective scores generated tokens only.
+:func:`place_batch_for_mesh` pads a batch for the microbatch split and
+moves it to the training device; placement over a mesh belongs to the
+parallel-layout slice.
 """
 
 from __future__ import annotations
@@ -113,3 +115,70 @@ def make_branch_mask(trajectories: Sequence[Trajectory],
             if 0 <= q < n:
                 out[i, pos[q]] = 1.0
     return out
+
+
+def pad_batch_for_mesh(
+    tokens: np.ndarray, mask: np.ndarray, rewards: np.ndarray,
+    group_ids: np.ndarray, *, batch_multiple: int = 1,
+    seq_multiple: int = 1, pad_id: int = 0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Pad a make_batch output so it splits evenly: batch axis to a
+    multiple of ``batch_multiple``, and the TRAINING sequence length (S−1,
+    after the trainer's next-token shift) to a multiple of
+    ``seq_multiple``. Padded rows get an all-False mask, zero reward, and a
+    fresh singleton group id each — they contribute nothing to the masked
+    objective or group advantages."""
+    b, s = tokens.shape
+    target_s = ((s - 1 + seq_multiple - 1) // seq_multiple) * seq_multiple + 1
+    if target_s > s:
+        pad = target_s - s
+        tokens = np.pad(tokens, ((0, 0), (0, pad)), constant_values=pad_id)
+        mask = np.pad(mask, ((0, 0), (0, pad)))
+    target_b = ((b + batch_multiple - 1) // batch_multiple) * batch_multiple
+    if target_b > b:
+        extra = target_b - b
+        tokens = np.pad(tokens, ((0, extra), (0, 0)), constant_values=pad_id)
+        mask = np.pad(mask, ((0, extra), (0, 0)))
+        rewards = np.pad(rewards, (0, extra))
+        next_gid = int(group_ids.max()) + 1 if b else 0
+        group_ids = np.concatenate(
+            [group_ids, np.arange(next_gid, next_gid + extra,
+                                  dtype=group_ids.dtype)])
+    return tokens, mask, rewards, group_ids
+
+
+def place_batch_for_mesh(mesh, tokens, mask, rewards, group_ids,
+                         old_logp=None, *, pad_id: int = 0,
+                         accum_steps: int = 1, device="cuda"):
+    """Pad a make_batch output so its rows split into ``accum_steps``
+    microbatches and move every array to ``device`` (the params' device):
+    tokens and group ids as int64, the mask as bool, rewards and
+    ``old_logp`` as f32. Returns ``(tokens, mask, rewards, group_ids,
+    old_logp or None)`` ready for train_step. A mesh raises, as the
+    trainer does, until the parallel-layout slice."""
+    import torch
+
+    from ..device import resolve_device
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "placing a batch over a mesh arrives with the parallel-layout "
+            "slice of the PyTorch port; pass mesh=None")
+    dev = resolve_device(device)
+    if accum_steps > 1 and tokens.shape[0] % accum_steps != 0:
+        # the returned batch must satisfy the microbatch split's
+        # divisibility check
+        tokens, mask, rewards, group_ids = pad_batch_for_mesh(
+            tokens, mask, rewards, group_ids,
+            batch_multiple=accum_steps, pad_id=pad_id)
+        if old_logp is not None and old_logp.shape[0] < tokens.shape[0]:
+            old_logp = np.pad(
+                old_logp, ((0, tokens.shape[0] - old_logp.shape[0]),
+                           (0, 0)))
+
+    def put(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+
+    return (put(tokens, torch.int64), put(mask, torch.bool),
+            put(rewards, torch.float32), put(group_ids, torch.int64),
+            put(old_logp, torch.float32) if old_logp is not None else None)

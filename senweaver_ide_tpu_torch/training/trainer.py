@@ -7,8 +7,10 @@ gradients accumulated in fp32 and weighted by the microbatch's share of
 completion tokens, the gradients cast to the param dtype, their global
 norm, and the optimizer update. Gradient computation
 (:func:`grpo_gradients`) and the optimizer application
-(:func:`apply_gradients`) are separate functions, so a guarded step can
-inspect the metrics before anything is written.
+(:func:`apply_gradients`) are separate functions, so a guarded step
+(:func:`train_step_guarded`) inspects the metrics before anything is
+written: a vetoed step leaves the params and the moments untouched, the
+state the JAX package's guard restores.
 
 The optimizer is optax's ``chain(clip_by_global_norm(max_grad_norm),
 adamw(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay))`` written out
@@ -20,6 +22,10 @@ Params and Adam moments are updated IN PLACE (the JAX version returns new
 arrays): the returned state holds the same tensors as the input state, so
 an engine serving those tensors sees the new weights at once.
 ``RolloutEngine.update_params`` stays the round boundary that says so.
+
+The step runs under the span ``trainer.grpo_step`` and the runtime ledger
+entry of the same name (``obs/runtime_profile.py``, ``block=False``: the
+metrics stay on the device until the caller syncs them).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.transformer import Params, forward, init_params
+from ..obs.runtime_profile import ProfiledFunction
 from .grpo import (GRPOConfig, group_relative_advantages, grpo_objective,
                    token_logprobs)
 from .lora import _refuse_int8, merge_lora
@@ -324,6 +331,64 @@ def _has_int8(params: Params) -> bool:
     return any(t.dtype == torch.int8 for t in _leaves(params))
 
 
+def _host_metrics(metrics: Mapping[str, torch.Tensor]) -> Dict[str, float]:
+    """The metrics as host floats, in one device→host copy."""
+    keys = list(metrics)
+    vals = torch.stack([torch.as_tensor(metrics[k]).float().reshape(())
+                        for k in keys]).cpu().tolist()
+    return dict(zip(keys, (float(v) for v in vals)))
+
+
+def _grpo_step(state: TrainState, config: ModelConfig, tokens,
+               completion_mask, rewards, group_ids, *, check=None,
+               optimizer: Optional[AdamW] = None, lora_base=None,
+               **kwargs):
+    """Gradients, then — unless ``check(host_metrics)`` returns a veto
+    reason — the optimizer update. Returns ``(state, metrics, reason)``;
+    on a veto ``state`` is the input state, untouched."""
+    grads, metrics = grpo_gradients(
+        state.params, config, tokens, completion_mask, rewards, group_ids,
+        lora_base=lora_base, **kwargs)
+    if check is not None:
+        reason = check(_host_metrics(metrics))
+        if reason is not None:
+            return state, metrics, reason
+    return (apply_gradients(state, grads, metrics["grad_norm"], optimizer),
+            metrics, None)
+
+
+# Runtime observatory wiring (obs/runtime_profile.py): the GRPO update's
+# ledger. ``block=False`` keeps the launch semantics (the span comment in
+# train_step): the step histogram records the host time of the step;
+# device time stays with rl_loop's train_s. State and config are
+# shape-stable and skipped from the signature scan.
+_grpo_step = ProfiledFunction(
+    _grpo_step, "trainer.grpo_step", skip_args=(0, 1),
+    skip_kwargs=("lora_base", "check", "optimizer", "grpo_config"),
+    block=False)
+
+
+def _run_step(state: TrainState, config: ModelConfig, mesh, tokens,
+              completion_mask, rewards, group_ids, *, check=None,
+              lora_base=None, **kwargs):
+    """train_step's refusals, then the profiled step under its span."""
+    _refuse_mesh(mesh)
+    if _has_int8(state.params):
+        raise TypeError(
+            "train_step received int8-quantized params — quantization is a "
+            "SERVING transform; train on the full-precision state and "
+            "publish quantized")
+    if lora_base is not None:
+        _refuse_int8(lora_base, "train_step")
+    from ..obs import get_tracer
+    with get_tracer().span("trainer.grpo_step",
+                           batch=int(tokens.shape[0]),
+                           accum_steps=kwargs.get("accum_steps", 1)):
+        return _grpo_step(state, config, tokens, completion_mask, rewards,
+                          group_ids, check=check, lora_base=lora_base,
+                          **kwargs)
+
+
 def train_step(state: TrainState, config: ModelConfig, mesh,
                tokens, completion_mask, rewards, group_ids, *,
                old_logp=None, ref_logp=None, branch_mask=None,
@@ -344,19 +409,31 @@ def train_step(state: TrainState, config: ModelConfig, mesh,
     Optimizer resolution: an explicit ``optimizer`` wins, else the one
     the state was built with, else the module default. Metrics are 0-d
     tensors on the params' device (no host sync here)."""
-    _refuse_mesh(mesh)
-    if _has_int8(state.params):
-        raise TypeError(
-            "train_step received int8-quantized params — quantization is a "
-            "SERVING transform; train on the full-precision state and "
-            "publish quantized")
-    if lora_base is not None:
-        _refuse_int8(lora_base, "train_step")
-    grads, metrics = grpo_gradients(
-        state.params, config, tokens, completion_mask, rewards, group_ids,
-        old_logp=old_logp, ref_logp=ref_logp, branch_mask=branch_mask,
-        grpo_config=grpo_config, num_groups=num_groups,
+    new_state, metrics, _ = _run_step(
+        state, config, mesh, tokens, completion_mask, rewards, group_ids,
+        old_logp=old_logp, ref_logp=ref_logp,
+        branch_mask=branch_mask, grpo_config=grpo_config,
+        optimizer=optimizer, num_groups=num_groups,
         accum_steps=accum_steps, lora_base=lora_base)
-    new_state = apply_gradients(state, grads, metrics["grad_norm"],
-                                optimizer)
     return new_state, metrics
+
+
+def train_step_guarded(state: TrainState, config: ModelConfig, mesh,
+                       tokens, completion_mask, rewards, group_ids, *,
+                       guard, **kwargs
+                       ) -> Tuple[TrainState, Dict[str, float],
+                                  Optional[str]]:
+    """``train_step`` behind a resilience.UpdateGuard.
+
+    Computes the gradients, syncs the metrics to host floats and asks
+    ``guard`` whether to apply them. Returns ``(state, float_metrics,
+    skip_reason)``: on a veto the optimizer never runs, so the returned
+    state is the INPUT state with its params and moments untouched (what
+    the JAX package's version gets by keeping the pre-step state), and
+    ``skip_reason`` is the guard's verdict; otherwise ``skip_reason`` is
+    None. A ``guard`` of None degrades to plain train_step with float
+    metrics."""
+    new_state, metrics, reason = _run_step(
+        state, config, mesh, tokens, completion_mask, rewards, group_ids,
+        check=guard.check if guard is not None else None, **kwargs)
+    return new_state, _host_metrics(metrics), reason
