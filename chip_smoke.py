@@ -80,9 +80,33 @@ Phases, each fatal on failure:
     trace reward and the update is a zero-advantage step: the phase
     prints zero_advantage_group_fraction and the round's collect /
     batch_build / train seconds.
-13. A JSON line with every kernel's numbers (``launches_round`` on K1
-    bf16 and K2: the round's counts), the card line, and last the JSON ok
-    line.
+13. HF weights out and in (``phase_hf``, after phase 12, on its trained
+    1.5B weights): export_hf_params writes one model.safetensors (338
+    tensors, 3.09 GB bf16) into a temp dir, available_hf_keys must list
+    exactly the dense Qwen2 key set, load_hf_params reads it onto the
+    card; every tensor and one 256-token prompt's logits must be
+    bit-identical to the source. Prints export and load seconds and GB/s,
+    then removes the dir.
+14. The online improvement loop (``phase_online``, on the loaded
+    weights): phase 12's engine and sessions under an
+    OnlineImprovementLoop with kl_coef 0.05 and the anchor refreshed every
+    round, outcome_feedback as the judge, accum 4, and APO from
+    make_local_apo over the same engine (gates at 4 traces / 4 feedbacks,
+    a one-round beam of width 2 and branch factor 2, candidates scored by
+    re-rolling one task). Two rounds: round 0 must analyze and run the
+    beam; every trace scored on the card equals the host head; K1 = layers
+    x fused steps and K2 = phase 12's counts plus one forward a layer and
+    microbatch for the anchor's log-probs, per round. Then loop.checkpoint
+    into a CheckpointManager(keep_last=1) and OnlineImprovementLoop.resume
+    into a new loop on the same engine: round 2, the rules, the session
+    cursor and the weight version restored, params, both moments and the
+    anchor bit-identical, the engine serving the restored params, and a
+    16-token greedy request identical before and after; check_leaks. Prints
+    each round's wall seconds and split, the APO seconds, the checkpoint
+    and resume seconds and bytes, and peak memory.
+15. A JSON line with every kernel's numbers (``launches_round`` and
+    ``launches_online`` on K1 bf16 and K2: the round's and the two online
+    rounds' counts), the card line, and last the JSON ok line.
 
 Exits non-zero, printing no result, without CUDA or without the
 ``senweaver_ide_tpu_torch`` package beside this file.
@@ -177,6 +201,14 @@ JAX_STATS_KEYS_PAGED = (
     "slots_active", "spec_accepted", "spec_feed_tokens", "spec_proposed",
     "spec_rollbacks", "spec_rounds", "spec_wasted", "tokens_emitted",
     "weight_quant")
+# The online loop across rounds (phase_online): phase_round's engine and
+# sessions, the KL anchor refreshed every round, APO's gates lowered so
+# that round 0 analyzes and runs a one-round beam of width 2
+ONLINE_ROUNDS, ONLINE_KL, ONLINE_ANCHOR_EVERY = 2, 0.05, 1
+ONLINE_APO = dict(min_traces_for_analysis=4, min_feedbacks_for_analysis=4,
+                  gradient_min_feedbacks=4, beam_rounds=1, beam_width=2,
+                  branch_factor=2)
+PROBE_NEW_TOKENS = 16
 ROUND_SPANS = ("grpo_round", "collect", "batch_build", "train_step",
                "trainer.grpo_step", "agent.turn", "engine.decode_step")
 ROUND_LEDGER = ("engine.fused_step", "trainer.grpo_step")
@@ -1435,13 +1467,10 @@ def phase_round(torch, cfg, params, seed, smi):
     from senweaver_ide_tpu_torch.ops import flash_attention as fa
     from senweaver_ide_tpu_torch.ops.paged_attention import \
         paged_flash_decode
-    from senweaver_ide_tpu_torch.rewards import reward_head, score_traces
-    from senweaver_ide_tpu_torch.rewards.head import DIM_NAMES
     from senweaver_ide_tpu_torch.rollout import (EnginePolicyClient,
                                                  RolloutEngine,
                                                  RolloutSession,
                                                  SampleParams)
-    from senweaver_ide_tpu_torch.traces import batch_features
     from senweaver_ide_tpu_torch.training import (grpo_round,
                                                   make_optimizer,
                                                   make_train_state)
@@ -1503,30 +1532,10 @@ def phase_round(torch, cfg, params, seed, smi):
     traces = []
     for i, sess in enumerate(sessions):
         trs = sess.collector.get_all_traces()
-        if (len(trs) != 1 or trs[0].summary.final_reward is None
-                or not trs[0].summary.reward_dimensions):
-            fail(f"episode {i}: {len(trs)} trace(s), final_reward "
-                 f"{trs[0].summary.final_reward if trs else None}")
+        if len(trs) != 1:
+            fail(f"episode {i}: {len(trs)} traces")
         traces.append(trs[0])
-    feats = batch_features(traces)
-    host = reward_head(torch.from_numpy(feats))
-    dims_of = [{d["name"]: d["value"] for d in t.summary.reward_dimensions}
-               for t in traces]
-    head_err = 0.0
-    for i, t in enumerate(traces):
-        want = {DIM_NAMES[j]: float(host.dims[i, j])
-                for j in range(len(DIM_NAMES)) if host.mask[i, j] > 0.5}
-        if set(want) != set(dims_of[i]):
-            fail(f"episode {i}: card head dims {sorted(dims_of[i])} != "
-                 f"host head dims {sorted(want)}")
-        head_err = max([head_err, abs(t.summary.final_reward
-                                      - float(host.final_reward[i]))]
-                       + [abs(dims_of[i][k] - v) for k, v in want.items()])
-    batch = score_traces(traces).cpu()      # the batched head on the card
-    head_err = max(head_err, float((batch - host.final_reward).abs().max()))
-    if not head_err <= HEAD_TOL:
-        fail(f"trace reward head: card vs host differ by {head_err} "
-             f"(tol {HEAD_TOL})")
+    head_err = _check_trace_head(torch, traces, "round")
     rewards = [e.reward for e in out.episodes]
     if [e.task_idx for e in out.episodes] != sorted(
             e.task_idx for e in out.episodes):
@@ -1599,6 +1608,422 @@ def phase_round(torch, cfg, params, seed, smi):
         f"grad_norm {m['grad_norm']:.6g}; update_skipped "
         f"{out.update_skipped}")
     return launches
+
+
+def _check_trace_head(torch, traces, where):
+    """Every trace scored by the head on the card (per-trace scores in its
+    summary, then the batched head) against the plain head on the host:
+    the same dims, values within HEAD_TOL. Returns the worst |diff|."""
+    from senweaver_ide_tpu_torch.rewards import reward_head, score_traces
+    from senweaver_ide_tpu_torch.rewards.head import DIM_NAMES
+    from senweaver_ide_tpu_torch.traces import batch_features
+    for i, t in enumerate(traces):
+        if t.summary.final_reward is None or not t.summary.reward_dimensions:
+            fail(f"{where}: trace {i} is unscored (final_reward "
+                 f"{t.summary.final_reward})")
+    host = reward_head(torch.from_numpy(batch_features(traces)))
+    head_err = 0.0
+    for i, t in enumerate(traces):
+        dims = {d["name"]: d["value"] for d in t.summary.reward_dimensions}
+        want = {DIM_NAMES[j]: float(host.dims[i, j])
+                for j in range(len(DIM_NAMES)) if host.mask[i, j] > 0.5}
+        if set(want) != set(dims):
+            fail(f"{where}: trace {i}: card head dims {sorted(dims)} != "
+                 f"host head dims {sorted(want)}")
+        head_err = max([head_err, abs(t.summary.final_reward
+                                      - float(host.final_reward[i]))]
+                       + [abs(dims[k] - v) for k, v in want.items()])
+    batch = score_traces(traces).cpu()      # the batched head on the card
+    head_err = max(head_err, float((batch - host.final_reward).abs().max()))
+    if not head_err <= HEAD_TOL:
+        fail(f"{where}: trace reward head, card vs host differ by "
+             f"{head_err} (tol {HEAD_TOL})")
+    return head_err
+
+
+def _scratch_dir(need_bytes, prefix):
+    """A new directory under whichever of the temp dir and the checkout's
+    git-ignored build dir has the most free space; fails below
+    ``need_bytes``."""
+    import shutil
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    roots = [tempfile.gettempdir(),
+             os.path.join(here, "senweaver_ide_tpu_torch", "_build")]
+    for r in roots:
+        os.makedirs(r, exist_ok=True)
+    free = {r: shutil.disk_usage(r).free for r in roots}
+    root = max(roots, key=free.get)
+    log(f"[disk] free bytes {free}; {prefix} needs {need_bytes}, under "
+        f"{root}")
+    if free[root] < need_bytes:
+        fail(f"{prefix}: {free[root]} bytes free under {root}, need "
+             f"{need_bytes}")
+    return tempfile.mkdtemp(prefix=prefix, dir=root)
+
+
+def _tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _leaves(tree):
+    from senweaver_ide_tpu_torch.training.trainer import flatten_params
+    return [t for _, t in flatten_params(tree)]
+
+
+def _bits_equal(torch, a, b):
+    """Two param dicts hold the same names and the same bits."""
+    from senweaver_ide_tpu_torch.training.trainer import flatten_params
+    fa, fb = dict(flatten_params(a)), dict(flatten_params(b))
+    if sorted(fa) != sorted(fb):
+        return False
+    return all(fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape
+               and torch.equal(fa[k].view(torch.uint8),
+                               fb[k].view(torch.uint8))
+               for k in fa)
+
+
+def hf_key_set(cfg):
+    """The HF names of a dense checkpoint of ``cfg``, as JAX's
+    ``export_hf_params`` writes them."""
+    keys = ["model.embed_tokens.weight", "model.norm.weight"]
+    if not cfg.tie_word_embeddings:
+        keys.append("lm_head.weight")
+    per = ["input_layernorm.weight", "post_attention_layernorm.weight"]
+    per += [f"self_attn.{m}_proj.weight" for m in "qkvo"]
+    per += [f"mlp.{m}_proj.weight" for m in ("gate", "up", "down")]
+    if cfg.qkv_bias:
+        per += [f"self_attn.{m}_proj.bias" for m in "qkv"]
+    if cfg.qk_norm:
+        per += ["self_attn.q_norm.weight", "self_attn.k_norm.weight"]
+    keys += [f"model.layers.{i}.{k}" for i in range(cfg.num_layers)
+             for k in per]
+    return sorted(keys)
+
+
+def phase_hf(torch, cfg, params, smi):
+    """HF safetensors out and back in at full width: export the trained
+    weights, list the keys, load them onto the card, hold every tensor and
+    one prompt's logits bit for bit against the source."""
+    import shutil
+
+    from senweaver_ide_tpu_torch.models import (available_hf_keys,
+                                                export_hf_params, forward,
+                                                load_hf_params)
+    nbytes = _tree_bytes(params)
+    out_dir = _scratch_dir(int(nbytes * 1.1), "chip_smoke_hf_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = export_hf_params(params, cfg, out_dir)
+        export_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        keys = available_hf_keys(out_dir)
+        want = hf_key_set(cfg)
+        if keys != want:
+            fail(f"hf: {len(keys)} keys in the export, expected "
+                 f"{len(want)}; missing {sorted(set(want) - set(keys))[:5]}"
+                 f", extra {sorted(set(keys) - set(want))[:5]}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_hf_params(out_dir, cfg, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if not _bits_equal(torch, loaded, params):
+        fail("hf: the loaded tree is not bit-identical to the exported one")
+    g = torch.Generator().manual_seed(12)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 256), generator=g).cuda()
+    with torch.no_grad():
+        a = forward(params, cfg, prompt)
+        b = forward(loaded, cfg, prompt)
+    if not torch.equal(a, b):
+        fail(f"hf: logits of the loaded weights differ from the source's "
+             f"(max |diff| {float((a - b).abs().max())})")
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"[hf] {cfg.name}: {n} params, {len(keys)} tensors "
+        f"(= {cfg.num_layers} x {(len(keys) - 2) // cfg.num_layers} + "
+        f"embed_tokens + norm, tied head), model.safetensors "
+        f"{file_bytes} bytes; every loaded tensor and one 256-token "
+        f"prompt's logits bit-identical to the source")
+    log(f"[hf] {smi}: export {export_s:.3f} s "
+        f"({file_bytes / export_s / 1e9:.3f} GB/s), load onto the card "
+        f"{load_s:.3f} s ({file_bytes / load_s / 1e9:.3f} GB/s)")
+    return loaded, {"export_s": export_s, "load_s": load_s,
+                    "bytes": file_bytes}
+
+
+def phase_online(torch, cfg, params, seed, smi):
+    """The online improvement loop at full width on the loaded weights:
+    two rounds (APO and GRPO both firing, the KL anchor refreshed each
+    round), a checkpoint, a resume into a new loop on the same engine, and
+    a greedy request before and after that must agree."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    from senweaver_ide_tpu_torch import obs
+    from senweaver_ide_tpu_torch.apo import APOConfig, make_local_apo
+    from senweaver_ide_tpu_torch.apo.eval import outcome_feedback
+    from senweaver_ide_tpu_torch.models import ByteTokenizer
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    from senweaver_ide_tpu_torch.rollout import (EnginePolicyClient,
+                                                 RolloutEngine,
+                                                 RolloutSession,
+                                                 SampleParams)
+    from senweaver_ide_tpu_torch.traces import TraceCollector
+    from senweaver_ide_tpu_torch.training import (CheckpointManager,
+                                                  GRPOConfig,
+                                                  OnlineImprovementLoop,
+                                                  make_optimizer,
+                                                  make_train_state)
+    from senweaver_ide_tpu_torch.training.online import ANCHOR_FILE
+    tcfg = dataclasses.replace(cfg, attn_impl="flash", remat=TRAIN_REMAT)
+    layers = tcfg.num_layers
+    tok = ByteTokenizer()
+    obs.set_profiler(obs.RuntimeProfiler())
+    tracer = obs.enable()
+    tracer.clear()
+    engine = RolloutEngine(params, tcfg, num_slots=ROUND_SLOTS,
+                           max_len=ROUND_MAX_LEN, sample=SampleParams(),
+                           eos_id=tok.eos_id, seed=seed, device="cuda")
+    collector = TraceCollector()            # scores on the card
+    work = _scratch_dir(0, "chip_smoke_online_ws_")
+    n_sessions = [0]
+
+    def make_session(rules=None, thread_id=None):
+        n_sessions[0] += 1
+        client = EnginePolicyClient(
+            engine, tok, model_name=tcfg.name,
+            default_max_new_tokens=ROUND_NEW_TOKENS, record_calls=True)
+        return RolloutSession(
+            client, os.path.join(work, f"ws{n_sessions[0]}"),
+            apo_rules=list(rules or []),
+            thread_id=thread_id or f"apo-eval-{n_sessions[0]}",
+            collector=collector, include_tool_definitions=False)
+
+    optimizer = _CountingClient(
+        EnginePolicyClient(engine, tok, model_name=tcfg.name))
+
+    def make_apo():
+        return make_local_apo(
+            collector, optimizer, config=APOConfig(**ONLINE_APO),
+            make_session=make_session, eval_tasks=ROUND_TASKS[:1],
+            max_tokens=ROUND_NEW_TOKENS, device="cuda")
+
+    loop_kw = dict(collector=collector, engine=engine,
+                   group_size=ROUND_GROUP, pad_id=tok.pad_id,
+                   max_len=ROUND_MAX_LEN,
+                   grpo_config=GRPOConfig(kl_coef=ONLINE_KL),
+                   max_parallel=ROUND_SLOTS, feedback_fn=outcome_feedback,
+                   anchor_every=ONLINE_ANCHOR_EVERY, checkpoint_every=0,
+                   accum_steps=ROUND_ACCUM)
+    ck_root = None
+    try:
+        state = make_train_state(tcfg, params=params,
+                                 optimizer=make_optimizer(TRAIN_LR))
+        need = 4 * _tree_bytes(params) + (1 << 30)  # params, mu, nu, anchor
+        ck_root = _scratch_dir(need, "chip_smoke_ckpt_")
+        mgr = CheckpointManager(ck_root, keep_last=1)
+        loop = OnlineImprovementLoop(state, tcfg, None, make_session,
+                                     list(ROUND_TASKS), apo=make_apo(),
+                                     checkpoint_manager=mgr, **loop_kw)
+        if loop._anchor is None or loop._anchor["embed"].data_ptr() == \
+                params["embed"].data_ptr():
+            fail("online: the KL anchor is not a copy of the params")
+        k2 = {"fwd": fa.flash_attention_fwd,
+              "dkdv": fa.flash_attention_bwd_dkdv,
+              "dq": fa.flash_attention_bwd_dq}
+        launches = {"k1": 0, "fwd": 0, "dkdv": 0, "dq": 0}
+        torch.cuda.reset_peak_memory_stats()
+        results, per_round = [], []
+        for r in range(ONLINE_ROUNDS):
+            tracer.clear()
+            steps0 = engine.stats()["decode_steps"]
+            paged_flash_decode.launches = 0
+            for w in k2.values():
+                w.launches = 0
+            n_before = len(collector.get_all_traces())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = loop.run_round()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {"k1": paged_flash_decode.launches,
+                   **{k: w.launches for k, w in k2.items()}}
+            for k, v in got.items():
+                launches[k] += v
+            steps = engine.stats()["decode_steps"] - steps0
+            spans = {}
+            for rec in tracer.spans():
+                spans[rec.name] = spans.get(rec.name, 0.0) + \
+                    rec.duration_ms / 1e3
+            traces = collector.get_all_traces()[n_before:]
+            head_err = _check_trace_head(torch, traces, f"online round {r}")
+            if got["k1"] != layers * steps:
+                fail(f"online round {r}: K1 launches {got['k1']} != "
+                     f"{layers} x {steps} fused steps")
+            per_pass = layers * ROUND_ACCUM
+            want = {"fwd": per_pass * ((2 if TRAIN_REMAT else 1) + 1),
+                    "dkdv": per_pass, "dq": per_pass}
+            if {k: got[k] for k in want} != want:
+                fail(f"online round {r}: K2 launches "
+                     f"{ {k: got[k] for k in want} } != {want} (the "
+                     f"phase_round counts plus {per_pass} forward launches "
+                     f"for the anchor's log-probs)")
+            bad = [k for k, v in res.train_metrics.items()
+                   if not np.isfinite(v)]
+            if bad or not res.train_metrics or res.episodes != \
+                    len(ROUND_TASKS) * ROUND_GROUP:
+                fail(f"online round {r}: {res.episodes} episodes, metrics "
+                     f"{res.train_metrics}")
+            results.append(res)
+            per_round.append(dict(wall=wall, steps=steps, spans=spans,
+                                  traces=len(traces), head_err=head_err,
+                                  launches=got))
+        beam = loop.apo.beam_state
+        r0 = results[0]
+        if not (r0.analyzed and r0.beam_ran):
+            fail(f"online round 0: APO analyzed {r0.analyzed}, beam ran "
+                 f"{r0.beam_ran}")
+        if engine.params is not loop.state.params:
+            fail("online: the engine does not serve the loop's params")
+        peak = torch.cuda.max_memory_allocated()
+
+        # a greedy request before the checkpoint ...
+        probe = tok.encode(ROUND_TASKS[1], add_bos=True)
+        before = _greedy(engine, probe)
+        saved_rules = loop.current_rules()
+        saved_cursor = loop._session_ids.peek()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_dir = loop.checkpoint()
+        save_s = time.perf_counter() - t0
+        ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                       for f in os.listdir(step_dir))
+        anchor_bytes = os.path.getsize(os.path.join(step_dir, ANCHOR_FILE))
+        # ... and after a resume into a new loop on the same engine
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop2 = OnlineImprovementLoop.resume(
+            mgr, loop.state, tcfg, None, make_session, list(ROUND_TASKS),
+            apo=make_apo(), **loop_kw)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        # the resume holds a second state and anchor beside the old loop's
+        peak_resume = torch.cuda.max_memory_allocated()
+        problems = []
+        if loop2._round != ONLINE_ROUNDS:
+            problems.append(f"round {loop2._round}")
+        if loop2.current_rules() != saved_rules:
+            problems.append("rules")
+        if loop2._session_ids.peek() != saved_cursor:
+            problems.append("session cursor")
+        if loop2._published_version != loop._published_version:
+            problems.append("weight version")
+        if int(loop2.state.step) != int(loop.state.step) or \
+                loop2.state.opt_state.count != loop.state.opt_state.count:
+            problems.append("step")
+        for name, a, b in (("params", loop2.state.params, loop.state.params),
+                           ("mu", loop2.state.opt_state.mu,
+                            loop.state.opt_state.mu),
+                           ("nu", loop2.state.opt_state.nu,
+                            loop.state.opt_state.nu),
+                           ("anchor", loop2._anchor, loop._anchor)):
+            if not _bits_equal(torch, a, b):
+                problems.append(name)
+        if engine.params is not loop2.state.params:
+            problems.append("the engine does not serve the restored params")
+        after = _greedy(engine, probe)
+        if after != before:
+            problems.append(f"greedy tokens {after} != {before}")
+        if problems:
+            fail(f"online resume: {', '.join(problems)} not restored")
+        engine._alloc.check_leaks()
+    finally:
+        obs.disable()
+        shutil.rmtree(work, ignore_errors=True)
+        if ck_root is not None:
+            shutil.rmtree(ck_root, ignore_errors=True)
+
+    for r, (res, pr) in enumerate(zip(results, per_round)):
+        sp = pr["spans"]
+        apo_s = sp.get("online.apo", 0.0)
+        rounds_s = sp.get("apo.beam_round", 0.0)
+        log(f"[online] round {r}: wall {pr['wall']:.3f} s = collect "
+            f"{sp.get('collect', 0.0):.3f} + batch_build "
+            f"{sp.get('batch_build', 0.0):.3f} + ref_logp "
+            f"{sp.get('ref_logp', 0.0):.3f} + train_step "
+            f"{sp.get('train_step', 0.0):.3f} + APO {apo_s:.3f} (analyze, "
+            f"its textual gradient and the beam's seed scoring "
+            f"{apo_s - rounds_s:.3f}; beam rounds {rounds_s:.3f}: propose "
+            f"{sp.get('apo.propose', 0.0):.3f}, score "
+            f"{sp.get('apo.score', 0.0):.3f}); {pr['steps']} fused steps, "
+            f"K1 {pr['launches']['k1']} = {layers} x {pr['steps']}, K2 "
+            f"{ {k: pr['launches'][k] for k in ('fwd', 'dkdv', 'dq')} }; "
+            f"{res.episodes} episodes, {pr['traces']} traces scored (card "
+            f"vs host head max |diff| {pr['head_err']:.3g}); reward_mean "
+            f"{res.reward_mean:.6f}, analyzed {res.analyzed}, beam "
+            f"{res.beam_ran}, rules {len(res.rules)} active; kl "
+            f"{res.train_metrics.get('kl', float('nan')):.6g}, loss "
+            f"{res.train_metrics['loss']:.6g}, grad_norm "
+            f"{res.train_metrics['grad_norm']:.6g}")
+    log(f"[online] {smi}. Smoke figures, not a benchmark: {tcfg.name}, "
+        f"{layers} layers, on the HF-loaded weights; {ONLINE_ROUNDS} rounds "
+        f"of {len(ROUND_TASKS)} tasks x {ROUND_GROUP} agent sessions on one "
+        f"paged engine ({ROUND_SLOTS} slots, max_len {ROUND_MAX_LEN}), "
+        f"kl_coef {ONLINE_KL}, anchor_every {ONLINE_ANCHOR_EVERY}, accum "
+        f"{ROUND_ACCUM}; APO {ONLINE_APO}; peak max_memory_allocated "
+        f"{peak} bytes over the rounds, {peak_resume} bytes through the "
+        f"checkpoint and the resume (the restored state and anchor beside "
+        f"the old loop's)")
+    log(f"[online] APO optimizer calls {optimizer.calls}, "
+        f"{optimizer.too_long} of them past the {ROUND_MAX_LEN}-position "
+        f"window (answered \"\", as the reference does for a failed "
+        f"call); final beam {len(beam.beam) if beam else 0} prompt(s), best "
+        f"score {beam.history_best_score if beam else None}")
+    log(f"[online] checkpoint {ck_bytes} bytes (anchor {anchor_bytes}) in "
+        f"{save_s:.3f} s ({ck_bytes / save_s / 1e9:.3f} GB/s); resume "
+        f"(restore state + anchor, republish) {resume_s:.3f} s "
+        f"({ck_bytes / resume_s / 1e9:.3f} GB/s); round {loop2._round}, "
+        f"{len(saved_rules)} rules, session cursor {saved_cursor}, params, "
+        f"moments and anchor bit-identical; greedy {PROBE_NEW_TOKENS} tokens "
+        f"identical before and after")
+    return launches, {"rounds": per_round, "save_s": save_s,
+                      "resume_s": resume_s, "ckpt_bytes": ck_bytes}
+
+
+class _CountingClient:
+    """A PolicyClient that counts its calls and those refused for a
+    prompt past the engine's window."""
+
+    def __init__(self, inner):
+        self.inner, self.calls, self.too_long = inner, 0, 0
+
+    def chat(self, messages, **kw):
+        from senweaver_ide_tpu_torch.agents.llm import ContextLengthError
+        self.calls += 1
+        try:
+            return self.inner.chat(messages, **kw)
+        except ContextLengthError:
+            self.too_long += 1
+            raise
+
+
+def _greedy(engine, prompt):
+    """One greedy request through the engine's current params."""
+    from senweaver_ide_tpu_torch.rollout import SampleParams
+    sample = engine.sample
+    engine.sample = SampleParams(0.0, 0, 1.0)
+    try:
+        rid = engine.submit(prompt, max_new_tokens=PROBE_NEW_TOKENS)
+        engine.run()
+        return list(engine.result(rid))
+    finally:
+        engine.sample = sample
 
 
 def _k3_launches(reset):
@@ -1820,8 +2245,10 @@ def main(argv=None) -> int:
     flash = phase_flash(torch, cfg, timer)
     train_launches = phase_train(torch, cfg, params, args.seed, smi)
     round_launches = phase_round(torch, cfg, params, args.seed, smi)
+    loaded, _ = phase_hf(torch, cfg, params, smi)
+    online_launches, _ = phase_online(torch, cfg, loaded, args.seed, smi)
     # the 1.5B weights (trained in place) make way for mistral-7b
-    del params
+    del params, loaded
     gc.collect()
     torch.cuda.empty_cache()
     mcfg = mistral_7b()
@@ -1844,6 +2271,8 @@ def main(argv=None) -> int:
             "launches": launches[variant],
             "launches_round": (round_launches["k1"] if variant == "bf16"
                                else None),
+            "launches_online": (online_launches["k1"] if variant == "bf16"
+                                else None),
             "max_abs_err": r["max_abs_err"],
             "tolerance": f"{KERNEL_ATOL} + {KERNEL_RTOL} * |plain|",
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
@@ -1877,6 +2306,7 @@ def main(argv=None) -> int:
             "replaces": replaces[kname],
             "launches": train_launches[kname],
             "launches_round": round_launches[kname],
+            "launches_online": online_launches[kname],
             "max_abs_err": r["max_abs_err"],
             "tolerance": _fa_tol_text(FA_TOL[FA_ERR_OF[kname][0]]),
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],

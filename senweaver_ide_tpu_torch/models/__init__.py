@@ -5,5 +5,6 @@ from .config import (ModelConfig, PRESETS, RopeScaling, get_config,
 from .transformer import (KVCache, Params, count_params, forward,
                           forward_paged, init_kv_cache, init_params,
                           ring_capacity)
-from .load import params_from_numpy
+from .load import (available_hf_keys, export_hf_params, load_hf_params,
+                   params_from_numpy)
 from .tokenizer import ByteTokenizer, HFTokenizer, load_tokenizer

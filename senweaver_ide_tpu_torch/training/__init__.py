@@ -7,8 +7,9 @@ from .diagnostics import (DiagnosticsConfig, advantage_stats,
 from .grpo import (GRPOConfig, branch_credit_weights,
                    group_relative_advantages, grpo_objective,
                    token_credit_weights, token_logprobs)
-from .lora import (DEFAULT_TARGETS, init_lora, lora_param_count,
-                   materialize_lora, merge_lora, split_lora)
+from .lora import (DEFAULT_TARGETS, export_peft_adapter, init_lora,
+                   load_peft_adapter, lora_param_count, materialize_lora,
+                   merge_lora, split_lora)
 from .rl_loop import (CollectResult, EpisodeRecord, EpisodeTimeout,
                       GroupSizeScheduler, RoundResult,
                       collect_group_trajectories, collect_tree_trajectories,
@@ -17,3 +18,5 @@ from .trainer import (AdamW, AdamWState, TrainState, apply_gradients,
                       grpo_gradients, make_lora_train_state,
                       make_optimizer, make_train_state, train_step,
                       train_step_guarded)
+from .checkpoint import CheckpointManager
+from .online import OnlineImprovementLoop, OnlineRoundResult

@@ -7,18 +7,25 @@ scale is baked into A. ``merge_lora`` is a dict union that
 ``models/transformer.py::_dense`` reads as ``y += (h @ A) @ B``;
 ``train_step(..., lora_base=base)`` trains the adapters only.
 
-bf16 and fp32 bases only: an int8 base (QLoRA) and the PEFT adapter
-export/import arrive with later slices of the port.
+:func:`export_peft_adapter` and :func:`load_peft_adapter` write and read
+the HF-PEFT layout (``adapter_model.safetensors`` + ``adapter_config.json``)
+through the port's safetensors codec.
+
+bf16 and fp32 bases only: an int8 base (QLoRA) arrives with a later slice
+of the port.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import json
+import os
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
+from ..models.safetensors_io import SafetensorsReader, save_file
 
 # (in_dim, out_dim) per supported target matrix
 _TARGET_DIMS = {
@@ -113,13 +120,132 @@ def lora_param_count(lora: Dict) -> int:
     return sum(int(x.numel()) for x in lora["layers"].values())
 
 
-def export_peft_adapter(*args, **kwargs):
-    raise NotImplementedError(
-        "PEFT adapter export arrives with the checkpoint slice of the "
-        "PyTorch port")
+# HF module names for each target (PEFT adapter layout).
+_PEFT_MODULES = {
+    "wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+    "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+    "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+    "w_down": "mlp.down_proj",
+}
+
+# Hub repo ids for the local presets: what a PEFT runtime needs in
+# adapter_config.json to resolve the base checkpoint.
+_HF_REPO_IDS = {
+    "qwen2.5-coder-0.5b": "Qwen/Qwen2.5-Coder-0.5B",
+    "qwen2.5-coder-1.5b": "Qwen/Qwen2.5-Coder-1.5B",
+    "qwen2.5-coder-7b": "Qwen/Qwen2.5-Coder-7B",
+    "qwen3-1.7b": "Qwen/Qwen3-1.7B",
+    "qwen3-8b": "Qwen/Qwen3-8B",
+    "deepseek-coder-1.3b": "deepseek-ai/deepseek-coder-1.3b-base",
+    "deepseek-coder-6.7b": "deepseek-ai/deepseek-coder-6.7b-base",
+    "mistral-7b": "mistralai/Mistral-7B-v0.1",
+    "mixtral-8x7b": "mistralai/Mixtral-8x7B-v0.1",
+    "llama-3.2-1b": "meta-llama/Llama-3.2-1B",
+    "llama-3.1-8b": "meta-llama/Llama-3.1-8B",
+}
 
 
-def load_peft_adapter(*args, **kwargs):
-    raise NotImplementedError(
-        "PEFT adapter import arrives with the checkpoint slice of the "
-        "PyTorch port")
+def export_peft_adapter(lora: Dict, config: ModelConfig, out_dir: str, *,
+                        base_model: Optional[str] = None) -> str:
+    """Write adapters in the HF-PEFT layout so a GRPO-trained adapter
+    drops into any PEFT runtime over the matching base checkpoint.
+
+    The alpha/rank scale is baked into A at init, so the exported config
+    pins ``lora_alpha == r`` (scaling 1.0): the product A·B is the same
+    either way. PEFT stores lora_A as (r, in) and lora_B as (out, r)
+    (torch Linear layout); the port's are (in, r) and (r, out). Tensors
+    are written in fp32."""
+    tensors: Dict[str, torch.Tensor] = {}
+    rank = None
+    targets = []
+    for name, leaf in lora["layers"].items():
+        if not name.endswith("_lora_a"):
+            continue
+        target = name[: -len("_lora_a")]
+        targets.append(_PEFT_MODULES[target].rsplit(".", 1)[-1])
+        a = leaf.float()
+        b = lora["layers"][target + "_lora_b"].float()
+        rank = int(a.shape[-1])
+        for i in range(a.shape[0]):
+            prefix = (f"base_model.model.model.layers.{i}."
+                      f"{_PEFT_MODULES[target]}")
+            tensors[prefix + ".lora_A.weight"] = a[i].T      # (r, in)
+            tensors[prefix + ".lora_B.weight"] = b[i].T      # (out, r)
+    if not tensors:
+        # an empty safetensors file and a config with r=null load in no
+        # PEFT runtime, and would fail only at load time
+        raise ValueError("export_peft_adapter: no LoRA adapter leaves "
+                         "found in lora['layers'] (expected *_lora_a/"
+                         "*_lora_b pairs)")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "adapter_model.safetensors")
+    save_file(tensors, path)
+    with open(os.path.join(out_dir, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": rank, "lora_alpha": rank,
+                   "lora_dropout": 0.0, "bias": "none",
+                   "base_model_name_or_path": (
+                       base_model or _HF_REPO_IDS.get(config.name,
+                                                      config.name)),
+                   "target_modules": sorted(set(targets)),
+                   "task_type": "CAUSAL_LM"}, f, indent=1)
+    return path
+
+
+def load_peft_adapter(adapter_dir: str, config: ModelConfig, *,
+                      device="cuda") -> Dict:
+    """Read a PEFT-layout adapter dir into the stacked adapter tree on
+    ``device``, in ``config.dtype``.
+
+    Scaling: PEFT applies ``lora_alpha / r`` (``alpha / sqrt(r)`` under
+    rsLoRA) at run time; the port bakes it into A, so A is multiplied by
+    that factor on load. Keys outside ``…layers.{i}.<module>.lora_{A,B}``
+    (``modules_to_save`` tensors, modules this architecture lacks) are
+    skipped; a file with nothing loadable raises."""
+    dev = resolve_device(device)
+    with open(os.path.join(adapter_dir, "adapter_config.json")) as f:
+        meta = json.load(f)
+    r = float(meta["r"])
+    alpha = float(meta.get("lora_alpha", r))
+    scaling = alpha / (r ** 0.5) if meta.get("use_rslora") else alpha / r
+    module_to_target = {v: k for k, v in _PEFT_MODULES.items()}
+    path = os.path.join(adapter_dir, "adapter_model.safetensors")
+    with SafetensorsReader([path]) as reader:
+        per_target: Dict[str, Dict[int, Dict[str, str]]] = {}
+        skipped = []
+        for key in reader.keys():
+            parts = key.split(".")
+            if "layers" not in parts or parts[-2] not in ("lora_A",
+                                                          "lora_B"):
+                skipped.append(key)
+                continue
+            li = parts.index("layers")
+            target = module_to_target.get(".".join(parts[li + 2:-2]))
+            if target is None:
+                skipped.append(key)
+                continue
+            per_target.setdefault(target, {}).setdefault(
+                int(parts[li + 1]), {})[parts[-2]] = key
+        if not per_target:
+            raise ValueError(
+                f"no loadable LoRA tensors in {adapter_dir!r} (skipped "
+                f"{len(skipped)} keys, e.g. {skipped[:3]}); supported "
+                f"modules: {sorted(module_to_target)}")
+        layers: Dict[str, torch.Tensor] = {}
+        L = config.num_layers
+        for target, rows in per_target.items():
+            if sorted(rows) != list(range(L)):
+                raise ValueError(f"adapter covers layers {sorted(rows)} but "
+                                 f"config {config.name!r} has {L}")
+            d_in, _ = _TARGET_DIMS[target](config)
+            got = tuple(reversed(reader.shape(rows[0]["lora_A"])))
+            if got != (d_in, int(r)):
+                raise ValueError(
+                    f"adapter {target} lora_A shape {got} does not match "
+                    f"config {config.name!r} expectation ({d_in}, {int(r)})")
+            a = torch.stack([reader.get(rows[i]["lora_A"], dev).T
+                             for i in range(L)])
+            b = torch.stack([reader.get(rows[i]["lora_B"], dev).T
+                             for i in range(L)])
+            layers[target + "_lora_a"] = (a * scaling).to(config.dtype)
+            layers[target + "_lora_b"] = b.to(config.dtype)
+    return {"layers": layers}

@@ -50,26 +50,34 @@ _METRIC_KEYS = ("pg_loss", "kl", "entropy", "ratio_mean", "clip_frac",
                 "grad_sparsity")
 
 
-def _flatten(tree: Mapping, prefix=()) -> Iterator[Tuple[tuple, object]]:
-    for k, v in tree.items():
+def flatten_params(tree: Mapping, prefix: str = "") -> Iterator[
+        Tuple[str, torch.Tensor]]:
+    """``("layers/wq", tensor)`` pairs in sorted key order (the order of
+    JAX's tree leaves): a fixed order and a name per tensor, for the
+    optimizer and for files that hold a param dict."""
+    for k in sorted(tree):
+        v = tree[k]
         if isinstance(v, Mapping):
-            yield from _flatten(v, prefix + (k,))
+            yield from flatten_params(v, f"{prefix}{k}/")
         else:
-            yield prefix + (k,), v
+            yield prefix + k, v
 
 
-def _unflatten(pairs) -> Dict:
+def unflatten_params(pairs) -> Dict:
+    """The dict tree of ``(name, value)`` pairs named as
+    :func:`flatten_params` names them."""
     out: Dict = {}
-    for path, v in pairs:
+    for name, v in pairs:
         node = out
-        for k in path[:-1]:
+        *path, leaf = name.split("/")
+        for k in path:
             node = node.setdefault(k, {})
-        node[path[-1]] = v
+        node[leaf] = v
     return out
 
 
 def _leaves(tree: Mapping) -> List[torch.Tensor]:
-    return [v for _, v in _flatten(tree)]
+    return [v for _, v in flatten_params(tree)]
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -89,12 +97,14 @@ class AdamWState:
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     """optax ``chain(clip_by_global_norm, adamw(b1=0.9, b2=0.95,
-    eps=1e-8))`` on torch tensors.
+    eps=1e-8))`` on torch tensors; with ``max_grad_norm=None``, ``b2=0.999``
+    and no decay it is optax's plain ``adam`` (the APO proposer's).
 
     Per update, with g the param-dtype gradient and n its global norm:
 
-    - clip: ``g`` if ``n < max_grad_norm`` else ``(g / n) * max_grad_norm``
-      (optax scales only when the norm exceeds the maximum);
+    - clip (unless ``max_grad_norm`` is None): ``g`` if
+      ``n < max_grad_norm`` else ``(g / n) * max_grad_norm`` (optax scales
+      only when the norm exceeds the maximum);
     - ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g**2 + b2 nu``, stored
       in the param dtype as optax stores them (``mu_dtype=None``);
     - bias corrections ``1 - b**t`` with t the incremented count;
@@ -107,15 +117,18 @@ class AdamW:
 
     learning_rate: float = 1e-5
     weight_decay: float = 0.0
-    max_grad_norm: float = 1.0
+    max_grad_norm: Optional[float] = 1.0
     warmup_steps: int = 0
+    b2: float = _B2
 
     def init(self, params: Params) -> AdamWState:
         zeros = lambda t: torch.zeros_like(t)       # noqa: E731
         return AdamWState(
             count=0,
-            mu=_unflatten((p, zeros(t)) for p, t in _flatten(params)),
-            nu=_unflatten((p, zeros(t)) for p, t in _flatten(params)))
+            mu=unflatten_params((n, zeros(t))
+                                for n, t in flatten_params(params)),
+            nu=unflatten_params((n, zeros(t))
+                                for n, t in flatten_params(params)))
 
     def step_size(self, count: int) -> float:
         """The signed step ``-lr_t`` of update number ``count`` (0-based),
@@ -136,18 +149,22 @@ class AdamW:
         ``grads``) is computed when not given."""
         gl, pl = _leaves(grads), _leaves(params)
         ml, nl = _leaves(state.mu), _leaves(state.nu)
-        if grad_norm is None:
-            grad_norm = global_norm(gl)
-        keep = grad_norm < self.max_grad_norm
+        clip = self.max_grad_norm is not None
+        if clip:
+            if grad_norm is None:
+                grad_norm = global_norm(gl)
+            keep = grad_norm < self.max_grad_norm
         count = state.count + 1
+        b2 = self.b2
         bc1 = float(np.float32(1.0) - np.float32(_B1) ** np.float32(count))
-        bc2 = float(np.float32(1.0) - np.float32(_B2) ** np.float32(count))
+        bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
         step = self.step_size(state.count)
         for g, p, mu, nu in zip(gl, pl, ml, nl):
             g = g.float()
-            g = torch.where(keep, g, (g / grad_norm) * self.max_grad_norm)
+            if clip:
+                g = torch.where(keep, g, (g / grad_norm) * self.max_grad_norm)
             mu.copy_(g * (1.0 - _B1) + mu.float() * _B1)
-            nu.copy_((g * g) * (1.0 - _B2) + nu.float() * _B2)
+            nu.copy_((g * g) * (1.0 - b2) + nu.float() * b2)
             u = (mu.float() / bc1) / (torch.sqrt(nu.float() / bc2) + _EPS)
             if self.weight_decay:
                 u = u + self.weight_decay * p.float()
@@ -246,7 +263,7 @@ def grpo_gradients(params: Params, config: ModelConfig,
     objective's (token-share weighted over microbatches), ``loss``,
     ``grad_norm`` (of the returned gradients) and ``adv_mean``. Writes
     nothing."""
-    pairs = list(_flatten(params))
+    pairs = list(flatten_params(params))
     names = [p for p, _ in pairs]
     base = [t for _, t in pairs]
     dev = base[0].device
@@ -287,7 +304,7 @@ def grpo_gradients(params: Params, config: ModelConfig,
     for i in range(accum_steps):
         sl = slice(i * mb, (i + 1) * mb)
         live = [t.detach().requires_grad_() for t in base]
-        trainable = _unflatten(zip(names, live))
+        trainable = unflatten_params(zip(names, live))
         model_params = (trainable if lora_base is None
                         else merge_lora(lora_base, trainable))
         logits, _, _ = forward(model_params, config, inputs[sl],
@@ -313,7 +330,7 @@ def grpo_gradients(params: Params, config: ModelConfig,
     metrics["loss"] = loss_acc
     metrics["grad_norm"] = global_norm(out)
     metrics["adv_mean"] = adv.mean()
-    return _unflatten(zip(names, out)), metrics
+    return unflatten_params(zip(names, out)), metrics
 
 
 def apply_gradients(state: TrainState, grads: Params,

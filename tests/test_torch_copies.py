@@ -32,6 +32,9 @@ COPIES = (
     "traces/schema", "traces/features", "traces/store", "traces/uploader",
     "traces/collector", "traces/__init__",
     "rollout/policy_client", "rollout/session", "rewards/__init__",
+    "apo/types", "apo/patterns", "apo/report", "apo/rollouts",
+    "apo/gradient", "apo/segments", "apo/synthetic", "apo/service",
+    "apo/__init__",
 )
 
 # 1-based lines of the JAX files whose comment dates a feature by the

@@ -19,7 +19,8 @@ from senweaver_ide_tpu_torch.rollout import RolloutEngine, init_paged_pool
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(senweaver_ide_tpu_torch.__file__)
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "senweaver_ide_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "safetensors",
+          "ml_dtypes", "senweaver_ide_tpu")
 
 
 def _banned(module: str) -> bool:
@@ -40,6 +41,7 @@ def _port_files():
 def test_banned_matches_exact_module_names():
     assert _banned("senweaver_ide_tpu") and _banned("senweaver_ide_tpu.ops")
     assert _banned("jax.numpy") and _banned("optax")
+    assert _banned("safetensors.numpy") and _banned("ml_dtypes")
     assert not _banned("senweaver_ide_tpu_torch")
     assert not _banned("senweaver_ide_tpu_torch.models")
     assert not _banned("jaxtyping_like")

@@ -224,6 +224,39 @@ def test_adamw_chain_matches_optax(rng, kw):
     assert ttr.make_optimizer(1e-2, **kw) is topt
 
 
+def test_unclipped_adamw_is_optax_adam(rng):
+    """``max_grad_norm=None, b2=0.999``: optax's ``adam``, the update the
+    JAX package's rule proposer trains with."""
+    params = {"a": rng.standard_normal((7, 5)).astype(np.float32),
+              "b": {"c": rng.standard_normal(11).astype(np.float32)}}
+    jopt = optax.adam(1e-2)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    js = jopt.init(jp)
+    topt = ttr.AdamW(learning_rate=1e-2, max_grad_norm=None, b2=0.999)
+    tp = params_from_numpy(params, device="cpu")
+    ts = topt.init(tp)
+    for _ in range(3):
+        # large gradients: a clipping chain would scale these
+        g = {"a": (rng.standard_normal((7, 5)) * 30).astype(np.float32),
+             "b": {"c": (rng.standard_normal(11) * 30).astype(np.float32)}}
+        upd, js = jopt.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp)
+        jp = optax.apply_updates(jp, upd)
+        ts = topt.update(params_from_numpy(g, device="cpu"), ts, tp)
+        _assert_tree_close(jp, tp, atol=1e-7, rtol=1e-6)
+    _assert_tree_close(js[0].mu, ts.mu, atol=1e-7, rtol=1e-6)
+    _assert_tree_close(js[0].nu, ts.nu, atol=1e-9, rtol=1e-6)
+
+
+def test_flatten_params_names_in_jax_leaf_order(rng):
+    tree = {"z": np.float32(1), "layers": {"wq": np.float32(2),
+                                          "bq": np.float32(3)},
+            "embed": np.float32(4)}
+    pairs = list(ttr.flatten_params(tree))
+    assert [n for n, _ in pairs] == ["embed", "layers/bq", "layers/wq", "z"]
+    assert [v for _, v in pairs] == jax.tree_util.tree_leaves(tree)
+    assert ttr.unflatten_params(pairs) == tree
+
+
 # -- train_step ------------------------------------------------------------
 
 
@@ -308,8 +341,8 @@ def test_remat_gives_the_same_gradients(setup):
             params, cfg, **batch, old_logp=extras["old_logp"], num_groups=2,
             accum_steps=2)
         out.append((grads, metrics))
-    for (path, a), (_, b) in zip(ttr._flatten(out[0][0]),
-                                 ttr._flatten(out[1][0])):
+    for (path, a), (_, b) in zip(ttr.flatten_params(out[0][0]),
+                                 ttr.flatten_params(out[1][0])):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6,
                                    msg=str(path))
     assert float(out[0][1]["loss"]) == pytest.approx(float(out[1][1]["loss"]),
@@ -385,7 +418,7 @@ def test_behavior_logp_batched_matches_jax(setup):
                                rtol=1e-5)
 
 
-def test_out_of_slice_training_raises(setup):
+def test_out_of_slice_training_raises(setup, tmp_path):
     jcfg, jparams, batch, _ = setup
     tparams = params_from_numpy(jax.device_get(jparams), device="cpu")
     state = ttr.make_train_state(tiny_test(), params=tparams)
@@ -407,6 +440,10 @@ def test_out_of_slice_training_raises(setup):
                        tiny_test(), None, **batch)
     with pytest.raises(ValueError, match="accum_steps"):
         ttr.train_step(state, tiny_test(), None, **batch, accum_steps=3)
-    for fn in (tlora.export_peft_adapter, tlora.load_peft_adapter):
-        with pytest.raises(NotImplementedError, match="slice"):
-            fn({}, tiny_test(), "x")
+    # PEFT adapter I/O is ported now: it refuses bad input instead
+    with pytest.raises(ValueError, match="no LoRA adapter leaves"):
+        tlora.export_peft_adapter({"layers": {}}, tiny_test(),
+                                  str(tmp_path / "peft"))
+    with pytest.raises(FileNotFoundError):
+        tlora.load_peft_adapter(str(tmp_path / "missing"), tiny_test(),
+                                device="cpu")
