@@ -104,9 +104,39 @@ Phases, each fatal on failure:
     16-token greedy request identical before and after; check_leaks. Prints
     each round's wall seconds and split, the APO seconds, the checkpoint
     and resume seconds and bytes, and peak memory.
-15. A JSON line with every kernel's numbers (``launches_round`` and
-    ``launches_online`` on K1 bf16 and K2: the round's and the two online
-    rounds' counts), the card line, and last the JSON ok line.
+15. The engine's reuse paths (``phase_reuse``, on the same weights): the
+    round's 2 tasks x 4 sessions on fresh engines with auto_prefix on and
+    off (one prefix prefill, a hit and a graft per call, the boundary
+    block copied at each consumer's first write, prefill_tokens short by
+    calls x prefix length); one prompt's grafted row in the engine (the
+    prefix's blocks, the copied boundary block, the suffix) against a
+    plain engine's row, prefix and suffix apart (REUSE_KV_RTOL), and its
+    first-token log-prob against a plain prefill's (LOGITS_ATOL); K1 =
+    layers x the fused steps of the phase's engines, bf16 and int8
+    apart, K2 none; a held-slot
+    continuation (counters, release, logits against a full re-prefill);
+    the host tier (a warm prefix swaps out under a request the pool
+    cannot otherwise hold and is restored bit for bit for its next
+    consumer; a forced torn swap leaves it resident); export/import
+    between engines on bf16 and int8 pools, bit-identical; a prefix and a
+    continuation on the int8 slot cache (K3 = layers x (decode steps +
+    one-token chunks)); update_params dropping prefixes and holds and an
+    auto_prefix client re-registering. check_leaks after each part.
+16. The streaming learner (``phase_async``): AsyncGRPOTrainer for
+    ASYNC_ROUNDS rounds (prefetch 1, importance correction, auto_prefix
+    sessions, publish_params = engine.update_params, spread rewards): K1
+    = layers x fused steps, K2 = phase 12's counts per round, K3 none, every
+    cached behaviour version bit-identical to what the engine served,
+    the params moved; then one OnlineImprovementLoop round streaming into
+    an ExperienceQueue (an episode per LLM call) and a
+    StreamingTrainerAdapter step on its batch, whose recorded old_logp is
+    held against behavior_logp_batched on the card (STREAM_LOGP_TOL) and
+    whose ratio_mean is held against the one those log-probs give under
+    the params it trains (ADAPTER_RATIO_TOL).
+17. A JSON line with every kernel's numbers (``launches_round``,
+    ``launches_online``, ``launches_reuse`` and ``launches_async``: the
+    counts of those phases' runs), the card line, and last the JSON ok
+    line.
 
 Exits non-zero, printing no result, without CUDA or without the
 ``senweaver_ide_tpu_torch`` package beside this file.
@@ -209,6 +239,26 @@ ONLINE_APO = dict(min_traces_for_analysis=4, min_feedbacks_for_analysis=4,
                   gradient_min_feedbacks=4, beam_rounds=1, beam_width=2,
                   branch_factor=2)
 PROBE_NEW_TOKENS = 16
+# The engine's reuse paths (phase_reuse): the prefix's KV (slot-path
+# prefill, plain attention) against a chunked prefill's (K1), bf16: the
+# worst per-layer RMS of the difference over the RMS of the plain KV. The
+# two routes round differently at every layer (~2**-8 relative); over 28
+# layers that walks to sqrt(28) * 2**-8 ~ 0.02 at the last ones (0.0178
+# measured on seed-0 weights, NVIDIA H100): twice that.
+REUSE_KV_RTOL = 4e-2
+# The streaming learner (phase_async)
+ASYNC_ROUNDS, ASYNC_PREFETCH = 3, 1
+# Recorded behaviour log-probs (the engine's, at sample time) against
+# behavior_logp_batched on the same params (K2's forward), bf16: mean
+# |diff| over the completion tokens (phase 7's ratio tolerance reads the
+# same per-token differences, a few 1e-2)
+STREAM_LOGP_TOL = 0.05
+# The adapter's step after the sink round: the loop has already trained on
+# that round, so the adapter's ratio_mean is not 1 (it read 0.997-1.021);
+# it must equal exp(logp - recorded old_logp) averaged over the completion
+# tokens, logp from behavior_logp_batched on the adapter's params: the same
+# K2 forward at the same shapes as the adapter's own
+ADAPTER_RATIO_TOL = 2e-3
 ROUND_SPANS = ("grpo_round", "collect", "batch_build", "train_step",
                "trainer.grpo_step", "agent.turn", "engine.decode_step")
 ROUND_LEDGER = ("engine.fused_step", "trainer.grpo_step")
@@ -1284,22 +1334,27 @@ def phase_logits(torch, cfg, params):
         fail(f"paged step vs no-cache forward logits differ by {ref_diff}")
 
 
-def _engine_logits(torch, engine, prompt):
-    """Last-position logits of ``prompt`` through the engine's params and
-    the paged path it serves with (a private pool, kernel K1)."""
+def _paged_logits(torch, params, cfg, tokens, start=0, payload=None):
+    """Last-token logits of ``tokens`` fed at positions ``start..`` on a
+    private pool through K1: with ``payload`` (blocks gathered from an
+    engine, positions ``< start``) installed first, this is the graft or
+    continuation route; with ``start`` 0 it is a plain prefill."""
     from senweaver_ide_tpu_torch.models import forward_paged
     from senweaver_ide_tpu_torch.rollout import init_paged_pool
-    bs, n = 16, len(prompt)
-    nb = -(-n // bs)
-    pool = init_paged_pool(engine.config, nb, bs, device="cuda")
-    pos = torch.arange(n)
+    from senweaver_ide_tpu_torch.rollout.paged_kv import install_blocks_quant
+    bs, n = 16, len(tokens)
+    nb = -(-(start + n) // bs)
+    pool = init_paged_pool(cfg, nb, bs, device="cuda")
+    if payload is not None:
+        install_blocks_quant(pool, payload, list(range(payload.k.shape[1])))
+    pos = torch.arange(start, start + n)
     with torch.no_grad():
         logits, _ = forward_paged(
-            engine.params, engine.config, torch.tensor(prompt), pool=pool,
+            params, cfg, torch.tensor(tokens), pool=pool,
             tables=torch.arange(nb, dtype=torch.int32)[None],
             seq_row=torch.zeros(n, dtype=torch.long), positions=pos,
             write_block=pos // bs, write_off=pos % bs, use_kernel=True)
-    return logits[-1].clone()
+    return logits[-1].float()
 
 
 def _stand_in_reward(tokens):
@@ -1335,7 +1390,8 @@ def phase_train(torch, cfg, params, seed, smi):
     # 1. rollout: a group of completions per prompt, behaviour log-probs
     engine = RolloutEngine(params, tcfg, num_slots=16, max_len=2048,
                            seed=seed, device="cuda")
-    probe_before = _engine_logits(torch, engine, prompts[0])
+    probe_before = _paged_logits(torch, engine.params, engine.config,
+                                 prompts[0])
     subs = [(gi, engine.submit(p, max_new_tokens=TRAIN_NEW_TOKENS))
             for gi, p in enumerate(prompts) for _ in range(TRAIN_GROUP)]
     paged_flash_decode.launches = 0
@@ -1416,7 +1472,8 @@ def phase_train(torch, cfg, params, seed, smi):
 
     # 5. publish, check the engine's logits moved, serve one more group
     engine.update_params(state.params)
-    probe_after = _engine_logits(torch, engine, prompts[0])
+    probe_after = _paged_logits(torch, engine.params, engine.config,
+                                prompts[0])
     dlogit = float((probe_after - probe_before).abs().max())
     if not dlogit > 0:
         fail("engine logits did not change after update_params")
@@ -2026,6 +2083,732 @@ def _greedy(engine, prompt):
         engine.sample = sample
 
 
+def _kv_rel_err(torch, got, want, n, start=0):
+    """Per-layer RMS of (got - want) over RMS(want), positions
+    ``start..n-1``, of block payloads (L, nblk, bs, Hkv, D); the worst
+    layer of k and v."""
+    worst = 0.0
+    for a, b in ((got.k, want.k), (got.v, want.v)):
+        a = a.float().reshape(a.shape[0], -1, *a.shape[3:])[:, start:n]
+        b = b.float().reshape(b.shape[0], -1, *b.shape[3:])[:, start:n]
+        num = (a - b).pow(2).mean(dim=(1, 2, 3)).sqrt()
+        den = b.pow(2).mean(dim=(1, 2, 3)).sqrt()
+        worst = max(worst, float((num / den).max()))
+    return worst
+
+
+def _payload_equal(torch, a, b):
+    return all((x is None) == (y is None) and (x is None or (
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.contiguous().view(torch.uint8),
+                        y.contiguous().view(torch.uint8))))
+        for x, y in zip(a, b))
+
+
+def _timed(torch, fn, out):
+    """``fn`` wrapped to append its synchronized wall seconds to ``out``."""
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+    return run
+
+
+def phase_reuse(torch, cfg, params, seed, smi):
+    """The engine's reuse paths at full width: the round's sessions with
+    and without a shared system prefix, a held-slot continuation, the
+    host tier under pressure, export/import between engines on bf16 and
+    int8 pools, a prefix and a continuation on the int8 slot cache (K3),
+    and a publish dropping prefixes and holds. Returns the phase's
+    launches: K1 on bf16 pools (``k1``) and on the int8 pool
+    (``k1_int8``), each layers x its engines' fused steps, with the
+    reference forwards the checks run through K1 left out; K3; and K2's
+    three kernels, which nothing in the phase runs (every forward here
+    reads a cache or the pool)."""
+    import dataclasses
+    import shutil
+
+    from senweaver_ide_tpu_torch.agents.llm import ChatMessage
+    from senweaver_ide_tpu_torch.models import ByteTokenizer
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    from senweaver_ide_tpu_torch.rollout import (EngineConfig,
+                                                 EnginePolicyClient,
+                                                 RolloutEngine,
+                                                 RolloutSession,
+                                                 SampleParams)
+    from senweaver_ide_tpu_torch.rollout.engine import _chunk_sizes
+    from senweaver_ide_tpu_torch.rollout.paged_kv import gather_blocks_quant
+    from senweaver_ide_tpu_torch.training import collect_group_trajectories
+    tok = ByteTokenizer()
+    greedy = SampleParams(0.0, 0, 1.0)
+    layers = cfg.num_layers
+    k2 = {"fwd": fa.flash_attention_fwd,
+          "dkdv": fa.flash_attention_bwd_dkdv,
+          "dq": fa.flash_attention_bwd_dq}
+    paged_flash_decode.launches = 0
+    flash_decode.launches = 0
+    for w in k2.values():
+        w.launches = 0
+    # each paged engine's fused steps, by pool dtype, credited before the
+    # engine goes: K1's count must come to layers x these
+    k1_steps = {"bf16": 0, "int8": 0}
+
+    def retire(engine, dtype="bf16"):
+        k1_steps[dtype] += engine.stats()["decode_steps"]
+
+    def reference_logits(*args):
+        """``_paged_logits`` (a forward through K1 on a private pool),
+        kept out of the phase's launch count: it checks the path and is
+        not part of it."""
+        n = paged_flash_decode.launches
+        try:
+            return _paged_logits(torch, params, cfg, *args)
+        finally:
+            paged_flash_decode.launches = n
+
+    def engine_for(**kw):
+        kw.setdefault("num_slots", ROUND_SLOTS)
+        return RolloutEngine(params, kw.pop("config", cfg),
+                             max_len=ROUND_MAX_LEN, eos_id=tok.eos_id,
+                             seed=seed, device="cuda", **kw)
+
+    # 1. the round's sessions with a shared system prefix, then without
+    runs = {}
+    for auto in (True, False):
+        engine = engine_for(sample=SampleParams())
+        work = _scratch_dir(0, "chip_smoke_reuse_ws_")
+        clients, systems = [], []
+
+        def make_session(engine=engine, work=work, clients=clients,
+                         systems=systems, auto=auto):
+            client = EnginePolicyClient(
+                engine, tok, model_name=cfg.name,
+                default_max_new_tokens=ROUND_NEW_TOKENS, record_calls=True,
+                auto_prefix=auto)
+            clients.append(client)
+            sess = RolloutSession(client,
+                                  os.path.join(work, f"ws{len(clients)}"),
+                                  include_tool_definitions=False)
+            systems.append(sess.system_message())
+            return sess
+
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            collect_group_trajectories(make_session, list(ROUND_TASKS),
+                                       group_size=ROUND_GROUP,
+                                       max_parallel=ROUND_SLOTS)
+            torch.cuda.synchronize()
+            collect_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        calls = [c for cl in clients for c in cl.call_log]
+        runs[auto] = dict(engine=engine, stats=engine.stats(), calls=calls,
+                          collect_s=collect_s, system=systems[0],
+                          clients=clients)
+    pre, plain = runs[True], runs[False]
+    peng, st = pre["engine"], pre["stats"]
+    if len(peng._prefixes) != 1:
+        fail(f"reuse: {len(peng._prefixes)} prefixes registered, want 1")
+    pid = next(iter(peng._prefixes))
+    prefix_ids, p_blocks, _ = peng._prefixes[pid]
+    n_pre, n_calls = len(prefix_ids), len(pre["calls"])
+    consumers = sum(1 for p, out, _ in pre["calls"]
+                    if len(p) > n_pre or len(out) > 1)
+    bs = peng._alloc.block_size
+    want = {"prefix_prefills": 1, "prefix_cache_hits": n_calls,
+            "prefix_installs": n_calls, "prefix_cache_misses": 0,
+            "kv_preemptions": 0,
+            "prefix_tokens_reused": n_calls * n_pre,
+            "prefill_tokens": sum(len(p) - n_pre for p, _, _ in pre["calls"]),
+            "kv_cow_copies": consumers if n_pre % bs else 0}
+    got = {k: st[k] for k in want}
+    if got != want:
+        fail(f"reuse: prefix run counters {got} != {want}")
+    want_plain = sum(len(p) for p, _, _ in plain["calls"])
+    if plain["stats"]["prefill_tokens"] != want_plain or \
+            plain["stats"]["prefix_installs"] != 0:
+        fail(f"reuse: plain run prefill_tokens "
+             f"{plain['stats']['prefill_tokens']} != {want_plain}")
+    # the engine's own grafted row (the prefix's blocks, the copied
+    # boundary block and the suffix K1 wrote through the forked table)
+    # against a plain engine's row for the same prompt (chunked prefill
+    # through K1); then the engine's first-token log-prob against a plain
+    # prefill's logits at that token
+    prompt = pre["calls"][0][0]
+    nblk, n_all = -(-n_pre // bs), len(prompt)
+    peng.sample = greedy
+    veng = plain["engine"]
+    veng.sample = greedy
+    rows = {}
+    for eng, kw in ((peng, {"prefix_id": pid}), (veng, {})):
+        cow0 = eng.stats()["kv_cow_copies"]
+        rid = eng.submit(prompt, max_new_tokens=1, hold_slot=True, **kw)
+        eng.run()
+        row = eng._slot_held.index(rid)
+        rows[eng is peng] = dict(
+            rid=rid, cow=eng.stats()["kv_cow_copies"] - cow0,
+            kv=gather_blocks_quant(eng.pool,
+                                   eng._tables[row][:-(-n_all // bs)]))
+    graft, full = rows[True], rows[False]
+    if graft["cow"] != (1 if n_pre % bs else 0) or full["cow"] != 0:
+        fail(f"reuse: the grafted row copied {graft['cow']} boundary "
+             f"blocks, the plain row {full['cow']}")
+    kv_err = _kv_rel_err(torch, graft["kv"], full["kv"], n_pre)
+    sfx_err = _kv_rel_err(torch, graft["kv"], full["kv"], n_all, n_pre)
+    if not max(kv_err, sfx_err) <= REUSE_KV_RTOL:
+        fail(f"reuse: the grafted row's KV vs a plain prefill's: worst "
+             f"per-layer relative RMS error {kv_err} over the prefix, "
+             f"{sfx_err} over the suffix > {REUSE_KV_RTOL}")
+    lg_plain = reference_logits(prompt)
+    first = peng.result(graft["rid"])[0]
+    lp_err = abs(peng.result_logps(graft["rid"])[0] - float(
+        torch.log_softmax(lg_plain, dim=-1)[first]))
+    if not lp_err <= LOGITS_ATOL:
+        fail(f"reuse: the grafted row's first-token log-prob vs a plain "
+             f"prefill's, |diff| {lp_err} > {LOGITS_ATOL}")
+    agree = first == veng.result(full["rid"])[0] == int(lg_plain.argmax())
+    peng.release_slot(graft["rid"])
+    veng.release_slot(full["rid"])
+    veng._alloc.check_leaks()
+    saved = want_plain - st["prefill_tokens"]
+    log(f"[reuse] {cfg.name}: the round's {len(ROUND_TASKS)} tasks x "
+        f"{ROUND_GROUP} sessions, auto_prefix on / off: {n_calls} / "
+        f"{len(plain['calls'])} LLM calls; one {n_pre}-token system prefix "
+        f"({nblk} blocks) prefilled once, {st['prefix_cache_hits']} hits, "
+        f"{st['kv_grafts']} grafts, {st['kv_cow_copies']} boundary-block "
+        f"copies; prefill_tokens {st['prefill_tokens']} / {want_plain} "
+        f"(counted saving {saved} = {n_calls} x {n_pre}; net of the one "
+        f"registration prefill {saved - n_pre}); a {n_all}-token prompt's "
+        f"grafted row ({graft['cow']} boundary-block copy) vs a plain "
+        f"engine's, worst per-layer relative RMS {kv_err:.3g} over the "
+        f"prefix, {sfx_err:.3g} over the suffix (tol {REUSE_KV_RTOL}); "
+        f"first-token log-prob vs a plain prefill's |diff| {lp_err:.3g} "
+        f"(tol {LOGITS_ATOL}), greedy token agreement {agree} "
+        f"(information)")
+    log(f"[reuse] {smi}. Smoke figures, not a benchmark: collect "
+        f"{pre['collect_s']:.3f} s with the prefix, "
+        f"{plain['collect_s']:.3f} s without; fused steps "
+        f"{st['decode_steps']} / {plain['stats']['decode_steps']}")
+
+    # 2. a held-slot continuation on the plain engine (greedy)
+    p1 = plain["calls"][0][0]
+    c0 = veng.stats()
+    r1 = veng.submit(p1, max_new_tokens=16, hold_slot=True)
+    veng.run()
+    out1 = veng.result(r1)
+    row = veng._slot_held.index(r1)
+    hist = len(p1) + len(out1) - 1
+    held = gather_blocks_quant(veng.pool, veng._tables[row])
+    glue = tok.encode("\nNow run the tests.\n")
+    full2 = p1 + out1 + glue
+    r2 = veng.submit(full2, max_new_tokens=16, continue_from=r1,
+                     hold_slot=True)
+    veng.run()
+    c1 = veng.stats()
+    delta = {k: c1[k] - c0[k] for k in ("continuations",
+                                        "continuation_delta_tokens",
+                                        "prefills", "prefill_tokens")}
+    want = {"continuations": 1, "continuation_delta_tokens": len(full2) - hist,
+            "prefills": 1, "prefill_tokens": len(p1)}
+    if delta != want:
+        fail(f"reuse: continuation counters {delta} != {want}")
+    veng.release_slot(r2)
+    if any(h is not None for h in veng._slot_held):
+        fail("reuse: release_slot left a hold")
+    veng._alloc.check_leaks()
+    lg_cont = reference_logits(full2[hist:], hist, held)
+    lg_full = reference_logits(full2)
+    cont_err = float((lg_cont - lg_full).abs().max())
+    if not cont_err <= LOGITS_ATOL:
+        fail(f"reuse: continuation logits vs a full re-prefill, max |diff| "
+             f"{cont_err} > {LOGITS_ATOL}")
+    # the policy client's multi-turn path (continue_turns)
+    client = EnginePolicyClient(veng, tok, model_name=cfg.name,
+                                default_max_new_tokens=16,
+                                continue_turns=True)
+    msgs = [ChatMessage("system", pre["system"])]
+    k0 = veng.stats()["continuations"]
+    for turn in ("Add a test for add().", "Run it.", "Summarize."):
+        msgs.append(ChatMessage("user", turn))
+        msgs.append(ChatMessage("assistant",
+                                client.chat(msgs, temperature=0.0).text))
+    client.release_held_slot()
+    veng._alloc.check_leaks()
+    log(f"[reuse] continuation: {len(p1)}-token turn + {len(out1)} "
+        f"generated, held ({hist} resident tokens), then a "
+        f"{len(full2) - hist}-token delta; counters {delta}; logits vs a "
+        f"full re-prefill max |diff| {cont_err:.3g} (tol {LOGITS_ATOL}), "
+        f"greedy token agreement "
+        f"{int(lg_cont.argmax()) == int(lg_full.argmax())} (information); "
+        f"a 3-turn continue_turns client made "
+        f"{veng.stats()['continuations'] - k0} continuation(s)")
+    retire(veng)
+    del veng, runs, plain
+    gc.collect()
+
+    # 3. the host tier: a warm prefix tiers out under pressure and comes
+    # back for its next consumer, bit for bit
+    spare = 130
+    heng = engine_for(num_slots=2, sample=greedy,
+                      engine_config=EngineConfig(num_blocks=nblk + spare))
+    swap_out_s, swap_in_s = [], []
+    heng._swap_out_prefix = _timed(torch, heng._swap_out_prefix, swap_out_s)
+    heng._restore_prefix = _timed(torch, heng._restore_prefix, swap_in_s)
+    hid = heng.register_prefix(prefix_ids)
+    user = tok.encode("Fix the failing test.\n")
+    r = heng.submit(prefix_ids + user, max_new_tokens=8, prefix_id=hid)
+    heng.run()
+    before = gather_blocks_quant(heng.pool, heng._prefixes[hid][1])
+    big = (prefix_ids + user) * 2
+    big = big[:bs * (spare + 2) - 16]        # needs more than the spare
+    rb = heng.submit(big, max_new_tokens=16)
+    heng.run()
+    if not heng.prefix_in_host_tier(hid) or len(swap_out_s) != 1:
+        fail(f"reuse: the warm prefix did not tier out under pressure "
+             f"(stats {heng.stats()})")
+    r = heng.submit(prefix_ids + user, max_new_tokens=8, prefix_id=hid)
+    heng.run()
+    if heng.prefix_in_host_tier(hid) or len(swap_in_s) != 1:
+        fail("reuse: the next consumer did not restore the prefix")
+    after = gather_blocks_quant(heng.pool, heng._prefixes[hid][1])
+    if not _payload_equal(torch, before, after):
+        fail("reuse: restored prefix blocks differ from the blocks "
+             "gathered before the swap")
+    hst = heng.stats()
+    if (hst["prefix_swap_outs"], hst["prefix_swap_ins"],
+            hst["kv_swap_outs"], hst["kv_swap_ins"]) != (1, 1, nblk, nblk):
+        fail(f"reuse: swap counters {hst}")
+    swap_bytes = nblk * heng._alloc.bytes_per_block
+    # a second round trip, called directly: the pinned host buffers now
+    # come from the caching host allocator instead of a fresh page-lock
+    heng._swap_out_prefix(hid)
+    if not heng._restore_prefix(hid):
+        fail("reuse: the second restore found no room")
+    again = gather_blocks_quant(heng.pool, heng._prefixes[hid][1])
+    if not _payload_equal(torch, before, again):
+        fail("reuse: the second round trip changed the prefix's blocks")
+
+    # a torn swap (the copy to the host fails) leaves the prefix resident
+    def torn(_a):
+        raise RuntimeError("copy to host failed")
+    blocks = list(heng._prefixes[hid][1])
+    heng._to_host = torn
+    try:
+        heng._swap_out_prefix(hid)
+        fail("reuse: the forced torn swap did not raise")
+    except RuntimeError:
+        pass
+    del heng._to_host
+    if (heng._prefixes[hid][1] != blocks or heng.prefix_in_host_tier(hid)
+            or any(heng._alloc.refcount(b) != 1 for b in blocks)):
+        fail("reuse: a torn swap did not leave the prefix resident")
+    heng.release_prefix(hid)
+    heng._alloc.check_leaks()
+    log(f"[reuse] host tier: pool of {nblk + spare} blocks, the "
+        f"{nblk}-block prefix ({swap_bytes} bytes) swapped out under a "
+        f"{len(big)}-token request and restored for the next consumer, "
+        f"bit-identical; swap out {swap_out_s[0]:.4f} s "
+        f"({swap_bytes / swap_out_s[0] / 1e9:.3f} GB/s), swap in "
+        f"{swap_in_s[0]:.4f} s ({swap_bytes / swap_in_s[0] / 1e9:.3f} "
+        f"GB/s); a second round trip {swap_out_s[1]:.4f} s "
+        f"({swap_bytes / swap_out_s[1] / 1e9:.3f} GB/s) out, "
+        f"{swap_in_s[1]:.4f} s ({swap_bytes / swap_in_s[1] / 1e9:.3f} "
+        f"GB/s) in ({smi}); a forced torn swap left it resident")
+    retire(heng)
+    del heng
+    gc.collect()
+
+    # 4. export / import between two engines, bf16 and int8 pools
+    moves = []
+    k1_int8 = 0
+    for dtype, src in (("bf16", peng), ("int8", None)):
+        k1_0 = paged_flash_decode.launches
+        if src is None:
+            src = engine_for(num_slots=2, sample=greedy,
+                             engine_config=EngineConfig(kv_dtype="int8"))
+            spid = src.register_prefix(prefix_ids)
+        else:
+            spid = pid
+        dst = engine_for(num_slots=2, sample=greedy,
+                         engine_config=EngineConfig(kv_dtype=dtype))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, kv, last = src.export_prefix(spid)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        qid = dst.import_prefix(toks, kv, last)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        a = gather_blocks_quant(src.pool, src._prefixes[spid][1])
+        b = gather_blocks_quant(dst.pool, dst._prefixes[qid][1])
+        if not _payload_equal(torch, a, b):
+            fail(f"reuse: {dtype} import is not bit-identical to the "
+                 f"exporter's blocks")
+        rid = dst.submit(prefix_ids + tok.encode("Hi.\n"), max_new_tokens=8,
+                         prefix_id=qid)
+        dst.run()
+        ds = dst.stats()
+        if ds["kv_install_copies"] != nblk or ds["kv_grafts"] != 1 or \
+                len(dst.result(rid)) == 0:
+            fail(f"reuse: {dtype} import counters {ds}")
+        dst.release_prefix(qid)
+        dst._alloc.check_leaks()
+        moves.append(f"{dtype} export {t1 - t0:.4f} s + import "
+                     f"{t2 - t1:.4f} s ({kv.k.dtype}, "
+                     f"{'quantized' if kv.quantized else 'full width'})")
+        if src is not peng:
+            src.release_prefix(spid)
+            src._alloc.check_leaks()
+            retire(src, dtype)
+        retire(dst, dtype)
+        if dtype == "int8":
+            k1_int8 = paged_flash_decode.launches - k1_0
+        del src, dst
+    log(f"[reuse] export/import, {nblk} blocks, bit-identical: "
+        f"{'; '.join(moves)}")
+    peng.release_prefix(pid)
+    peng._alloc.check_leaks()
+    retire(peng)
+    del peng
+    gc.collect()
+
+    # 5. the int8 slot cache (kv_quant, K3): a prefix and a continuation
+    qcfg = dataclasses.replace(cfg, kv_quant=True, decode_attn_impl="flash")
+    seng = engine_for(num_slots=4, config=qcfg, sample=greedy)
+    steps0 = seng.stats()["decode_steps"]
+    k3_0 = flash_decode.launches
+    spid = seng.register_prefix(prefix_ids)
+    suffix = tok.encode("Write the README.\n")
+    s1 = seng.submit(prefix_ids + suffix, max_new_tokens=16, prefix_id=spid,
+                     hold_slot=True)
+    s2 = seng.submit(prefix_ids, max_new_tokens=16, prefix_id=spid)
+    seng.run()
+    full = prefix_ids + suffix + seng.result(s1) + glue
+    hist_s = n_pre + len(suffix) + len(seng.result(s1)) - 1
+    s3 = seng.submit(full, max_new_tokens=16, continue_from=s1)
+    seng.run()
+    ss = seng.stats()
+    ones = sum(_chunk_sizes(n, seng.max_len).count(1)
+               for n in (n_pre, len(suffix), len(full) - hist_s))
+    k3 = flash_decode.launches - k3_0
+    steps = ss["decode_steps"] - steps0
+    if k3 != layers * (steps + ones) or k3 == 0:
+        fail(f"reuse: int8 slots K3 launches {k3} != {layers} x ({steps} "
+             f"decode steps + {ones} one-token chunks)")
+    if (ss["prefix_installs"], ss["continuations"]) != (2, 1) or \
+            any(len(seng.result(x)) != 16 for x in (s1, s2, s3)):
+        fail(f"reuse: int8 slot prefix/continuation stats {ss}")
+    log(f"[reuse] int8 slot cache (kv_quant, K3): prefix installed twice "
+        f"(one with an empty suffix), a {len(full) - hist_s}-token "
+        f"continuation; K3 launches {k3} = {layers} x ({steps} decode steps "
+        f"+ {ones} one-token chunks)")
+    del seng
+    gc.collect()
+
+    # 6. publish: update_params drops every prefix and hold; an
+    # auto_prefix client re-registers
+    eng = engine_for(num_slots=2, sample=greedy)
+    client = EnginePolicyClient(eng, tok, model_name=cfg.name,
+                                default_max_new_tokens=8, auto_prefix=True,
+                                continue_turns=True)
+    msgs = [ChatMessage("system", pre["system"]),
+            ChatMessage("user", "Fix the bug.")]
+    client.chat(msgs, temperature=0.0)
+    if len(eng._prefixes) != 1 or all(h is None for h in eng._slot_held):
+        fail("reuse: the client registered no prefix or held no slot")
+    eng.update_params(params)
+    if eng._prefixes or any(h is not None for h in eng._slot_held):
+        fail("reuse: update_params kept a prefix or a hold")
+    eng._alloc.check_leaks()
+    client.chat(msgs, temperature=0.0)
+    if eng.stats()["prefix_prefills"] != 2 or len(eng._prefixes) != 1:
+        fail(f"reuse: the client did not re-register after the publish "
+             f"({eng.stats()['prefix_prefills']} prefix prefills)")
+    client.release_held_slot()
+    for p in list(eng._prefixes):
+        eng.release_prefix(p)
+    eng._alloc.check_leaks()
+    retire(eng)
+    launches = {"k1": paged_flash_decode.launches - k1_int8,
+                "k1_int8": k1_int8, "k3": flash_decode.launches,
+                **{k: w.launches for k, w in k2.items()}}
+    want = {"k1": layers * k1_steps["bf16"],
+            "k1_int8": layers * k1_steps["int8"], "k3": k3,
+            "fwd": 0, "dkdv": 0, "dq": 0}
+    if launches != want or not all(launches[k] for k in ("k1", "k1_int8",
+                                                         "k3")):
+        fail(f"reuse: phase launches {launches} != {want} (K1: {layers} x "
+             f"the fused steps {k1_steps}; K3: the int8 slot engine's)")
+    log(f"[reuse] publish: update_params dropped the prefix and the hold, "
+        f"the auto_prefix client re-registered; phase launches {launches} "
+        f"(K1 = {layers} x {k1_steps} fused steps)")
+    return launches
+
+
+def _checksum(torch, tree):
+    """Per tensor, the sums of its raw 16-bit words (all, and every 7th):
+    equal trees give equal sums, a flipped bit changes one."""
+    out = []
+    for t in _leaves(tree):
+        w = t.contiguous().view(torch.int16).reshape(-1)
+        out.append((int(w.sum(dtype=torch.int64)),
+                    int(w[::7].sum(dtype=torch.int64))))
+    return out
+
+
+def phase_async(torch, cfg, params, seed, smi):
+    """The streaming learner at full width: AsyncGRPOTrainer for
+    ASYNC_ROUNDS rounds (prefetch 1, importance correction, auto_prefix
+    sessions on one shared engine, publish_params = engine.update_params,
+    spread rewards), then one OnlineImprovementLoop round streaming into an
+    ExperienceQueue and a StreamingTrainerAdapter step on its batch.
+    Returns the trainer run's K1, K2 and K3 launches (K3 none: the
+    engine is paged, and its prefix prefills run the einsum decode
+    attention)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    from senweaver_ide_tpu_torch.apo import APOConfig, make_local_apo
+    from senweaver_ide_tpu_torch.models import ByteTokenizer
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    from senweaver_ide_tpu_torch.rollout import (EnginePolicyClient,
+                                                 RolloutEngine,
+                                                 RolloutSession,
+                                                 SampleParams)
+    from senweaver_ide_tpu_torch.traces import TraceCollector
+    from senweaver_ide_tpu_torch.training import (AsyncGRPOTrainer,
+                                                  ExperienceQueue,
+                                                  OnlineImprovementLoop,
+                                                  StreamingTrainerAdapter,
+                                                  assemble_batch,
+                                                  behavior_logp_batched,
+                                                  make_optimizer,
+                                                  make_train_state)
+    tcfg = dataclasses.replace(cfg, attn_impl="flash", remat=TRAIN_REMAT)
+    layers = tcfg.num_layers
+    tok = ByteTokenizer()
+    engine = RolloutEngine(params, tcfg, num_slots=ROUND_SLOTS,
+                           max_len=ROUND_MAX_LEN, sample=SampleParams(),
+                           eos_id=tok.eos_id, seed=seed, device="cuda")
+    work = _scratch_dir(0, "chip_smoke_async_ws_")
+    n_sessions = [0]
+    clients = []
+
+    def make_session(rules=None, thread_id=None):
+        n_sessions[0] += 1
+        client = EnginePolicyClient(
+            engine, tok, model_name=tcfg.name,
+            default_max_new_tokens=ROUND_NEW_TOKENS, record_calls=True,
+            auto_prefix=True)
+        clients.append(client)
+        kw = {} if thread_id is None else dict(
+            apo_rules=list(rules or []), thread_id=thread_id,
+            collector=collector)
+        return RolloutSession(client, os.path.join(work,
+                                                   f"ws{n_sessions[0]}"),
+                              include_tool_definitions=False, **kw)
+
+    state = make_train_state(tcfg, params=params,
+                             optimizer=make_optimizer(TRAIN_LR))
+    start_sum = _checksum(torch, params)
+    trainer = AsyncGRPOTrainer(
+        state, tcfg, None, make_session, list(ROUND_TASKS),
+        group_size=ROUND_GROUP, pad_id=tok.pad_id, max_len=ROUND_MAX_LEN,
+        reward_override=_spread_reward, max_parallel=ROUND_SLOTS,
+        accum_steps=ROUND_ACCUM, prefetch=ASYNC_PREFETCH,
+        publish_params=engine.update_params)
+    rounds, publishes = [], []
+    train_on, flush = trainer._train_on, trainer._flush_pending_publish
+
+    def timed_train(item, wait_s):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_on(item, wait_s)
+        torch.cuda.synchronize()
+        rounds.append(dict(version=item.behavior_version,
+                           collect_s=item.collect_s, wait_s=wait_s,
+                           train_s=time.perf_counter() - t0,
+                           staleness=res.staleness,
+                           ratio_mean=res.metrics["ratio_mean"],
+                           loss=res.metrics["loss"],
+                           grad_norm=res.metrics["grad_norm"]))
+        return res
+
+    def recorded_flush():
+        # what the flush applied, read after it (the trainer may stage a
+        # newer version at any time; only the collector thread and the
+        # end of run() flush)
+        before = trainer._applied_behavior
+        flush()
+        applied = trainer._applied_behavior
+        if applied is not before:
+            if engine.params is not applied[1]:
+                fail(f"async: the engine does not serve the params "
+                     f"applied as version {applied[0]}")
+            publishes.append(dict(version=applied[0], params=applied[1],
+                                  sum=_checksum(torch, applied[1])))
+
+    trainer._train_on = timed_train
+    trainer._flush_pending_publish = recorded_flush
+    k2 = {"fwd": fa.flash_attention_fwd,
+          "dkdv": fa.flash_attention_bwd_dkdv,
+          "dq": fa.flash_attention_bwd_dq}
+    steps0 = engine.stats()["decode_steps"]
+    paged_flash_decode.launches = 0
+    flash_decode.launches = 0
+    for w in k2.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        results = trainer.run(ASYNC_ROUNDS)
+    finally:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k1": paged_flash_decode.launches,
+                "k3": flash_decode.launches,
+                **{k: w.launches for k, w in k2.items()}}
+    peak = torch.cuda.max_memory_allocated()
+    if launches["k3"] != 0:
+        fail(f"async: K3 launched {launches['k3']} times on a paged engine")
+    steps = engine.stats()["decode_steps"] - steps0
+    if launches["k1"] != layers * steps or not steps:
+        fail(f"async: K1 launches {launches['k1']} != {layers} x {steps} "
+             f"fused steps")
+    per_pass = layers * ROUND_ACCUM * ASYNC_ROUNDS
+    want = {"fwd": per_pass * (2 if TRAIN_REMAT else 1), "dkdv": per_pass,
+            "dq": per_pass}
+    if {k: launches[k] for k in want} != want:
+        fail(f"async: K2 launches {launches} != {want}")
+    if len(results) != ASYNC_ROUNDS or any(
+            not np.isfinite(r.metrics.get("loss", np.nan))
+            for r in results):
+        fail(f"async: {len(results)} rounds, metrics "
+             f"{[r.metrics for r in results]}")
+    # every cached version is, bit for bit, what the engine served
+    cache = trainer.behavior_cache
+    by_obj = {id(p["params"]): p for p in publishes}
+    cache_bytes = 0
+    for v in cache.versions():
+        entry = cache.get(v)
+        pub = by_obj.get(id(entry))
+        if pub is None or pub["version"] != v:
+            fail(f"async: cached version {v} is not the params published "
+                 f"as version {v}")
+        if _checksum(torch, entry) != pub["sum"]:
+            fail(f"async: cached version {v} changed after its publish")
+        cache_bytes += _tree_bytes(entry)
+    if engine.params is not publishes[-1]["params"] or \
+            _checksum(torch, engine.params) != \
+            _checksum(torch, trainer.state.params):
+        fail("async: the engine does not end on the final params")
+    if _checksum(torch, trainer.state.params) == start_sum:
+        fail("async: the params did not move")
+    for r in rounds:
+        log(f"[async] round v{r['version']}: collect_s {r['collect_s']:.3f}, "
+            f"wait_s {r['wait_s']:.3f}, train_s {r['train_s']:.3f}, "
+            f"staleness {r['staleness']}, ratio_mean {r['ratio_mean']:.6f}, "
+            f"loss {r['loss']:.6g}, grad_norm {r['grad_norm']:.6g}")
+    log(f"[async] {smi}. Smoke figures, not a benchmark: {ASYNC_ROUNDS} "
+        f"rounds (prefetch {ASYNC_PREFETCH}) in {wall:.3f} s; "
+        f"{len(publishes)} publishes (versions "
+        f"{[p['version'] for p in publishes]}); behaviour cache versions "
+        f"{cache.versions()} holding {cache_bytes} bytes, each bit-identical "
+        f"to what the engine served; {steps} fused steps, launches "
+        f"{launches}; peak max_memory_allocated {peak} bytes")
+
+    # one online round streaming its episodes into an ExperienceQueue,
+    # then a StreamingTrainerAdapter step on the batch
+    collector = TraceCollector()
+    queue = ExperienceQueue(group_size=ROUND_GROUP)
+    apo = make_local_apo(collector, EnginePolicyClient(engine, tok),
+                         config=APOConfig(min_traces_for_analysis=10 ** 9),
+                         device="cuda")
+    behavior = engine.params        # served through the round, a copy
+    loop = OnlineImprovementLoop(
+        trainer.state, tcfg, None, make_session, list(ROUND_TASKS), apo=apo,
+        collector=collector, engine=engine, group_size=ROUND_GROUP,
+        pad_id=tok.pad_id, max_len=ROUND_MAX_LEN, max_parallel=ROUND_SLOTS,
+        reward_override=_spread_reward, checkpoint_every=0,
+        accum_steps=ROUND_ACCUM, experience_sink=queue)
+    n_clients = len(clients)
+    try:
+        res = loop.run_round()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    calls = sum(len(c.call_log) for c in clients[n_clients:])
+    offered = queue.stats()["accepted"]
+    groups = len(ROUND_TASKS) * ROUND_GROUP
+    if offered != calls or res.episodes != groups:
+        fail(f"async: {offered} episodes offered to the sink for {calls} "
+             f"LLM calls of {res.episodes} episodes (groups x group size "
+             f"{groups})")
+    batch = queue.take_batch(current_version=0)
+    if not batch:
+        fail(f"async: the sink released no batch ({queue.stats()})")
+    # the adapter's layout: max_len as it assembles the batch
+    _, tokens, mask, _, _, old = assemble_batch(batch, pad_id=tok.pad_id,
+                                                max_len=ROUND_MAX_LEN)
+    if old is None:
+        fail("async: streamed episodes carry no behaviour log-probs")
+    recomputed = behavior_logp_batched(behavior, tcfg, tokens,
+                                       ROUND_ACCUM).float().cpu().numpy()
+    sel = mask[:, 1:]
+    diff = np.abs(old[sel] - recomputed[sel])
+    if not diff.mean() <= STREAM_LOGP_TOL:
+        fail(f"async: streamed old_logp vs behavior_logp_batched on the "
+             f"card, mean |diff| {diff.mean()} > {STREAM_LOGP_TOL}")
+    # the loop trained on its round after sampling it, so the adapter's
+    # params are one update past the behaviour params: its ratio is the
+    # recorded old_logp against the params it trains, not 1
+    current = behavior_logp_batched(loop.state.params, tcfg, tokens,
+                                    ROUND_ACCUM).float().cpu().numpy()
+    want_ratio = float(np.exp(current[sel] - old[sel]).mean())
+    adapter = StreamingTrainerAdapter(loop.state, tcfg, None,
+                                      pad_id=tok.pad_id,
+                                      max_len=ROUND_MAX_LEN,
+                                      accum_steps=ROUND_ACCUM)
+    m = adapter.train_on_batch(batch)
+    ratio_err = abs(m["ratio_mean"] - want_ratio)
+    if not all(np.isfinite(v) for v in m.values()) or \
+            not ratio_err < ADAPTER_RATIO_TOL:
+        fail(f"async: adapter step ratio_mean {m['ratio_mean']} against "
+             f"{want_ratio} from the recorded old_logp and the params it "
+             f"trains (|diff| {ratio_err}, tol {ADAPTER_RATIO_TOL}); "
+             f"metrics {m}")
+    engine._alloc.check_leaks()
+    log(f"[async] sink round: {res.episodes} episodes ({calls} LLM calls) "
+        f"offered {offered} streamed episodes (groups x group size "
+        f"{groups}); a batch of {len(batch)}: recorded old_logp vs "
+        f"behavior_logp_batched on the card over {int(sel.sum())} "
+        f"completion tokens, mean |diff| {diff.mean():.4g}, max "
+        f"{diff.max():.4g} (tol on the mean {STREAM_LOGP_TOL}); adapter "
+        f"step ratio_mean {m['ratio_mean']:.6f} against {want_ratio:.6f} "
+        f"from the recorded old_logp and the loop's updated params "
+        f"(|diff| {ratio_err:.3g}, tol {ADAPTER_RATIO_TOL}), loss "
+        f"{m['loss']:.6g}")
+    return launches
+
+
+def _spread_reward(task_idx, g, session):
+    """Rewards that spread within a group (random weights tie every group
+    on the trace reward, which would make every update zero)."""
+    return 1.0 if g % 2 == 0 else -1.0
+
+
 def _k3_launches(reset):
     from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
     if reset is not None:
@@ -2247,6 +3030,8 @@ def main(argv=None) -> int:
     round_launches = phase_round(torch, cfg, params, args.seed, smi)
     loaded, _ = phase_hf(torch, cfg, params, smi)
     online_launches, _ = phase_online(torch, cfg, loaded, args.seed, smi)
+    reuse_launches = phase_reuse(torch, cfg, loaded, args.seed, smi)
+    async_launches = phase_async(torch, cfg, loaded, args.seed, smi)
     # the 1.5B weights (trained in place) make way for mistral-7b
     del params, loaded
     gc.collect()
@@ -2273,6 +3058,11 @@ def main(argv=None) -> int:
                                else None),
             "launches_online": (online_launches["k1"] if variant == "bf16"
                                 else None),
+            "launches_reuse": {"bf16": reuse_launches["k1"],
+                               "int8": reuse_launches["k1_int8"]}.get(
+                                   variant),
+            "launches_async": (async_launches["k1"] if variant == "bf16"
+                               else None),
             "max_abs_err": r["max_abs_err"],
             "tolerance": f"{KERNEL_ATOL} + {KERNEL_RTOL} * |plain|",
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
@@ -2307,6 +3097,8 @@ def main(argv=None) -> int:
             "launches": train_launches[kname],
             "launches_round": round_launches[kname],
             "launches_online": online_launches[kname],
+            "launches_reuse": reuse_launches[kname],
+            "launches_async": async_launches[kname],
             "max_abs_err": r["max_abs_err"],
             "tolerance": _fa_tol_text(FA_TOL[FA_ERR_OF[kname][0]]),
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
@@ -2323,6 +3115,8 @@ def main(argv=None) -> int:
         "replaces": "senweaver_ide_tpu/ops/flash_decode.py:44",
         "launches": slot_launches,
         "launches_int8_slots_qwen": int8_launches,
+        "launches_reuse": reuse_launches["k3"],
+        "launches_async": async_launches["k3"],
         "max_abs_err": fd["max_abs_err"],
         "max_abs_err_f32": fd["max_abs_err_f32"],
         "tolerance": f"{FD_TOL['bf16'][0]} + {FD_TOL['bf16'][1]} * |plain|",

@@ -27,10 +27,21 @@ Then one decode step runs every slot at once (inactive slots keep their
 token and length), with the flash-decode kernel on the card when
 ``config.decode_attn_impl == "flash"``.
 
-Shared prefixes, held-slot continuations, speculation, adapters, groups,
-migration and tensor-parallel meshes belong to later slices and raise
-where requested; :meth:`RolloutEngine.stats` reports their counters as 0
-so the key set is the JAX engine's.
+**Reuse paths.** :meth:`RolloutEngine.register_prefix` prefills a shared
+prompt prefix (the agent system prompt) once. On paged it lives in
+dedicated pool blocks that every consumer grafts into its table (a
+refcount bump; the shared boundary block is copied on the first write);
+on slots it is a one-slot cache copied into the slot. Prefixes export
+to and import from other engines, and under pool pressure warm ones
+swap to a host-RAM tier (pinned host tensors) and come back on demand.
+``submit(hold_slot=True)`` keeps a finished request's KV resident so the
+next turn (``continue_from=``) prefills only its new tokens.
+``update_params`` drops every prefix and every hold: their KV belongs to
+the old policy.
+
+Speculation, adapters, groups, migration and tensor-parallel meshes
+belong to later slices and raise where requested; :meth:`stats` reports
+their counters as 0 so the key set is the JAX engine's.
 
 Observability is the JAX engine's, under its names: the step bodies run
 under the runtime ledger entries ``engine.fused_step`` (paged) and
@@ -52,20 +63,30 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import (KVCache, Params, _is_ring, forward,
+from ..models.transformer import (KVCache, Params, _is_ring,
+                                  dequantize_pool_kv, forward,
                                   forward_paged, init_kv_cache,
                                   ring_capacity)
 from ..obs import get_registry, get_tracer
-from ..obs.runtime_profile import ProfiledFunction, profiled_device_get
+from ..obs.runtime_profile import (ProfiledFunction, get_profiler,
+                                   profiled_device_get)
 from ..ops.sampling import sample_token, sampled_logprob
-from .paged_kv import (BlockAllocator, BlocksExhausted, copy_blocks,
-                       init_paged_pool, pool_bytes_per_block,
-                       resolve_kv_dtypes)
-from .sampler import SampleParams
+from .kv_pressure import HostPrefix, PrefixCandidate, pick_victim, should_tier
+from .paged_kv import (BlockAllocator, BlockPayload, BlocksExhausted,
+                       copy_blocks, gather_blocks, gather_blocks_quant,
+                       init_paged_pool, install_blocks, install_blocks_quant,
+                       pool_bytes_per_block, resolve_kv_dtypes)
+from .sampler import SampleParams, prefill
 
 
 class QueueFull(RuntimeError):
     """submit() refused: the engine's bounded queue is at ``max_queue``."""
+
+
+class PrefixImportError(ValueError):
+    """import_prefix() refused a foreign KV buffer: shape, dtype,
+    quantization flavour or recorded length does not match this engine's
+    pool layout."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +125,13 @@ class EngineConfig:
     # Per-layer override: a contiguous "bf16" prefix followed by one
     # uniform quantized run (rollout/paged_kv.resolve_kv_dtypes).
     kv_dtype_per_layer: Optional[tuple] = None
+    # Host-RAM tier for warm prefixes (rollout/kv_pressure.py): under
+    # pool pressure, warm or shared prefixes swap to pinned host tensors
+    # and are restored on demand; False makes reclamation evict-only.
+    host_tier: bool = True
+    # An unshared prefix must have been used this many times before it is
+    # worth the host round trip; colder entries are dropped.
+    tier_min_uses: int = 2
 
 
 @dataclasses.dataclass
@@ -116,6 +144,10 @@ class _PrefillJob:
     pos: int
     # sample the request's first output from the LAST fed token's row
     sample_last: bool
+    # rescore-only job: the positions already hold this k/v (an imported
+    # prefix without logits); its writes go to the dropped-write sentinel
+    # so a SHARED boundary block is not copied just to recompute logits
+    drop_writes: bool = False
     # when not sampling (preemption resume), restore this token as the
     # row's decode cursor instead of emitting anything
     after_tok: Optional[int] = None
@@ -138,6 +170,13 @@ class _Request:
     logps: List[float] = dataclasses.field(default_factory=list)
     done: bool = False
     slot: Optional[int] = None
+    prefix_id: Optional[int] = None
+    # keep the slot (and its KV) after finishing so the next turn can
+    # continue from it (submit(continue_from=rid))
+    hold_slot: bool = False
+    # the token history resident in the held slot's KV, EXCLUDING the
+    # last sampled token (whose k/v is written only when it is fed)
+    held_history: Optional[List[int]] = None
     # times this request lost its blocks to preempt-by-recomputation; at
     # EngineConfig.max_preempts it becomes non-preemptible
     preempt_count: int = 0
@@ -232,6 +271,19 @@ def _prefill_slot_chunk(params: Params, config: ModelConfig,
             _writeback_slot(cache, slot, start + tokens.shape[1]))
 
 
+def _install_prefix(cache: KVCache, prefix: KVCache, slot: int) -> KVCache:
+    """Copy a one-slot prefix cache into ``slot`` of the pool and set the
+    slot's length: a device copy in place of recomputing the prefix."""
+    cache.k[:, slot] = prefix.k[:, 0]
+    cache.v[:, slot] = prefix.v[:, 0]
+    if cache.quantized:
+        cache.k_scale[:, slot] = prefix.k_scale[:, 0]
+        cache.v_scale[:, slot] = prefix.v_scale[:, 0]
+    length = cache.length.clone()
+    length[slot] = prefix.length.reshape(-1)[0]
+    return cache._replace(length=length)
+
+
 def _chunk_sizes(n: int, cap: int) -> list:
     """n = (n // cap) full chunks + a descending powers-of-two ladder."""
     sizes = [cap] * (n // cap)
@@ -309,7 +361,8 @@ class RolloutEngine:
                  num_slots: int = 8, max_len: int = 2048,
                  sample: SampleParams = SampleParams(),
                  eos_id: Optional[int] = None, seed: int = 0,
-                 mesh=None, max_queue: Optional[int] = None,
+                 mesh=None, max_prefixes: int = 8,
+                 max_queue: Optional[int] = None,
                  engine_config: Optional[EngineConfig] = None,
                  adapter_pool=None, device="cuda"):
         self.device = resolve_device(device)
@@ -375,9 +428,13 @@ class RolloutEngine:
         else:
             self._init_paged(ec)
         self._slot_req: List[Optional[_Request]] = [None] * num_slots  # guarded-by: _lock
+        # rid holding each slot's KV across turns (hold_slot), or None
+        self._slot_held: List[Optional[int]] = [None] * num_slots  # guarded-by: _lock
+        # monotonic hold sequence per slot: eviction drops the OLDEST
+        self._hold_seq = 0                      # guarded-by: _lock
+        self._slot_hold_seq: List[int] = [0] * num_slots  # guarded-by: _lock
         # The JAX engine's counters, all of them: those of features this
-        # port has not taken yet (prefixes, continuations, speculation,
-        # migration, groups) stay 0.
+        # port has not taken yet (speculation, migration, groups) stay 0.
         self._stats = {"prefills": 0, "prefill_tokens": 0,  # guarded-by: _lock
                        "batched_prefills": 0, "batched_prefill_slots": 0,
                        "prefix_installs": 0, "prefix_tokens_reused": 0,
@@ -408,6 +465,22 @@ class RolloutEngine:
         self._pending_emits: Dict[int, List[int]] = {}  # guarded-by: _lock
         # Preemption-storm latch: rids already counted as storm-capped.
         self._storm_rids: set = set()           # guarded-by: _lock
+        # Prefix cache: pid -> (tokens, entry, last-token logits). The
+        # entry is the prefix's pool blocks on paged (None while the
+        # prefix lives in the host tier) and a one-slot KVCache on slots.
+        self._prefixes: Dict[int, tuple] = {}   # guarded-by: _lock
+        self._prefix_by_tokens: Dict[tuple, int] = {}  # guarded-by: _lock
+        self._next_prefix_id = 0                # guarded-by: _lock
+        # LRU budget in entries; an evicted prefix falls back to a full
+        # prefill (auto_prefix clients re-register on the KeyError)
+        self.max_prefixes = max(1, int(max_prefixes))
+        self._prefix_last_use: Dict[int, int] = {}  # guarded-by: _lock
+        self._prefix_use_seq = 0                # guarded-by: _lock
+        # grafts + exports per prefix: the tier-or-evict signal
+        self._prefix_use_count: Dict[int, int] = {}  # guarded-by: _lock
+        # host tier: pid -> HostPrefix (host tensors) for swapped-out
+        # prefixes
+        self._prefix_host: Dict[int, HostPrefix] = {}  # guarded-by: _lock
         # Many agent loops may drive one engine: all state mutation is
         # serialized.
         self._lock = threading.RLock()
@@ -449,31 +522,34 @@ class RolloutEngine:
         self._use_paged_kernel = bool(pk)
 
     def update_params(self, params: Params) -> None:
-        """On-policy weight sync between rounds. The KV pool and
-        in-flight requests are untouched; callers sync at round
-        boundaries."""
+        """On-policy weight sync between rounds. In-flight requests are
+        untouched; callers sync at round boundaries.
+
+        Registered prefixes are DROPPED (their KV was computed by the old
+        policy): clients holding a prefix_id get a KeyError on next use
+        and re-register (EnginePolicyClient does so). Held conversations
+        are dropped for the same reason; their next turn re-prefills."""
         embed = params["embed"]
         if embed.device.type != self.device.type:
             raise ValueError(f"params live on {embed.device}, engine on "
                              f"{self.device}")
         with self._lock:
             self.params = params
+            # release_prefix, not .clear(): paged prefixes hand their
+            # block references back to the pool
+            for pid in list(self._prefixes):
+                self.release_prefix(pid)
+            for slot in range(self.num_slots):
+                self._drop_hold(slot)
 
     # -- public API ---------------------------------------------------------
 
     def submit(self, prompt: List[int], *, max_new_tokens: int = 128,
+               prefix_id: Optional[int] = None,
                eos_id: Optional[int] = None,
-               prefix_id: Optional[int] = None, hold_slot: bool = False,
+               hold_slot: bool = False,
                continue_from: Optional[int] = None,
                adapter_id: Optional[str] = None) -> int:
-        if prefix_id is not None:
-            raise NotImplementedError(
-                "shared prefixes arrive with a later slice of the PyTorch "
-                "port")
-        if hold_slot or continue_from is not None:
-            raise NotImplementedError(
-                "held-slot continuations arrive with a later slice of the "
-                "PyTorch port")
         if adapter_id is not None:
             raise NotImplementedError(
                 "multi-tenant LoRA adapters arrive with a later slice of "
@@ -481,6 +557,10 @@ class RolloutEngine:
         with self._lock:
             if not prompt:
                 raise ValueError("empty prompt")
+            if continue_from is not None:
+                return self._submit_continuation(
+                    prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
+                    hold_slot=hold_slot, continue_from=continue_from)
             if len(prompt) >= self.context_bound:
                 raise ValueError(
                     f"prompt length {len(prompt)} ≥ engine max_len bound "
@@ -490,11 +570,20 @@ class RolloutEngine:
                 raise QueueFull(
                     f"engine queue at max_queue={self.max_queue} "
                     f"({len(self._queue)} queued)")
+            if prefix_id is not None:
+                if prefix_id not in self._prefixes:
+                    raise KeyError(f"unknown prefix_id {prefix_id}")
+                p_tokens = self._prefixes[prefix_id][0]
+                if list(prompt[:len(p_tokens)]) != p_tokens:
+                    raise ValueError(
+                        "prompt does not start with the registered prefix "
+                        f"(prefix_id {prefix_id}, {len(p_tokens)} tokens)")
             rid = self._next_rid
             self._next_rid += 1
             req = _Request(rid=rid, prompt=list(prompt),
                            max_new_tokens=max_new_tokens,
-                           eos_id=self.eos_id if eos_id is None else eos_id)
+                           eos_id=self.eos_id if eos_id is None else eos_id,
+                           prefix_id=prefix_id, hold_slot=hold_slot)
             self._requests[rid] = req
             # enqueue only: scheduling happens at the next step()
             self._queue.append(req)
@@ -538,14 +627,28 @@ class RolloutEngine:
             out["kv_blocks_free"] = self._alloc.free_blocks
             out["kv_pressure"] = (self._alloc.used_blocks
                                   / self._alloc.num_blocks)
-            # no host-RAM tier yet: nothing is swapped out
-            out["kv_swapped_blocks"] = 0
+            out["kv_swapped_blocks"] = self._swapped_blocks_total()
             out["kv_dtype"] = self.engine_config.kv_dtype
             out["kv_bytes_per_block"] = self._alloc.bytes_per_block
             out["kv_bytes_device"] = self._alloc.used_bytes
             out["kv_bytes_host"] = self._alloc.swapped_bytes
             out["paged_kernel"] = int(self._use_paged_kernel)
             return out
+
+    @property
+    def kv_pressure(self) -> float:
+        """Pool utilization 0..1, the backpressure signal admission and
+        autoscale planes watermark on (0.0 on the slot layout, which has
+        no block pool to exhaust)."""
+        if self.kv_layout != "paged":
+            return 0.0
+        return self._alloc.used_blocks / self._alloc.num_blocks
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests submitted but not yet scheduled into a slot."""
+        with self._lock:
+            return len(self._queue)
 
     def result(self, rid: int) -> List[int]:
         with self._lock:
@@ -561,19 +664,359 @@ class RolloutEngine:
         with self._lock:
             return self._requests[rid].done
 
+    # -- held-slot continuations --------------------------------------------
+
+    def _submit_continuation(self, prompt: List[int], *,
+                             max_new_tokens: int, eos_id: Optional[int],
+                             hold_slot: bool, continue_from: int) -> int:
+        # guarded-by: caller
+        """Multi-turn continuation: append only the NEW tokens to a held
+        slot's resident KV. ``prompt`` is the FULL token stream; it must
+        extend the held history exactly."""
+        prev = self._requests.get(continue_from)
+        if prev is None or not prev.done or prev.held_history is None:
+            raise ValueError(
+                f"continue_from={continue_from}: request not finished "
+                f"while holding a slot")
+        try:
+            slot = self._slot_held.index(continue_from)
+        except ValueError:
+            raise ValueError(
+                f"continue_from={continue_from}: slot already released")
+        history = prev.held_history
+        if (len(prompt) <= len(history)
+                or list(prompt[:len(history)]) != history):
+            raise ValueError(
+                "prompt does not extend the held conversation "
+                f"({len(history)} resident tokens); release the slot "
+                "and submit a full prefill instead")
+        if len(prompt) >= self.context_bound:
+            raise ValueError(
+                f"prompt length {len(prompt)} ≥ engine max_len bound "
+                f"{self.context_bound}")
+        delta = list(prompt[len(history):])
+        rid = self._next_rid
+        self._next_rid += 1
+        req = _Request(rid=rid, prompt=list(prompt),
+                       max_new_tokens=max_new_tokens,
+                       eos_id=self.eos_id if eos_id is None else eos_id,
+                       hold_slot=hold_slot, slot=slot)
+        self._requests[rid] = req
+        self._slot_held[slot] = None
+        self._slot_req[slot] = req
+        self._stats["continuations"] += 1
+        self._stats["continuation_delta_tokens"] += len(delta)
+        if self.kv_layout == "paged":
+            # the held row's blocks stay resident; the delta becomes a
+            # chunked-prefill job (a boundary block still shared with a
+            # prefix is copied on the delta's first write)
+            self._prefill_jobs[rid] = _PrefillJob(
+                toks=delta, pos=len(history), sample_last=True)
+            return rid
+        with get_tracer().span("engine.prefill_continuation", slot=slot,
+                               delta_tokens=len(delta)):
+            last_logits = self._prefill_chunks(slot, delta,
+                                               fresh_first=False)
+        self._emit_first_token(req, slot, last_logits)
+        return rid
+
+    def release_slot(self, rid: int) -> None:
+        """Free a slot held by a finished hold_slot request."""
+        with self._lock:
+            try:
+                slot = self._slot_held.index(rid)
+            except ValueError:
+                return
+            self._drop_hold(slot)
+            self._schedule()
+
+    # -- shared prefixes ----------------------------------------------------
+
+    def register_prefix(self, tokens: List[int]) -> int:
+        """Prefill ``tokens`` once; return a prefix_id for submit().
+
+        The prefix prefills on a one-slot cache (the slot path, as the
+        JAX engine does). On paged its KV is then written into dedicated
+        pool blocks that every consumer grafts; on slots the one-slot
+        cache is the entry and each consumer copies it into its slot.
+        ``submit(prompt, prefix_id=...)`` requires the prompt to START
+        with these tokens and prefills only the rest. Identical token
+        lists dedup to one entry; past ``max_prefixes`` the least
+        recently used entry is released."""
+        with self._lock:
+            if not tokens:
+                raise ValueError("empty prefix")
+            if len(tokens) >= self.max_len:
+                raise ValueError(
+                    f"prefix length {len(tokens)} ≥ pool capacity "
+                    f"{self.max_len}")
+            key = tuple(tokens)
+            if key in self._prefix_by_tokens:
+                pid = self._prefix_by_tokens[key]
+                self._touch_prefix(pid)
+                return pid
+            self._make_prefix_room()
+            sub = init_kv_cache(self.config, 1, self.max_len,
+                                device=self.device)
+            last = None
+            pos = 0
+            for i, size in enumerate(_chunk_sizes(len(tokens),
+                                                  self.max_len)):
+                chunk = torch.tensor(tokens[pos:pos + size],
+                                     dtype=torch.long, device=self.device)
+                last, sub = prefill(self.params, self.config, chunk[None, :],
+                                    sub, fresh_cache=(i == 0))
+                pos += size
+            if self.kv_layout == "paged":
+                nblk = self._alloc.blocks_for(len(tokens))
+                blocks = self._alloc_blocks_evicting(nblk)
+                k_buf, v_buf = self._blockify(sub, nblk)
+                install_blocks(self.pool, k_buf, v_buf, blocks)
+                entry = blocks
+            else:
+                entry = sub
+            # a copy: the row is a view of the whole prefill's logits
+            pid = self._add_prefix(list(tokens), entry, last[0].clone())
+            self._stats["prefix_prefills"] += 1
+            return pid
+
+    def export_prefix(self, prefix_id: int):
+        """A registered prefix for installation into ANOTHER engine:
+        ``(tokens, kv, last_logits)``, with ``kv`` a one-slot KVCache
+        ``(L, 1, max_len, Hkv, Dh)`` and ``last_logits`` the final
+        token's logits (or None). Every tensor is a COPY: later writes
+        into this engine's pool cannot change it. A host-tiered prefix
+        exports from the host tier (host tensors, no device traffic).
+        Raises KeyError for an evicted or invalidated prefix."""
+        with self._lock:
+            if prefix_id not in self._prefixes:
+                raise KeyError(f"unknown prefix_id {prefix_id}")
+            tokens, entry, last = self._prefixes[prefix_id]
+            self._touch_prefix(prefix_id)
+            self._stats["prefix_exports"] += 1
+            if self.kv_layout != "paged":
+                kv = KVCache(*(None if a is None else a.clone()
+                               for a in entry))
+            elif entry is None:
+                kv = self._export_host(prefix_id)
+                self._stats["prefix_host_exports"] += 1
+            else:
+                kv = self._export_blocks(tokens, entry)
+            return (list(tokens), kv,
+                    None if last is None else last.clone())
+
+    def prefix_in_host_tier(self, prefix_id: int) -> bool:
+        """True when the prefix's KV lives only in the host-RAM tier."""
+        with self._lock:
+            return prefix_id in self._prefix_host
+
+    def import_prefix(self, tokens: List[int], kv: KVCache,
+                      last_logits=None) -> int:
+        """Adopt a prefix KV computed by a peer engine (its
+        :meth:`export_prefix`) under a fresh prefix_id, LRU-accounted like
+        a local one. The buffer must match this pool's slot layout: shape
+        ``(L, 1, max_len, Hkv, Dh)``, dtype, quantization flavour and a
+        recorded length of ``len(tokens)``; anything else raises
+        :class:`PrefixImportError`. On a uniformly quantized paged pool a
+        matching quantized buffer is written as it is (payload and
+        scales) and a full-width one is quantized at install; a
+        mixed-ladder pool takes full width and dequantizes a quantized
+        buffer at the door. Without ``last_logits`` a zero-suffix submit
+        rescores the last prefix token (writes dropped) on first use."""
+        with self._lock:
+            if not tokens:
+                raise ValueError("empty prefix")
+            if len(tokens) >= self.max_len:
+                raise ValueError(
+                    f"prefix length {len(tokens)} ≥ pool capacity "
+                    f"{self.max_len}")
+            key = tuple(tokens)
+            if key in self._prefix_by_tokens:
+                pid = self._prefix_by_tokens[key]
+                self._touch_prefix(pid)
+                return pid
+            kv = KVCache(*(None if a is None else torch.as_tensor(a)
+                           for a in kv))
+            if self.kv_layout == "paged":
+                pool = self.pool
+                num_layers = pool.num_layers
+                hkv, dh = pool.k.shape[3], pool.k.shape[4]
+                if kv.quantized and pool.quantized and pool.hi_layers == 0:
+                    pool_dtype, pool_quant = pool.k.dtype, True
+                else:
+                    pool_dtype, pool_quant = self.config.dtype, False
+                    if kv.quantized:
+                        kv = KVCache(
+                            k=dequantize_pool_kv(kv.k, kv.k_scale,
+                                                 pool_dtype),
+                            v=dequantize_pool_kv(kv.v, kv.v_scale,
+                                                 pool_dtype),
+                            length=kv.length)
+            else:
+                num_layers, _, _, hkv, dh = self.cache.k.shape
+                pool_dtype = self.cache.k.dtype
+                pool_quant = bool(self.cache.quantized)
+            want = (num_layers, 1, self.max_len, hkv, dh)
+            if tuple(kv.k.shape) != want or tuple(kv.v.shape) != want:
+                raise PrefixImportError(
+                    f"prefix KV shape {tuple(kv.k.shape)}/"
+                    f"{tuple(kv.v.shape)} != pool slot layout {want}")
+            if kv.k.dtype != pool_dtype:
+                raise PrefixImportError(
+                    f"prefix KV dtype {kv.k.dtype} != pool dtype "
+                    f"{pool_dtype}")
+            if bool(kv.quantized) != pool_quant:
+                raise PrefixImportError(
+                    f"prefix quantization {kv.quantized} != pool "
+                    f"quantization {pool_quant}")
+            if pool_quant:
+                want_s = want[:-1]
+                if (tuple(kv.k_scale.shape) != want_s
+                        or tuple(kv.v_scale.shape) != want_s):
+                    raise PrefixImportError(
+                        f"prefix KV scale shape {tuple(kv.k_scale.shape)}/"
+                        f"{tuple(kv.v_scale.shape)} != {want_s}")
+            kv_len = int(kv.length.reshape(-1)[0])
+            if kv_len != len(tokens):
+                raise PrefixImportError(
+                    f"prefix KV records length {kv_len} but "
+                    f"{len(tokens)} tokens were declared")
+            self._make_prefix_room()
+            if self.kv_layout == "paged":
+                # the one buffer copy of the paged prefix plane: foreign
+                # KV lands in pool blocks once; consumers graft after that
+                nblk = self._alloc.blocks_for(len(tokens))
+                blocks = self._alloc_blocks_evicting(nblk)
+                if pool_quant:
+                    install_blocks_quant(self.pool, BlockPayload(
+                        k=self._blockify_arr(kv.k, nblk),
+                        v=self._blockify_arr(kv.v, nblk),
+                        k_scale=self._blockify_arr(kv.k_scale, nblk),
+                        v_scale=self._blockify_arr(kv.v_scale, nblk)),
+                        blocks)
+                else:
+                    k_buf, v_buf = self._blockify(kv, nblk)
+                    install_blocks(self.pool, k_buf, v_buf, blocks)
+                self._alloc.count_install_copy(nblk)
+                entry = blocks
+            else:
+                # a copy on this engine's device: the caller keeps its
+                # buffer and may write it
+                entry = KVCache(*(None if a is None
+                                  else a.to(self.device, copy=True)
+                                  for a in kv))
+            last = (None if last_logits is None
+                    else torch.as_tensor(last_logits).to(self.device,
+                                                         copy=True))
+            pid = self._add_prefix(list(tokens), entry, last)
+            self._stats["prefix_imports"] += 1
+            return pid
+
+    def _make_prefix_room(self) -> None:
+        # guarded-by: caller
+        """Release least-recently-used prefixes down to the budget."""
+        while len(self._prefixes) >= self.max_prefixes:
+            lru = min(self._prefix_last_use, key=self._prefix_last_use.get)
+            self.release_prefix(lru)
+            self._stats["prefix_evictions"] += 1
+
+    def _add_prefix(self, tokens: List[int], entry, last) -> int:
+        # guarded-by: caller
+        pid = self._next_prefix_id
+        self._next_prefix_id += 1
+        self._prefixes[pid] = (tokens, entry, last)
+        self._prefix_by_tokens[tuple(tokens)] = pid
+        self._touch_prefix(pid)
+        return pid
+
+    def _touch_prefix(self, pid: int) -> None:
+        # guarded-by: caller
+        self._prefix_use_seq += 1
+        self._prefix_last_use[pid] = self._prefix_use_seq
+        self._prefix_use_count[pid] = self._prefix_use_count.get(pid, 0) + 1
+
+    def release_prefix(self, prefix_id: int) -> None:
+        """Free a registered prefix. On paged this drops the prefix's own
+        reference on each of its blocks: consumers that grafted them keep
+        theirs, so an in-flight request outlives its prefix. A
+        host-tiered prefix just drops its host tensors."""
+        with self._lock:
+            entry = self._prefixes.pop(prefix_id, None)
+            self._prefix_last_use.pop(prefix_id, None)
+            self._prefix_use_count.pop(prefix_id, None)
+            hp = self._prefix_host.pop(prefix_id, None)
+            if entry is not None:
+                self._prefix_by_tokens.pop(tuple(entry[0]), None)
+                if self.kv_layout == "paged" and entry[1] is not None:
+                    self._alloc.release(entry[1])
+            if hp is not None:
+                self._alloc.set_swapped_blocks(self._swapped_blocks_total())
+
     # -- row lifecycle ------------------------------------------------------
 
     def _finish_request(self, req: _Request, slot: int) -> None:
         # guarded-by: caller
+        """Mark a request done and either hold or free its slot."""
         req.done = True
         self._slot_req[slot] = None
-        req.slot = None
         if self.kv_layout == "paged":
             self._prefill_jobs.pop(req.rid, None)
+        if req.hold_slot:
+            # the last sampled token's k/v is not written yet (a token is
+            # fed the step after it is sampled), so the resident history
+            # excludes it: a continuation's delta begins with it
+            req.held_history = list(req.prompt) + req.tokens[:-1]
+            self._slot_held[slot] = req.rid
+            self._hold_seq += 1
+            self._slot_hold_seq[slot] = self._hold_seq
+            return
+        req.slot = None
+        if self.kv_layout == "paged":
             self._release_row(slot)
 
+    def _drop_hold(self, slot: int) -> None:
+        # guarded-by: caller
+        """Invalidate a held conversation and free its slot."""
+        rid = self._slot_held[slot]
+        if rid is None:
+            return
+        prev = self._requests[rid]
+        prev.held_history = None
+        prev.slot = None
+        self._slot_held[slot] = None
+        if self.kv_layout == "paged":
+            self._release_row(slot)
+
+    def _evict_oldest_hold_if_stuck(self) -> None:
+        # guarded-by: caller
+        """Every slot held and work queued: nothing would ever free a
+        slot, so run() would livelock. Held KV is droppable cache: evict
+        the oldest hold (its next turn re-prefills)."""
+        if self._queue and all(self._slot_held[s] is not None
+                               for s in range(self.num_slots)):
+            oldest = min(range(self.num_slots),
+                         key=lambda s: self._slot_hold_seq[s])
+            self._drop_hold(oldest)
+            self._stats["hold_evictions"] += 1
+
+    def _take_prefix_or_miss(self, req: _Request) -> None:
+        # guarded-by: caller
+        """A queued request whose prefix was invalidated meanwhile (a
+        weight sync, the LRU budget) falls back to a full prefill."""
+        if req.prefix_id is not None and req.prefix_id not in self._prefixes:
+            req.prefix_id = None
+            self._stats["prefix_cache_misses"] += 1
+
+    def _schedule(self) -> None:
+        # guarded-by: caller
+        if self.kv_layout == "paged":
+            self._schedule_paged()
+        else:
+            self._schedule_slots()
+
     def _free_slots(self) -> List[int]:
-        return [s for s in range(self.num_slots) if self._slot_req[s] is None]
+        return [s for s in range(self.num_slots)
+                if self._slot_req[s] is None and self._slot_held[s] is None]
 
     def _release_row(self, row: int) -> None:
         # guarded-by: caller
@@ -591,6 +1034,9 @@ class RolloutEngine:
         req = self._slot_req[row]
         self._slot_req[row] = None
         req.slot = None
+        # the prefix reuse was credited once; a resume re-prefills the
+        # whole stream
+        req.prefix_id = None
         self._prefill_jobs.pop(req.rid, None)
         self._release_row(row)
         self._queue.appendleft(req)
@@ -603,12 +1049,144 @@ class RolloutEngine:
             self._stats["kv_preemption_storms"] += 1
             self._storm_total.inc()
 
-    def _reclaim_blocks(self, row: int, committed) -> bool:
+    def _prefix_candidates(self) -> List[PrefixCandidate]:
         # guarded-by: caller
-        """Free pool capacity by preempting the youngest other active row
-        still under the preemption cap. Returns False when nothing further
-        can be reclaimed for ``row``, including after preempting ``row``
+        """Resident prefix entries as reclamation candidates (host-tiered
+        ones hold no pool blocks)."""
+        out = []
+        for pid, (tokens, blocks, _last) in self._prefixes.items():
+            if blocks is None:
+                continue
+            consumers = max((self._alloc.refcount(b) - 1 for b in blocks),
+                            default=0)
+            out.append(PrefixCandidate(
+                pid=pid, num_tokens=len(tokens), num_blocks=len(blocks),
+                consumers=consumers,
+                last_use=self._prefix_last_use.get(pid, 0),
+                use_count=self._prefix_use_count.get(pid, 0)))
+        return out
+
+    def _evict_or_tier_prefix(self) -> bool:
+        # guarded-by: caller
+        """Scored prefix reclamation (kv_pressure.pick_victim): host-tier
+        a warm or shared victim, evict a cold unshared one."""
+        victim = pick_victim(self._prefix_candidates(), self._prefix_use_seq)
+        if victim is None:
+            return False
+        ec = self.engine_config
+        if should_tier(victim, host_tier=ec.host_tier,
+                       tier_min_uses=ec.tier_min_uses):
+            try:
+                self._swap_out_prefix(victim.pid)
+                return True
+            except Exception:
+                # a torn swap leaves the prefix fully resident: fall
+                # through to plain eviction so reclamation progresses
+                pass
+        self.release_prefix(victim.pid)
+        self._stats["prefix_evictions"] += 1
+        self._alloc.count_eviction()
+        return True
+
+    def _swapped_blocks_total(self) -> int:
+        # guarded-by: caller
+        return sum(hp.num_blocks for hp in self._prefix_host.values())
+
+    def _swap_out_prefix(self, pid: int) -> None:
+        # guarded-by: caller
+        """Tier a resident prefix to host RAM: gather its blocks (new
+        tensors, in the pool's storage flavour), copy them into pinned
+        host tensors, wait until the copies have LANDED, and only then
+        flip the bookkeeping and release the blocks. The next allocation
+        may overwrite those blocks at once, so a release before the copy
+        completed would tear the host copy; a failure before the flip
+        leaves the prefix fully resident."""
+        tokens, blocks, last = self._prefixes[pid]
+        nblk = len(blocks)
+        payload = gather_blocks_quant(self.pool, blocks)
+        host = BlockPayload(*(None if a is None else self._to_host(a)
+                              for a in payload))
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        prof = get_profiler()
+        if prof.enabled:
+            prof.account_transfer(
+                "engine.swap_out",
+                sum(a.nbytes for a in host if a is not None),
+                direction="d2h")
+        # -- point of no return: host bookkeeping only from here ---------
+        self._prefix_host[pid] = HostPrefix(
+            k=host.k, v=host.v, num_tokens=len(tokens),
+            k_scale=host.k_scale, v_scale=host.v_scale,
+            k_hi=host.k_hi, v_hi=host.v_hi)
+        self._prefixes[pid] = (tokens, None, last)
+        self._alloc.release(blocks)
+        self._alloc.count_swap_out(nblk)
+        self._alloc.set_swapped_blocks(self._swapped_blocks_total())
+        self._stats["prefix_swap_outs"] += 1
+
+    def _to_host(self, a: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``a``: pinned and asynchronous from the card
+        (the caller waits for it), a plain clone on the CPU."""
+        if a.device.type != "cuda":
+            return a.clone()
+        out = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+        out.copy_(a, non_blocking=True)
+        return out
+
+    def _restore_prefix(self, pid: int) -> bool:
+        # guarded-by: caller
+        """Swap a host-tiered prefix back into the pool. False when the
+        pool cannot grant the blocks even after reclamation: the caller
+        degrades to a full prefill and the host copy is KEPT."""
+        tokens, _blocks, last = self._prefixes[pid]
+        hp = self._prefix_host[pid]
+        nblk = hp.num_blocks
+        try:
+            blocks = self._alloc_blocks_evicting(nblk)
+        except BlocksExhausted:
+            return False
+        try:
+            install_blocks_quant(self.pool, BlockPayload(
+                k=hp.k, v=hp.v, k_scale=hp.k_scale, v_scale=hp.v_scale,
+                k_hi=hp.k_hi, v_hi=hp.v_hi), blocks)
+            if self.device.type == "cuda":
+                # the host tensors must outlive their copies to the card
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+        except Exception:
+            self._alloc.release(blocks)
+            raise
+        self._prefixes[pid] = (tokens, blocks, last)
+        del self._prefix_host[pid]
+        self._alloc.count_swap_in(nblk)
+        self._alloc.set_swapped_blocks(self._swapped_blocks_total())
+        self._stats["prefix_swap_ins"] += 1
+        return True
+
+    def _reclaim_blocks(self, row: int, committed,
+                        allow_preempt: bool = True) -> bool:
+        # guarded-by: caller
+        """Free pool capacity, cheapest casualty first: held
+        conversations (their next turn re-prefills), then scored prefix
+        eviction or tiering, then the youngest other active row still
+        under the preemption cap. Returns False when nothing further can
+        be reclaimed for ``row``, including after preempting ``row``
         itself or truncate-finishing it."""
+        held = [s for s in range(self.num_slots)
+                if self._slot_held[s] is not None]
+        if held:
+            oldest = min(held, key=lambda s: self._slot_hold_seq[s])
+            self._drop_hold(oldest)
+            self._stats["hold_evictions"] += 1
+            return True
+        if self._evict_or_tier_prefix():
+            return True
+        if not allow_preempt:
+            return False
         cap = self.engine_config.max_preempts
         victims = [s for s in range(self.num_slots)
                    if s != row and s not in committed
@@ -630,6 +1208,94 @@ class RolloutEngine:
             else:
                 self._preempt_row(row)
         return False
+
+    def _alloc_blocks_evicting(self, n: int) -> List[int]:
+        # guarded-by: caller
+        """``n`` blocks for a prefix install, dropping holds and
+        reclaiming prefixes (never preempting an active request) until
+        the pool can grant them."""
+        while True:
+            try:
+                return self._alloc.alloc(n)
+            except BlocksExhausted:
+                if not self._reclaim_blocks(-1, frozenset(),
+                                            allow_preempt=False):
+                    raise
+
+    def _blockify_arr(self, a: torch.Tensor, nblk: int) -> torch.Tensor:
+        # guarded-by: caller
+        """One-slot ``(L, 1, cap, ...)`` → block layout ``(L, nblk,
+        block_size, ...)``, zero-padded past the cache."""
+        bs = self._alloc.block_size
+        need = nblk * bs
+        a = a[:, 0]
+        if need > a.shape[1]:
+            pad = a.new_zeros((a.shape[0], need - a.shape[1],
+                               *a.shape[2:]))
+            a = torch.cat([a, pad], dim=1)
+        return a[:, :need].reshape(a.shape[0], nblk, bs, *a.shape[2:])
+
+    def _blockify(self, kv: KVCache, nblk: int):
+        # guarded-by: caller
+        return self._blockify_arr(kv.k, nblk), self._blockify_arr(kv.v, nblk)
+
+    @staticmethod
+    def _unblockify_to(a: torch.Tensor, cap: int) -> torch.Tensor:
+        """Block layout ``(L, nblk, bs, ...)`` → one-slot ``(L, 1, cap,
+        ...)``, zero-padded past the blocks."""
+        n_layers, nblk, bs = a.shape[:3]
+        a = a.reshape(n_layers, nblk * bs, *a.shape[3:])
+        if a.shape[1] < cap:
+            a = torch.cat([a, a.new_zeros((n_layers, cap - a.shape[1],
+                                           *a.shape[2:]))], dim=1)
+        return a[:, None, :cap]
+
+    def _export_blocks(self, tokens: List[int],
+                       blocks: List[int]) -> KVCache:
+        # guarded-by: caller
+        """A prefix's blocks as the one-slot buffer exports speak. A
+        uniformly quantized pool exports the quantized flavour (payload +
+        scales); a mixed ladder dequantizes to the model dtype."""
+        cap = self.max_len
+        length = torch.full((1,), len(tokens), dtype=torch.int32,
+                            device=self.device)
+        pool = self.pool
+        if pool.quantized and pool.hi_layers == 0:
+            p = gather_blocks_quant(pool, blocks)
+            return KVCache(k=self._unblockify_to(p.k, cap),
+                           v=self._unblockify_to(p.v, cap),
+                           k_scale=self._unblockify_to(p.k_scale, cap),
+                           v_scale=self._unblockify_to(p.v_scale, cap),
+                           length=length)
+        k, v = gather_blocks(pool, blocks, dtype=self.config.dtype)
+        return KVCache(k=self._unblockify_to(k[:, None], cap),
+                       v=self._unblockify_to(v[:, None], cap),
+                       length=length)
+
+    def _export_host(self, pid: int) -> KVCache:
+        # guarded-by: caller
+        """The export buffer built from a host-tiered prefix on the host
+        (no device traffic); same flavour rule as :meth:`_export_blocks`."""
+        hp = self._prefix_host[pid]
+        cap = self.max_len
+        length = torch.full((1,), hp.num_tokens, dtype=torch.int32)
+        if hp.k_scale is not None and hp.k_hi is None:
+            return KVCache(k=self._unblockify_to(hp.k, cap),
+                           v=self._unblockify_to(hp.v, cap),
+                           k_scale=self._unblockify_to(hp.k_scale, cap),
+                           v_scale=self._unblockify_to(hp.v_scale, cap),
+                           length=length)
+        dtype = self.config.dtype
+
+        def full(q, scale, hi):
+            x = q.to(dtype) if scale is None else dequantize_pool_kv(
+                q, scale, dtype)
+            if hi is not None:
+                x = torch.cat([hi.to(dtype), x], dim=0)
+            return self._unblockify_to(x, cap)
+
+        return KVCache(k=full(hp.k, hp.k_scale, hp.k_hi),
+                       v=full(hp.v, hp.v_scale, hp.v_hi), length=length)
 
     def _ensure_block(self, row: int, pos: int, committed) -> int:
         # guarded-by: caller
@@ -680,12 +1346,15 @@ class RolloutEngine:
     def _schedule_paged(self) -> None:
         # guarded-by: caller
         """Assign queued requests to free rows and turn their prompts into
-        chunked-prefill jobs. No device work happens here."""
+        chunked-prefill jobs. No device work happens here apart from a
+        host-tier restore: prefix installs are table grafts."""
+        self._evict_oldest_hold_if_stuck()
         while self._queue:
             free = self._free_slots()
             if not free:
                 return
             req = self._queue.popleft()
+            self._take_prefix_or_miss(req)
             self._schedule_paged_row(req, free[0])
 
     def _schedule_paged_row(self, req: _Request, row: int) -> None:
@@ -703,9 +1372,47 @@ class RolloutEngine:
                 toks=stream, pos=0, sample_last=False,
                 after_tok=req.tokens[-1])
             return
+        if req.prefix_id is not None and self._graft_prefix(req, row):
+            return
         self._stats["prefill_tokens"] += len(req.prompt)
         self._prefill_jobs[req.rid] = _PrefillJob(
             toks=list(req.prompt), pos=0, sample_last=True)
+
+    def _graft_prefix(self, req: _Request, row: int) -> bool:
+        # guarded-by: caller
+        """Install ``req``'s prefix into ``row`` by graft: a refcount bump
+        on the prefix's blocks, zero KV bytes moved. The first write into
+        a shared boundary block copies it (``_ensure_block``). A
+        host-tiered prefix is restored first; False (a full prefill
+        follows) when the pool cannot take it back."""
+        pid = req.prefix_id
+        if self._prefixes[pid][1] is None and not self._restore_prefix(pid):
+            req.prefix_id = None
+            self._stats["prefix_cache_misses"] += 1
+            return False
+        p_tokens, p_blocks, p_last = self._prefixes[pid]
+        self._touch_prefix(pid)
+        self._tables[row] = self._alloc.fork(p_blocks)
+        self._row_len[row] = len(p_tokens)
+        self._stats["prefix_installs"] += 1
+        self._stats["prefix_cache_hits"] += 1
+        self._stats["prefix_tokens_reused"] += len(p_tokens)
+        suffix = req.prompt[len(p_tokens):]
+        self._stats["prefill_tokens"] += len(suffix)
+        if suffix:
+            self._prefill_jobs[req.rid] = _PrefillJob(
+                toks=list(suffix), pos=len(p_tokens), sample_last=True)
+        elif p_last is not None:
+            self._emit_first_token(req, row, p_last)
+        else:
+            # an imported prefix without logits: rescore its last token
+            # in place with writes DROPPED (the k/v is resident; a write
+            # would copy the shared boundary block for nothing)
+            self._stats["prefill_tokens"] += 1
+            self._prefill_jobs[req.rid] = _PrefillJob(
+                toks=[req.prompt[-1]], pos=len(p_tokens) - 1,
+                sample_last=True, drop_writes=True)
+        return True
 
     def _assemble_paged_plan(self):
         # guarded-by: caller
@@ -714,6 +1421,7 @@ class RolloutEngine:
         round-robined in row order under the remaining token budget.
         Returns None when there is nothing to run. No padding entries are
         added (eager PyTorch does not recompile per batch width)."""
+        nb = self._alloc.num_blocks
         bs = self._alloc.block_size
         toks_l: List[int] = []
         rows_l: List[int] = []
@@ -721,7 +1429,7 @@ class RolloutEngine:
         wb_l: List[int] = []
         wo_l: List[int] = []
         decode_rows = []           # (entry_idx, row, req)
-        job_rows = []              # (row, req, job, n, last_idx)
+        job_rows = []              # (row, req, job, n, last_idx, wrote)
         committed: set = set()
         for row in range(self.num_slots):
             req = self._slot_req[row]
@@ -752,8 +1460,12 @@ class RolloutEngine:
             try:
                 for j in range(n):
                     p = job.pos + j
-                    wb = self._ensure_block(row, p, committed)
-                    staged.append((job.toks[j], p, wb, p % bs))
+                    if job.drop_writes:
+                        wb, wo = nb, 0
+                    else:
+                        wb = self._ensure_block(row, p, committed)
+                        wo = p % bs
+                    staged.append((job.toks[j], p, wb, wo))
             except _RowPreempted:
                 continue
             base = len(toks_l)
@@ -763,7 +1475,8 @@ class RolloutEngine:
                 pos_l.append(p)
                 wb_l.append(wb)
                 wo_l.append(wo)
-            job_rows.append((row, req, job, n, base + n - 1))
+            job_rows.append((row, req, job, n, base + n - 1,
+                             0 if job.drop_writes else n))
             committed.add(row)
             budget -= n
         if not toks_l:
@@ -792,7 +1505,9 @@ class RolloutEngine:
     def _step_paged(self) -> Dict[int, List[int]]:
         # guarded-by: caller
         self._schedule_paged()
-        emitted: Dict[int, List[int]] = {}
+        # first tokens sampled at scheduling (a zero-suffix prefix graft)
+        emitted = self._pending_emits
+        self._pending_emits = {}
         plan = self._assemble_paged_plan()
         if plan is None:
             return emitted
@@ -818,8 +1533,8 @@ class RolloutEngine:
             out_of_cache = self._row_len[row] >= self.context_bound - 1
             if hit_eos or out_of_budget or out_of_cache:
                 self._finish_request(req, row)
-        for row, req, job, n, last_idx in job_rows:
-            self._row_len[row] += n
+        for row, req, job, n, last_idx, wrote in job_rows:
+            self._row_len[row] += wrote
             job.toks = job.toks[n:]
             job.pos += n
             if job.toks:
@@ -840,9 +1555,11 @@ class RolloutEngine:
                 self._cur_tok_host[row] = job.after_tok
         if tracer.enabled:
             self._count_step(n_emitted)
-        self._alloc.publish_fragmentation(
-            sum(self._row_len[s] for s in range(self.num_slots)
-                if self._tables[s]))
+        used_tokens = sum(self._row_len[s] for s in range(self.num_slots)
+                          if self._tables[s])
+        used_tokens += sum(len(p_tokens) for p_tokens, p_blocks, _
+                           in self._prefixes.values() if p_blocks is not None)
+        self._alloc.publish_fragmentation(used_tokens)
         self._schedule_paged()
         return emitted
 
@@ -909,20 +1626,24 @@ class RolloutEngine:
         at the queue front batch into ONE forward; a ring pool's long
         prompts and odd-bucket singles take the single-slot paths. FIFO
         order holds: a batch is a CONSECUTIVE run of compatible
-        requests."""
+        requests; prefix installs take the single-slot path."""
+        self._evict_oldest_hold_if_stuck()
         while self._queue:
             free = self._free_slots()
             if not free:
                 return
             req = self._queue[0]
-            if self._ring and len(req.prompt) >= self.max_len:
+            self._take_prefix_or_miss(req)
+            if req.prefix_id is not None or (
+                    self._ring and len(req.prompt) >= self.max_len):
                 self._queue.popleft()
                 self._schedule_single(req, free[0])
                 continue
             bucket = min(_bucket(len(req.prompt)), self.max_len)
             group = [req]
             for r in list(self._queue)[1:len(free)]:
-                if (not (self._ring and len(r.prompt) >= self.max_len)
+                if (r.prefix_id is None
+                        and not (self._ring and len(r.prompt) >= self.max_len)
                         and min(_bucket(len(r.prompt)), self.max_len)
                         == bucket):
                     group.append(r)
@@ -954,7 +1675,8 @@ class RolloutEngine:
     def _schedule_single(self, req: _Request, slot: int) -> None:
         # guarded-by: caller
         with get_tracer().span("engine.prefill", slot=slot,
-                               tokens=len(req.prompt), prefix=False):
+                               tokens=len(req.prompt),
+                               prefix=req.prefix_id is not None):
             self._schedule_single_impl(req, slot)
 
     def _schedule_single_impl(self, req: _Request, slot: int) -> None:
@@ -963,6 +1685,31 @@ class RolloutEngine:
         self._slot_req[slot] = req
         true_len = len(req.prompt)
         self._stats["prefills"] += 1
+        if req.prefix_id is not None:
+            # shared prefix: copy its one-slot cache into the slot, then
+            # prefill only the suffix in exact-size chunks
+            p_tokens, p_cache, p_last = self._prefixes[req.prefix_id]
+            self._touch_prefix(req.prefix_id)
+            self.cache = _install_prefix(self.cache, p_cache, slot)
+            self._stats["prefix_installs"] += 1
+            self._stats["prefix_cache_hits"] += 1
+            self._stats["prefix_tokens_reused"] += len(p_tokens)
+            suffix = req.prompt[len(p_tokens):]
+            self._stats["prefill_tokens"] += len(suffix)
+            if suffix:
+                last_logits = self._prefill_chunks(slot, suffix,
+                                                   fresh_first=False)
+            elif p_last is not None:
+                last_logits = p_last
+            else:
+                # imported prefix without logits: re-feed the last prefix
+                # token at its own position (the rewritten k/v is the same)
+                self.cache = _writeback_slot(self.cache, slot, true_len - 1)
+                last_logits = self._prefill_chunks(
+                    slot, [req.prompt[-1]], fresh_first=False)
+                self._stats["prefill_tokens"] += 1
+            self._emit_first_token(req, slot, last_logits)
+            return
         self._stats["prefill_tokens"] += true_len
         if self._ring and true_len >= self.max_len:
             # Long prompt on a ring pool: reset the slot's stale length
@@ -1026,7 +1773,10 @@ class RolloutEngine:
         req.logps.append(host[1])
         self._stats["tokens_emitted"] += 1
         self._pending_emits.setdefault(req.rid, []).append(tok0_i)
-        self.cur_tok[slot] = tok0_i
+        if self.kv_layout == "paged":
+            self._cur_tok_host[slot] = tok0_i
+        else:
+            self.cur_tok[slot] = tok0_i
         if ((req.eos_id is not None and tok0_i == req.eos_id)
                 or req.max_new_tokens <= 1):
             self._finish_request(req, slot)

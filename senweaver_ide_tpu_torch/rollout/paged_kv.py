@@ -11,6 +11,12 @@ and each request owns a host-side block table, one physical block id per
 :class:`BlockAllocator`: O(1) free-list alloc/release of whole blocks,
 refcounted sharing (``fork``), copy-on-write (``cow_target`` +
 :func:`copy_blocks`) and typed backpressure (:class:`BlocksExhausted`).
+Blocks move in and out of the pool as whole sets: :func:`install_blocks`
+/ :func:`install_blocks_quant` write a prefix's KV into pool blocks IN
+PLACE (the JAX version returns a new, donated pool), and
+:func:`gather_blocks` / :func:`gather_blocks_quant` return NEW tensors,
+never views of the pool, so a later write into a reused block cannot
+change what was gathered (exports, the host tier).
 
 The allocator is pure host bookkeeping behind its own reentrant lock (lock
 order engine → allocator). It publishes the ``senweaver_kv_*`` gauges and
@@ -27,12 +33,13 @@ quantized at write time inside the engine's fused step. A
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
+from ..models.transformer import dequantize_pool_kv, quantize_pool_kv
 from ..obs.runtime_profile import ProfiledFunction
 
 # The serving-wide KV precision ladder. "bf16" means "full width": the
@@ -143,6 +150,28 @@ class PagedKVPool(NamedTuple):
     def num_layers(self) -> int:
         return self.hi_layers + self.k.shape[0]
 
+    @property
+    def full_dtype(self) -> torch.dtype:
+        """The full-width dtype this pool dequantizes to."""
+        if self.k_hi is not None:
+            return self.k_hi.dtype
+        return self.k.dtype if self.k_scale is None else torch.bfloat16
+
+
+class BlockPayload(NamedTuple):
+    """Pool-native payload of a set of blocks: the quantization-preserving
+    unit of KV movement (host-RAM tier, quantized prefix export). Fields
+    mirror :class:`PagedKVPool` with the pool axis replaced by the
+    gathered block axis ``(·, n, block_size, ...)``; tensors may live on
+    the card or the host (both sides of a swap)."""
+
+    k: Any
+    v: Any
+    k_scale: Any = None
+    v_scale: Any = None
+    k_hi: Any = None
+    v_hi: Any = None
+
 
 def init_paged_pool(config: ModelConfig, num_blocks: int,
                     block_size: int, kv_dtype: str = "bf16",
@@ -216,8 +245,7 @@ class BlockAllocator:
         # Device bytes per block (see pool_bytes_per_block); 0 = unknown,
         # and the byte gauges then publish 0.
         self.bytes_per_block = int(bytes_per_block)
-        # blocks resident only in a host-RAM tier (none until the KV
-        # pressure slice ports the tier)
+        # blocks resident only in the host-RAM tier
         self._swapped_blocks = 0
         self._lock = threading.RLock()
         # LIFO free list: recently freed blocks are reused first.
@@ -411,6 +439,38 @@ class BlockAllocator:
             self._cow_total.inc()
             return fresh
 
+    def count_install_copy(self, n: int = 1) -> None:
+        """Account a buffer-copy prefix install (the non-graft path)."""
+        with self._lock:
+            self._counters["install_copies"] += n
+            self._install_copy_total.inc(n)
+
+    def count_eviction(self, n: int = 1) -> None:
+        """Account ``n`` prefix entries dropped by scored eviction."""
+        with self._lock:
+            self._counters["evictions"] += n
+            self._eviction_total.inc(n)
+
+    def count_swap_out(self, nblk: int) -> None:
+        """Account ``nblk`` blocks tiered device → host."""
+        with self._lock:
+            self._counters["swap_outs"] += nblk
+            self._swap_out_total.inc(nblk)
+
+    def count_swap_in(self, nblk: int) -> None:
+        """Account ``nblk`` blocks restored host → device."""
+        with self._lock:
+            self._counters["swap_ins"] += nblk
+            self._swap_in_total.inc(nblk)
+
+    def set_swapped_blocks(self, n: int) -> None:
+        """Publish how many blocks live only in the host tier (block
+        count and bytes)."""
+        with self._lock:
+            self._swapped_blocks = n
+            self._swapped_gauge.set(n)
+            self._bytes_host_gauge.set(n * self.bytes_per_block)
+
     # -- gauges ----------------------------------------------------------
     def _publish_gauges(self) -> None:
         # guarded-by: caller
@@ -431,7 +491,98 @@ class BlockAllocator:
             self._frag_gauge.set(max(0.0, frac))
 
 
+def _index(idx, device) -> torch.Tensor:
+    return torch.as_tensor(idx, dtype=torch.int64).to(device)
+
+
+def install_blocks(pool: PagedKVPool, k_buf: torch.Tensor,
+                   v_buf: torch.Tensor, dst) -> PagedKVPool:
+    """Write FULL-WIDTH buffers ``(L, n, block_size, Hkv, Dh)`` into pool
+    blocks ``dst`` ``(n,)``, in place: the prefix install. A quantized
+    pool quantizes here with the fused step's absmax rule, so installed
+    and decoded blocks hold the same payloads; the ``hi_layers`` prefix
+    stays full width."""
+    dev = pool.k.device
+    dst = _index(dst, dev)
+    k_buf, v_buf = k_buf.to(dev), v_buf.to(dev)
+    if pool.k_scale is None:
+        pool.k[:, dst] = k_buf.to(pool.k.dtype)
+        pool.v[:, dst] = v_buf.to(pool.v.dtype)
+        return pool
+    n_hi = pool.hi_layers
+    if n_hi:
+        pool.k_hi[:, dst] = k_buf[:n_hi].to(pool.k_hi.dtype)
+        pool.v_hi[:, dst] = v_buf[:n_hi].to(pool.v_hi.dtype)
+    kq, ks = quantize_pool_kv(k_buf[n_hi:], pool.k.dtype)
+    vq, vs = quantize_pool_kv(v_buf[n_hi:], pool.v.dtype)
+    pool.k[:, dst] = kq
+    pool.v[:, dst] = vq
+    pool.k_scale[:, dst] = ks
+    pool.v_scale[:, dst] = vs
+    return pool
+
+
+def install_blocks_quant(pool: PagedKVPool, payload: BlockPayload,
+                         dst) -> PagedKVPool:
+    """Write a pool-native :class:`BlockPayload` into blocks ``dst``, in
+    place: the inverse of :func:`gather_blocks_quant` (host-tier restore,
+    quantized prefix import). The payload must come from a pool on the
+    same ladder rung."""
+    if ((payload.k_scale is None) != (pool.k_scale is None)
+            or (payload.k_hi is None) != (pool.k_hi is None)):
+        raise ValueError(
+            "BlockPayload quantization layout does not match the pool "
+            "(payload must come from a pool on the same kv_dtype rung)")
+    dev = pool.k.device
+    dst = _index(dst, dev)
+    for name in BlockPayload._fields:
+        src = getattr(payload, name)
+        if src is not None:
+            a = getattr(pool, name)
+            a[:, dst] = torch.as_tensor(src).to(dev, a.dtype)
+    return pool
+
+
+def gather_blocks(pool: PagedKVPool, idx, dtype=None):
+    """FULL-WIDTH ``(L, n*block_size, Hkv, Dh)`` copies of pool blocks
+    ``idx`` ``(n,)``: the prefix export. Quantized pools dequantize here
+    (and re-stack the full-width prefix layers). ``dtype`` defaults to
+    the pool's full-width dtype."""
+    idx = _index(idx, pool.k.device)
+    bs, n = pool.block_size, idx.shape[0]
+    if dtype is None:
+        dtype = pool.full_dtype
+
+    def flat(a):
+        return a[:, idx].reshape(a.shape[0], n * bs, *a.shape[3:])
+
+    if pool.k_scale is None:
+        return flat(pool.k).to(dtype), flat(pool.v).to(dtype)
+    k = dequantize_pool_kv(flat(pool.k), flat(pool.k_scale), dtype)
+    v = dequantize_pool_kv(flat(pool.v), flat(pool.v_scale), dtype)
+    if pool.k_hi is not None:
+        k = torch.cat([flat(pool.k_hi).to(dtype), k], dim=0)
+        v = torch.cat([flat(pool.v_hi).to(dtype), v], dim=0)
+    return k, v
+
+
+def gather_blocks_quant(pool: PagedKVPool, idx) -> BlockPayload:
+    """Raw block-layout copies of pool blocks ``idx``: quantized payloads
+    stay quantized (int8/fp8 bytes + scales), half the host-tier bytes of
+    :func:`gather_blocks`."""
+    idx = _index(idx, pool.k.device)
+    return BlockPayload(*(None if a is None else a[:, idx] for a in pool))
+
+
 # Runtime observatory wiring (obs/runtime_profile.py): block movement is
-# profiled under the JAX package's name.
+# profiled under the JAX package's names.
 copy_blocks = ProfiledFunction(copy_blocks, "paged_kv.copy",
                                storm_threshold=32)
+install_blocks = ProfiledFunction(install_blocks, "paged_kv.install",
+                                  storm_threshold=32)
+install_blocks_quant = ProfiledFunction(
+    install_blocks_quant, "paged_kv.install_quant", storm_threshold=32)
+gather_blocks = ProfiledFunction(gather_blocks, "paged_kv.gather",
+                                 storm_threshold=32)
+gather_blocks_quant = ProfiledFunction(
+    gather_blocks_quant, "paged_kv.gather_quant", storm_threshold=32)

@@ -1,4 +1,5 @@
-from .async_loop import behavior_logp_batched
+from .async_loop import (AsyncGRPOTrainer, AsyncRoundResult,
+                         behavior_logp_batched)
 from .data import (Trajectory, make_batch, make_batch_logps,
                    make_branch_mask, pad_batch_for_mesh,
                    place_batch_for_mesh)
@@ -18,5 +19,9 @@ from .trainer import (AdamW, AdamWState, TrainState, apply_gradients,
                       grpo_gradients, make_lora_train_state,
                       make_optimizer, make_train_state, train_step,
                       train_step_guarded)
+from .experience import (BehaviorParamsCache, BehaviorParamsEvicted,
+                         ExperienceQueue, StreamedEpisode,
+                         StreamingTrainerAdapter, assemble_batch,
+                         trajectories_to_episodes)
 from .checkpoint import CheckpointManager
 from .online import OnlineImprovementLoop, OnlineRoundResult

@@ -32,8 +32,8 @@ a ``copy_`` into the same tensors at each refresh); holding a reference,
 as the JAX loop may with its immutable arrays, would make the anchor
 follow every update and the k3-KL term read 0. The anchor is saved beside
 the train state as ``anchor.safetensors`` (names in sorted key order,
-through the port's codec). Streaming episodes to an experience sink and
-sharded meshes arrive with later slices and raise at construction.
+through the port's codec). Sharded meshes arrive with a later slice and
+raise at construction.
 Beyond the JAX signature, ``accum_steps`` (default 1, as the JAX loop
 runs) is passed to every ``grpo_round``: at full width one card holds a
 round's update only in microbatches.
@@ -49,7 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from ..apo.eval import outcome_feedback
 from ..apo.service import APOService
-from ..obs import get_tracer
+from ..obs import get_registry, get_tracer
 from ..resilience.faults import ResilienceConfig
 from ..resilience.guard import HealthMitigator, UpdateGuard
 from ..traces.collector import TraceCollector
@@ -57,7 +57,7 @@ from .checkpoint import read_params_like
 from .grpo import GRPOConfig
 from .lora import split_lora
 from .rl_loop import GroupSizeScheduler, grpo_round
-from .trainer import flatten_params
+from .trainer import clone_params, flatten_params
 
 ANCHOR_FILE = "anchor.safetensors"
 
@@ -94,13 +94,6 @@ class _SessionCounter:
         """The id the NEXT __next__ will hand out (the resume cursor)."""
         with self._lock:
             return self._next
-
-
-def _snapshot(params):
-    """A copy of every tensor of ``params``, same devices and dtypes."""
-    if isinstance(params, dict):
-        return {k: _snapshot(v) for k, v in params.items()}
-    return params.detach().clone()
 
 
 def _copy_into(dst, src) -> None:
@@ -159,11 +152,6 @@ class OnlineImprovementLoop:
             raise NotImplementedError(
                 "sharded online rounds over a mesh arrive with the "
                 "parallel-layout slice of the PyTorch port; pass mesh=None")
-        if experience_sink is not None:
-            raise NotImplementedError(
-                "streaming episodes to an experience sink arrives with the "
-                "streaming-learner slice of the PyTorch port "
-                "(training/experience.py); pass experience_sink=None")
         self.state = state
         self.model_config = model_config
         self.mesh = mesh
@@ -195,7 +183,7 @@ class OnlineImprovementLoop:
         # proven by the contextual runs (ROUND3_NOTES.md §24). A copy:
         # the trainer writes state.params in place.
         self.anchor_every = anchor_every
-        self._anchor = (_snapshot(state.params)
+        self._anchor = (clone_params(state.params)
                         if anchor_every > 0 and grpo_config.kl_coef > 0
                         else None)
         # Resilience: the fault boundary config rides into every
@@ -228,6 +216,15 @@ class OnlineImprovementLoop:
         # publish_adapter path instead of the rolling base publish —
         # one tenant's training loop never pauses the others' decodes.
         self.tenant_id = tenant_id
+        # Streaming async mode: when set, every round ALSO streams its
+        # collected episodes — stamped with the (epoch, version) that
+        # sampled them — into an experience sink (an
+        # ExperienceClient.submit or ExperienceQueue.offer_many duck),
+        # making this loop a collector for a streaming learner
+        # (serve/learner.py StreamingLearnerService) instead of the
+        # only trainer. Offers are fire-and-forget per round; the
+        # sink's idempotent episode ids make resubmits safe.
+        self.experience_sink = experience_sink
         self._round = 0
         # Last weight version a versioned engine (ServingFleet) acked
         # for this loop's params; persisted so resume() can republish AT
@@ -294,6 +291,33 @@ class OnlineImprovementLoop:
         with get_tracer().span("online.round", round=self._round):
             return self._run_round_impl()
 
+    def _stream_episodes(self, out) -> None:
+        """Async-mode side channel: offer the round's episodes to the
+        experience sink, stamped with the behavior version that sampled
+        them. Sink failures never fail the round — the deterministic
+        episode ids make the next round's resubmit a safe dedup."""
+        from .experience import trajectories_to_episodes
+        episodes = trajectories_to_episodes(
+            out.trajectories, epoch=0,
+            version=self._published_version or 0,
+            source=f"online-{_PROC_TAG}-{self._loop_id}",
+            round_idx=self._round)
+        sink = self.experience_sink
+        try:
+            submit = getattr(sink, "submit", None)
+            if submit is not None:             # ExperienceClient duck
+                submit(episodes)
+            else:                              # ExperienceQueue duck
+                sink.offer_many(
+                    episodes,
+                    current_version=self._published_version or 0)
+        except Exception:
+            get_registry().counter(
+                "senweaver_online_stream_offer_failures_total",
+                "Rounds whose episode stream offer failed (episodes "
+                "stay local; deterministic ids make the resubmit a "
+                "dedup).").inc()
+
     def _run_round_impl(self) -> OnlineRoundResult:
         rules = self.current_rules()
 
@@ -328,6 +352,8 @@ class OnlineImprovementLoop:
             round_idx=self._round,
             behavior_stamp=(0, self._published_version or 0))
         self.state = out.state
+        if self.experience_sink is not None and out.trajectories:
+            self._stream_episodes(out)
         # Group-size mitigation tick: resize for the NEXT round while
         # its trigger streak is active; changes become round events.
         health_events = list(out.health_events)

@@ -63,6 +63,15 @@ def flatten_params(tree: Mapping, prefix: str = "") -> Iterator[
             yield prefix + k, v
 
 
+def clone_params(tree):
+    """A copy of every tensor of ``tree`` (same devices and dtypes): the
+    snapshot that stands in for a JAX reference, since the trainer
+    updates params in place."""
+    if isinstance(tree, Mapping):
+        return {k: clone_params(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
 def unflatten_params(pairs) -> Dict:
     """The dict tree of ``(name, value)`` pairs named as
     :func:`flatten_params` names them."""

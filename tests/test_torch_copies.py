@@ -31,7 +31,8 @@ COPIES = (
     "models/tokenizer",
     "traces/schema", "traces/features", "traces/store", "traces/uploader",
     "traces/collector", "traces/__init__",
-    "rollout/policy_client", "rollout/session", "rewards/__init__",
+    "rollout/policy_client", "rollout/session", "rollout/kv_pressure",
+    "rewards/__init__",
     "apo/types", "apo/patterns", "apo/report", "apo/rollouts",
     "apo/gradient", "apo/segments", "apo/synthetic", "apo/service",
     "apo/__init__",

@@ -228,10 +228,8 @@ def test_kernel_on_cpu_and_out_of_slice_submits_raise(weights):
         RolloutEngine(tparams, tcfg, device="cpu",
                       engine_config=EngineConfig(paged_kernel=True))
     eng = RolloutEngine(tparams, tcfg, device="cpu")
-    for kw in ({"prefix_id": 0}, {"hold_slot": True},
-               {"continue_from": 0}, {"adapter_id": "t"}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            eng.submit([1, 2], **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        eng.submit([1, 2], adapter_id="t")
     with pytest.raises(NotImplementedError, match="later slice"):
         RolloutEngine(tparams, tcfg, device="cpu", adapter_pool=object())
 

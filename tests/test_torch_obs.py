@@ -13,6 +13,9 @@ import torch
 from senweaver_ide_tpu import obs as jobs
 from senweaver_ide_tpu.models import init_params as jax_init_params
 from senweaver_ide_tpu.models import tiny_test as jax_tiny_test
+from senweaver_ide_tpu.obs import runtime_profile as jrp
+from senweaver_ide_tpu.rollout import engine as jengine
+from senweaver_ide_tpu.rollout import paged_kv as jpaged
 from senweaver_ide_tpu.rollout import EngineConfig as JaxEngineConfig
 from senweaver_ide_tpu.rollout import RolloutEngine as JaxEngine
 from senweaver_ide_tpu.rollout.sampler import SampleParams as JaxSample
@@ -21,14 +24,29 @@ from senweaver_ide_tpu_torch.models import params_from_numpy, tiny_test
 from senweaver_ide_tpu_torch.obs import runtime_profile as rp
 from senweaver_ide_tpu_torch.rollout import (EngineConfig, RolloutEngine,
                                              SampleParams)
+from senweaver_ide_tpu_torch.rollout import engine as tengine
+from senweaver_ide_tpu_torch.rollout import paged_kv as tpaged
 
 PROMPTS = [[5, 9, 2], list(range(20, 40)), [300, 7]]
+
+
+def _rearm_memory_sampling():
+    """Each module-level profiled function samples device memory every
+    ``mem_every`` calls, on a countdown that outlives ``_reset_for_tests``;
+    rewind every countdown on both sides so that earlier tests in the
+    process cannot make one side sample (and emit the memory gauges)
+    inside a test while the other does not."""
+    for mod in (jengine, jpaged, tengine, tpaged):
+        for fn in vars(mod).values():
+            if isinstance(fn, (jrp.ProfiledFunction, rp.ProfiledFunction)):
+                fn._mem_countdown = fn.mem_every
 
 
 @pytest.fixture(autouse=True)
 def _fresh_obs():
     obs._reset_for_tests()
     jobs._reset_for_tests()
+    _rearm_memory_sampling()
     yield
     obs._reset_for_tests()
     jobs._reset_for_tests()

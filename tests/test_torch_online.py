@@ -51,8 +51,10 @@ from senweaver_ide_tpu_torch.rollout import (EnginePolicyClient,
                                              RolloutEngine, RolloutSession,
                                              SampleParams)
 from senweaver_ide_tpu_torch.traces import TraceCollector
-from senweaver_ide_tpu_torch.training import (CheckpointManager, GRPOConfig,
+from senweaver_ide_tpu_torch.training import (CheckpointManager,
+                                              ExperienceQueue, GRPOConfig,
                                               OnlineImprovementLoop,
+                                              StreamingTrainerAdapter,
                                               make_train_state, train_step)
 from senweaver_ide_tpu_torch.training.trainer import flatten_params
 from senweaver_ide_tpu_torch.training.online import ANCHOR_FILE
@@ -230,10 +232,11 @@ def test_thread_ids_and_refusals(tmp_path, init):
     with pytest.raises(NotImplementedError, match="mesh"):
         OnlineImprovementLoop(state, cfg, object(), make_session, ["t"],
                               apo=service, collector=collector)
-    with pytest.raises(NotImplementedError, match="experience sink"):
-        OnlineImprovementLoop(state, cfg, None, make_session, ["t"],
-                              apo=service, collector=collector,
-                              experience_sink=object())
+    sink = ExperienceQueue(group_size=2)
+    assert OnlineImprovementLoop(state, cfg, None, make_session, ["t"],
+                                 apo=service, collector=collector,
+                                 experience_sink=sink
+                                 ).experience_sink is sink
     # two loops over one collector never reuse thread ids
     kw = dict(apo=service, collector=collector, group_size=2, max_len=1024,
               max_parallel=1)
@@ -400,3 +403,49 @@ def test_loop_on_the_port_engine(tmp_path, init):
     assert all(t.summary.final_reward is not None
                for t in collector.get_all_traces())
     engine._alloc.check_leaks()
+
+
+def test_experience_sink_streams_like_jax(tmp_path, init):
+    """With an ExperienceQueue sink each round also offers its episodes,
+    stamped with the version that sampled them: the same episodes (ids
+    up to the loop's process tag), groups, tokens and rewards as the JAX
+    loop's queue; a StreamingTrainerAdapter step on the batch matches
+    JAX's within 1e-5."""
+    from senweaver_ide_tpu.training import ExperienceQueue as JaxQueue
+    from senweaver_ide_tpu.training import \
+        StreamingTrainerAdapter as JaxAdapter
+    queues = {"jax": JaxQueue(group_size=1),
+              "port": ExperienceQueue(group_size=1)}
+    loops = {side: _loop(side, _stack(side, tmp_path, init, salt=True),
+                         TASKS2, reward_override=spread,
+                         experience_sink=queues[side])
+             for side in ("jax", "port")}
+    rounds = {side: lp.run_round() for side, lp in loops.items()}
+    _assert_rounds_match(rounds["port"], rounds["jax"])
+    batches = {}
+    for side, q in queues.items():
+        batches[side] = []
+        while q.depth:
+            batches[side] += q.take_batch(current_version=0)
+    got, want = batches["port"], batches["jax"]
+    assert len(got) == len(want) >= rounds["port"].episodes
+
+    def key(ep):
+        return (ep.episode_id.split("/", 1)[1],
+                ep.group_key.split("/", 1)[1], ep.prompt_ids,
+                ep.completion_ids, ep.version, ep.task_idx)
+
+    assert [key(e) for e in got] == [key(e) for e in want]
+    for a, b in zip(got, want):
+        assert a.reward == pytest.approx(b.reward, abs=REWARD_TOL)
+    adapters = {
+        "jax": JaxAdapter(loops["jax"].state, loops["jax"].model_config,
+                          None, max_len=1024),
+        "port": StreamingTrainerAdapter(loops["port"].state,
+                                        loops["port"].model_config, None,
+                                        max_len=1024)}
+    mj = adapters["jax"].train_on_batch(want)
+    mt = adapters["port"].train_on_batch(got)
+    assert sorted(mt) == sorted(mj)
+    for k, v in mj.items():
+        assert mt[k] == pytest.approx(v, abs=METRIC_TOL, rel=METRIC_TOL), k
