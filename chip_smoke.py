@@ -19,6 +19,11 @@ Phases, each fatal on failure:
    times with CUDA events beside the bytes bound at the decode step (16
    rows, lengths 128..2048) and the mixed step (those 16 rows plus a
    40-token and an 8-token prefill segment, T = 64, in query tiles).
+   Then at the draft's heads (qwen2.5-coder-0.5b, 14/2, D 64, bf16 pool):
+   ragged lengths, chunk and tile edges and 0, segments in two-entry
+   tiles and untiled, NaN past every reach and a second launch; its
+   decode-step time and the 1.5B verify step's (16 rows x depth 4 in 32
+   tiles), each beside its bytes bound.
 4. Serving: RolloutEngine at full qwen2.5-coder-1.5b width (random
    weights from --seed) answers 32 sampled requests on the bf16 pool,
    then short greedy runs on the int8 and fp8 ladders; the kernel's
@@ -133,9 +138,45 @@ Phases, each fatal on failure:
     held against behavior_logp_batched on the card (STREAM_LOGP_TOL) and
     whose ratio_mean is held against the one those log-probs give under
     the params it trains (ADAPTER_RATIO_TOL).
-17. A JSON line with every kernel's numbers (``launches_round``,
-    ``launches_online``, ``launches_reuse`` and ``launches_async``: the
-    counts of those phases' runs), the card line, and last the JSON ok
+17. Speculative decoding (``phase_spec``, on the same weights, with a
+    qwen2.5-coder-0.5b draft from --seed + 1): first the largest logit
+    difference between the paths a token can take (a verify window on
+    the pool and on a slot cache, single decode entries alone and
+    batched, a chunked prefill, the plain forward), capped at
+    TIE_DIFF_MAX; TIE_FACTOR times that is SPEC_TIE_ATOL. Then the
+    serving engine (16 slots, greedy) on 16 requests of 128-1024 tokens,
+    128 new, without speculation (the reference) and at FixedDepth 4 (the
+    distiller's harvest); on the first 4 of them at FixedDepth 2 and 8,
+    under the default SpecController and with a self-draft at depths 2, 4
+    and 8 (acceptance at 4 >= SPEC_SELF_ACCEPT_MIN, fewer rounds at 8
+    than at 2). Every token of every stream is held by teacher forcing:
+    one plain forward over prompt + stream, each token the argmax at its
+    own position or within SPEC_TIE_ATOL of it; K1 = 28 x fused steps +
+    24 x draft forwards exactly; check_leaks and spec_check_leaks after
+    each run; update_params stamps the draft stale. Then DraftDistiller
+    harvests the depth-4 run's outcomes and takes DRAFT_DISTILL_STEPS
+    steps with attn_impl="flash" (K2 = 24 x steps each; finite loss; CE
+    on a fixed harvested batch falls), installs the draft, and a depth-4
+    run on 4 requests is held again; then SpeculativeDecoder (512-token
+    prompt, 64 new, k=4) on the paged layout (every block freed) and the
+    slot cache with decode_attn_impl="flash" (K3 = 24 x the draft's
+    one-token feeds). Prints tok/s, fused steps, acceptance, wasted draft
+    tokens and the runtime ledger's propose / feed / fused-step seconds
+    per run, and each stream's first index off the reference.
+18. Group/tree rollout (``phase_group``): submit_group of 8 on a
+    1,000-token prompt (one prefill, 7 forks, 7 one-token rescores),
+    every token of the group's and of 8 independent submits' streams
+    held by teacher forcing, K1 = 28 x fused steps; then
+    grpo_round(planner=GroupRollout(...)) over 2 token-list tasks x 4
+    with speculation at depth 4, accum 4, remat and attn_impl="flash":
+    every root branches once; finite metrics; K1 = 28 x fused steps + 24
+    x draft forwards, K2 224/112/112 and K3 0 (read over the whole phase)
+    exactly; check_leaks and spec_check_leaks.
+19. A JSON line with every kernel's numbers (``launches_round``,
+    ``launches_online``, ``launches_reuse``, ``launches_async``,
+    ``launches_spec`` and ``launches_group``: the counts of those phases'
+    runs; K1's entry also its times at the draft's heads, ``d64_*``, and
+    at the verify step, ``verify_*``), the card line, and last the JSON ok
     line.
 
 Exits non-zero, printing no result, without CUDA or without the
@@ -719,6 +760,132 @@ def phase_kernel(torch, cfg, timer):
             f"{m_bound:.4f} ms ({m_bytes} bytes: each distinct (block, "
             f"position) once)")
     return results
+
+
+# K1 on the speculation path: the draft's heads (qwen2.5-coder-0.5b,
+# 14/2, D 64, rep 7) and the target's verify step (16 rows x depth 4 at
+# the 1.5B heads, each row's window in two-entry tiles).
+K1_SPEC_DEPTH = 4
+
+
+def phase_kernel_spec(torch, cfg, dcfg, timer):
+    """K1 at the draft's heads against its plain version (ragged lengths,
+    the split plan's chunk and tile edges and 0, segments in two-entry
+    tiles and untiled, NaN past every reach, a second launch
+    bit-identical), then its times beside the bytes bound: the draft's
+    decode step (16 rows, lengths 128..2048) and the 1.5B verify step
+    (16 rows x depth K1_SPEC_DEPTH in query tiles)."""
+    from senweaver_ide_tpu_torch.ops.flash_decode import split_plan
+    from senweaver_ide_tpu_torch.ops.paged_attention import (
+        TILE_ROWS, paged_flash_decode, paged_flash_decode_plain,
+        query_tiles)
+    hq, hkv, d, bs = dcfg.num_heads, dcfg.num_kv_heads, dcfg.head_dim, K1_BS
+    rep = hq // hkv
+    cap = K1_MB * bs
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    # ragged lengths, one table row each
+    ragged = [1, 15, 16, 17, 1000, 2048]
+    q_r, pool_r, tables_r, lengths_r, _, _ = _k1_seq_batch(
+        torch, g, "bf16", dcfg, ragged,
+        [(i, n - 1) for i, n in enumerate(ragged)])
+    worst = max(worst, _k1_check(torch, "D=64 ragged", q_r, pool_r,
+                                 tables_r, lengths_r))
+    # lengths on the batch's split-plan chunk and tile edges, and 0
+    _, chunk = split_plan(11, hkv, cap, sms)
+    lens = [0, 1, 63, 64, 65, chunk - 1, chunk, chunk + 1, 2 * chunk + 1,
+            cap - 1, cap]
+    q_e, pool_e, tables_e, lengths_e, _, _ = _k1_seq_batch(
+        torch, g, "bf16", dcfg, lens,
+        [(i, max(n, 1) - 1) for i, n in enumerate(lens)])
+    lengths_e[0] = 0
+    worst = max(worst, _k1_check(torch, f"D=64 edges (chunk {chunk})", q_e,
+                                 pool_e, tables_e, lengths_e))
+    # decode rows plus prefill segments (tiles of TILE_ROWS // 7 = 2
+    # entries), from a block edge, across the tiles' chunk edge and from
+    # a warp's 16-position step
+    decode = torch.linspace(128, 2048, 16).round().int().tolist()
+    seq_lens = list(decode)
+    entries = [(i, n - 1) for i, n in enumerate(decode)]
+    _, chunk_t = split_plan(16 + 3 * 5, hkv, cap, sms)
+    for p0 in (16, chunk_t - 5, 31):
+        seq_lens.append(p0 + 10)
+        entries += [(len(seq_lens) - 1, p) for p in range(p0, p0 + 10)]
+    q_m, pool_m, tables_m, lengths_m, seq_row, pos = _k1_seq_batch(
+        torch, g, "bf16", dcfg, seq_lens, entries)
+    errs = []
+    for tiled in (True, False):
+        tiles = query_tiles(seq_row, pos, rep) if tiled else None
+        if tiled and int(tiles[:, 1].max()) != TILE_ROWS // rep:
+            fail(f"D=64 tiles hold {int(tiles[:, 1].max())} entries, "
+                 f"expected {TILE_ROWS // rep}")
+        e = _k1_check(torch, "D=64 segments " + ("tiled" if tiled
+                                                 else "untiled"),
+                      q_m, pool_m, tables_m, lengths_m, tiles)
+        worst = max(worst, e)
+        errs.append(e)
+    log(f"[kernel] D=64 heads {hq}/{hkv} (rep {rep}), bf16 pool: ragged "
+        f"{ragged}, edges {lens} (chunk {chunk}), T={len(entries)} with "
+        f"three 10-token segments in {TILE_ROWS // rep}-entry tiles (max "
+        f"|kernel - plain| {errs[0]:.3g}) and untiled ({errs[1]:.3g}); "
+        f"length 0 exact zeros, NaN past every reach and a second launch "
+        f"bit-identical; worst {worst:.3g}")
+
+    out = {"max_abs_err_d64": worst}
+    # timing 1: the draft's decode step, 16 rows spread to 2048
+    lengths_t = torch.linspace(128, 2048, 16).round().int().tolist()
+    q_t, pool_t, tables_t, len_t, _, _ = _k1_seq_batch(
+        torch, g, "bf16", dcfg, lengths_t,
+        [(i, n - 1) for i, n in enumerate(lengths_t)])
+    args = (q_t, pool_t[0], pool_t[1], tables_t, len_t)
+    e, ok = _k1_err(paged_flash_decode(*args),
+                    paged_flash_decode_plain(q_t.float(), *args[1:]))
+    if not ok:
+        fail(f"D=64 timing batch: kernel vs plain max err {e}")
+    nbytes, flops = _k1_bound(pool_t, q_t, len_t, lengths_t)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    out.update(d64_ms=timer.ms(lambda: paged_flash_decode(*args)),
+               d64_plain_ms=timer.ms(
+                   lambda: paged_flash_decode_plain(*args), iters=10),
+               d64_bound_ms=bound, d64_bytes=nbytes)
+    log(f"[kernel] draft decode step, heads {hq}/{hkv} D {d}, T=16 lengths "
+        f"128..2048: kernel {out['d64_ms']:.4f} ms = "
+        f"{bound / out['d64_ms']:.3f} of the bound, plain "
+        f"{out['d64_plain_ms']:.4f} ms, bound {bound:.4f} ms ({nbytes} "
+        f"bytes)")
+    # timing 2: the target's verify step, each row's depth-4 window ending
+    # at its length
+    entries = [(i, n - K1_SPEC_DEPTH + j) for i, n in enumerate(lengths_t)
+               for j in range(K1_SPEC_DEPTH)]
+    q_v, pool_v, tables_v, len_v, seq_row, pos = _k1_seq_batch(
+        torch, g, "bf16", cfg, lengths_t, entries)
+    rep_t = cfg.num_heads // cfg.num_kv_heads
+    tiles = query_tiles(seq_row, pos, rep_t)
+    vargs = (q_v, pool_v[0], pool_v[1], tables_v, len_v)
+    worst_v = _k1_check(torch, "verify step", q_v, pool_v, tables_v, len_v,
+                        tiles)
+    tiles_dev = tiles.cuda()
+    nbytes, flops = _k1_bound(pool_v, q_v, len_v, lengths_t,
+                              tiles.shape[0])
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    out.update(verify_ms=timer.ms(lambda: paged_flash_decode(
+                   *vargs, q_tiles=tiles_dev)),
+               verify_untiled_ms=timer.ms(lambda: paged_flash_decode(*vargs)),
+               verify_plain_ms=timer.ms(
+                   lambda: paged_flash_decode_plain(*vargs), iters=10),
+               verify_bound_ms=bound, verify_bytes=nbytes,
+               verify_tiles=int(tiles.shape[0]),
+               max_abs_err_verify=worst_v)
+    log(f"[kernel] verify step, heads {cfg.num_heads}/{cfg.num_kv_heads} D "
+        f"{cfg.head_dim}: 16 rows x depth {K1_SPEC_DEPTH} = T={len(entries)} "
+        f"in {out['verify_tiles']} tiles: kernel {out['verify_ms']:.4f} ms "
+        f"= {bound / out['verify_ms']:.3f} of the bound, untiled "
+        f"{out['verify_untiled_ms']:.4f} ms, plain "
+        f"{out['verify_plain_ms']:.4f} ms, bound {bound:.4f} ms ({nbytes} "
+        f"bytes); max |kernel - plain| {worst_v:.3g}, NaN past every reach "
+        f"and a second launch bit-identical")
+    return out
 
 
 def _sdpa_pregathered_ms(torch, timer, args, hkv, bs):
@@ -2803,6 +2970,589 @@ def phase_async(torch, cfg, params, seed, smi):
     return launches
 
 
+# The speculation path (phase_spec): the serving phase's paged engine,
+# greedy, at full qwen2.5-coder-1.5b width, with a qwen2.5-coder-0.5b
+# draft (random weights from --seed + 1); SPEC_REQUESTS prompts of
+# SPEC_PROMPT_LENS tokens, SPEC_NEW_TOKENS new each.
+SPEC_SLOTS, SPEC_MAX_LEN, SPEC_REQUESTS = 16, 2048, 16
+SPEC_PROMPT_LENS, SPEC_NEW_TOKENS = (128, 1024), 128
+SPEC_DEPTHS = (2, 4, 8)
+SPEC_SELF_REQUESTS = 4
+# The self-draft (draft = target) at depth 4 must accept at least this
+# share: every proposal equals the target's argmax but where the draft's
+# decode entries and the verify window round a near-tie differently in
+# bf16 (PERF.md gives the bound's reasoning).
+SPEC_SELF_ACCEPT_MIN = 0.5
+# The draft's distillation: DRAFT_DISTILL_STEPS CE steps on the depth-4
+# run's harvested outcomes, attn_impl="flash" (K2)
+DRAFT_DISTILL_STEPS, DRAFT_DISTILL_BATCH = 8, 8
+# SpeculativeDecoder: one prompt, k, new tokens; the slot cache at a
+# 128-aligned length (K3 serves the draft's one-token feeds)
+DECODER_PROMPT, DECODER_NEW, DECODER_K, DECODER_MAX_LEN = 512, 64, 4, 640
+# The logit paths whose rounding may flip a near-tie argmax: each of
+# TIE_ROWS prompts' last TIE_DEPTH tokens as one verify window on the
+# pool and on a slot cache, as single decode entries (alone and one per
+# row in a batch), as the last token of a chunked prefill and through the
+# plain forward (no cache, no K1). Every emitted token is held by teacher
+# forcing through the plain forward: it must be the argmax at its own
+# position or within SPEC_TIE_ATOL of it. SPEC_TIE_ATOL is TIE_FACTOR
+# times the largest difference between any two paths, that difference
+# capped at TIE_DIFF_MAX (four bf16 ulps at |logit| in [4, 8)), so a
+# verify path that is off cannot widen its own tolerance. An argmax
+# taken on one path sits at most two such differences below the other
+# path's argmax.
+TIE_ROWS, TIE_DEPTH, TIE_PROMPT, TIE_FACTOR = 8, 8, 600, 2.0
+TIE_DIFF_MAX = 0.125
+# The group path (phase_group): one prompt, GROUP_SIZE members, greedy
+GROUP_SIZE, GROUP_PROMPT, GROUP_NEW = 8, 1000, 64
+# The tree round: 2 token-list tasks x TREE_GROUP, each root branching
+# once (max depth 1) after min_tokens_between tokens, speculation at depth
+# 4; grpo_round's planner path decodes collect_tree_trajectories' default
+# 128 new tokens a leaf
+TREE_TASK_LENS, TREE_GROUP = (600, 900), 4
+TREE_POLICY = dict(max_leaves=8, max_depth=1, branch_width=2,
+                   min_tokens_between=8, logp_threshold=0.0)
+
+
+def _top2_gap(torch, logits):
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _spec_tie_atol(torch, params, cfg, rng):
+    """The largest logit difference between the paths a token's logits
+    can take on the card: a verify window (all rows' windows in one
+    fused step, two-entry tiles), single decode entries (T = 1), a decode
+    batch (one entry a row), the last token of a chunked prefill
+    (``_paged_logits``), a verify window on a slot cache (the slots
+    ``SpeculativeDecoder``'s target) and the plain forward that
+    ``_teacher_forced`` runs. Returns (tie tolerance, that difference)."""
+    from senweaver_ide_tpu_torch.models import (forward, forward_paged,
+                                                init_kv_cache)
+    from senweaver_ide_tpu_torch.rollout import init_paged_pool
+    bs, n, k = 16, TIE_PROMPT, TIE_DEPTH
+    prompts = [rng.integers(0, cfg.vocab_size, size=n + k).tolist()
+               for _ in range(TIE_ROWS)]
+    per_row = -(-(n + k) // bs)
+    tables = torch.arange(TIE_ROWS * per_row, dtype=torch.int32).view(
+        TIE_ROWS, per_row)
+
+    def feed(pool, rows, poss):
+        toks = torch.tensor([prompts[r][p] for r, p in zip(rows, poss)])
+        rows, poss = torch.tensor(rows), torch.tensor(poss)
+        with torch.no_grad():
+            logits, _ = forward_paged(
+                params, cfg, toks, pool=pool, tables=tables, seq_row=rows,
+                positions=poss, write_block=tables[rows, poss // bs].long(),
+                write_off=poss % bs, use_kernel=True)
+        return logits.float()
+
+    def slots(r):
+        cache = init_kv_cache(cfg, 1, n + k, device="cuda")
+        toks = torch.tensor(prompts[r], device="cuda")[None]
+        with torch.no_grad():
+            _, cache = forward(params, cfg, toks[:, :n], cache=cache)
+            logits, _ = forward(params, cfg, toks[:, n:], cache=cache)
+        return logits[0].float()
+
+    pool = init_paged_pool(cfg, TIE_ROWS * per_row, bs, device="cuda")
+    for r in range(TIE_ROWS):
+        feed(pool, [r] * n, list(range(n)))
+    paths = {}
+    copy = lambda: type(pool)(*(None if a is None else a.clone()  # noqa
+                                for a in pool))
+    win = feed(copy(), [r for r in range(TIE_ROWS) for _ in range(k)],
+               [n + j for _ in range(TIE_ROWS) for j in range(k)])
+    paths["verify"] = win.view(TIE_ROWS, k, -1)
+    one, batch = copy(), copy()
+    paths["decode"] = torch.stack([torch.cat([
+        feed(one, [r], [n + j]) for j in range(k)]) for r in range(TIE_ROWS)])
+    paths["decode_batch"] = torch.stack([
+        feed(batch, list(range(TIE_ROWS)), [n + j] * TIE_ROWS)
+        for j in range(k)], dim=1)
+    paths["prefill"] = torch.stack([torch.stack([
+        _paged_logits(torch, params, cfg, prompts[r][:n + j + 1])
+        for j in range(k)]) for r in range(TIE_ROWS)])
+    paths["slots_verify"] = torch.stack([slots(r) for r in range(TIE_ROWS)])
+    with torch.no_grad():
+        paths["plain"] = torch.stack([forward(
+            params, cfg, torch.tensor(prompts[r], device="cuda")[None])[
+                0, n:n + k].float() for r in range(TIE_ROWS)])
+    names = list(paths)
+    diff = max(float((paths[a] - paths[b]).abs().max())
+               for i, a in enumerate(names) for b in names[i + 1:])
+    return TIE_FACTOR * min(diff, TIE_DIFF_MAX), diff
+
+
+def _teacher_forced(torch, params, cfg, prompts, streams, tie_atol, label,
+                    ref=None):
+    """Every token of every stream held by teacher forcing: one plain
+    forward (no cache, no K1) over prompt + stream, and each token must be
+    the argmax at its own position or within ``tie_atol`` below it.
+    Returns (the index at which each stream first leaves its ``ref``
+    stream, None where it does not; the widest gap below the argmax of an
+    emitted token; the number of emitted tokens that are not the plain
+    forward's argmax)."""
+    from senweaver_ide_tpu_torch.models import forward
+    leaves, widest, off = [], 0.0, 0
+    for i, (prompt, have) in enumerate(zip(prompts, streams)):
+        if ref is not None:
+            want = ref[i]
+            if len(want) != len(have):
+                fail(f"{label}: a stream of {len(have)} tokens against the "
+                     f"reference's {len(want)}")
+            leaves.append(next((j for j, (a, b) in enumerate(zip(want, have))
+                                if a != b), None))
+        if not have:
+            continue
+        toks = torch.tensor(list(prompt) + list(have[:-1]), device="cuda")
+        got = torch.tensor(have, device="cuda")
+        with torch.no_grad():
+            logits = forward(params, cfg, toks[None])[0, len(prompt) - 1:]
+            gaps = (logits.max(-1).values
+                    - logits.gather(-1, got[:, None])[:, 0]).float()
+        at = int(gaps.argmax())
+        gap = float(gaps[at])
+        if not gap <= tie_atol:
+            fail(f"{label}: stream {i}'s token {at} lies {gap:.4f} below the "
+                 f"plain forward's argmax at its position (SPEC_TIE_ATOL "
+                 f"{tie_atol:.4f})")
+        widest = max(widest, gap)
+        off += int((gaps > 0).sum())
+    return leaves, widest, off
+
+
+def _log_held(tag, held, tie_atol):
+    """One line a run: each stream's first index off its reference stream
+    (None: it never leaves), the widest gap of an emitted token below the
+    plain forward's argmax, and how many emitted tokens were not that
+    argmax."""
+    for name, (leaves, widest, off) in held.items():
+        log(f"[{tag}] teacher-forced, {name}: every token within "
+            f"SPEC_TIE_ATOL {tie_atol:.4f} of the plain forward's argmax "
+            f"(widest gap {widest:.4f}, {off} tokens off the argmax); first "
+            f"index off the reference per stream {leaves or 'n/a'}")
+
+
+def _ledger_ms(obs):
+    led = obs.get_profiler().ledger()
+    return {n: led.get(n, {}).get("step_ms_sum", 0.0)
+            for n in ("engine.spec_propose", "engine.spec_feed",
+                      "engine.fused_step")}
+
+
+def _spec_drive(torch, obs, engine, prompts, layers, dlayers, label, smi):
+    """Submit every prompt, drive to completion with K1's count zeroed,
+    and hold K1 to layers x fused steps + draft layers x draft forwards.
+    Returns (streams, summary)."""
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    rids = [engine.submit(p, max_new_tokens=SPEC_NEW_TOKENS)
+            for p in prompts]
+    led0 = _ledger_ms(obs)
+    paged_flash_decode.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while engine.has_work:
+        engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = paged_flash_decode.launches
+    led = {n: v - led0[n] for n, v in _ledger_ms(obs).items()}
+    st = engine.stats()
+    sp = engine._spec
+    fwd = (sp.propose_forwards + sp.feed_forwards) if sp else 0
+    want = layers * st["decode_steps"] + dlayers * fwd
+    if k1 != want:
+        fail(f"{label}: K1 launches {k1} != {layers} x {st['decode_steps']} "
+             f"fused steps + {dlayers} x {fwd} draft forwards")
+    streams = [engine.result(r) for r in rids]
+    if any(len(s) != SPEC_NEW_TOKENS for s in streams):
+        fail(f"{label}: a greedy request stopped early")
+    engine._alloc.check_leaks()
+    engine.spec_check_leaks()
+    ss = engine.spec_stats()
+    out = dict(label=label, wall_s=wall, fused_steps=st["decode_steps"],
+               tokens=st["tokens_emitted"],
+               tok_s=st["tokens_emitted"] / wall, k1=k1,
+               draft_forwards=fwd, propose_s=led["engine.spec_propose"] / 1e3,
+               feed_s=led["engine.spec_feed"] / 1e3,
+               fused_s=led["engine.fused_step"] / 1e3)
+    if ss["enabled"]:
+        out.update(rounds=ss["rounds"], proposed=ss["proposed"],
+                   accepted=ss["accepted"],
+                   acceptance=ss["accepted"] / max(1, ss["proposed"]),
+                   wasted=ss["wasted_draft_tokens"],
+                   feed_tokens=ss["draft_feed_tokens"], depth=ss["depth"])
+    log(f"[spec] {label}, {smi}: wall {wall:.2f} s, {out['tokens']} tokens "
+        f"= {out['tok_s']:.1f} tok/s, {out['fused_steps']} fused steps"
+        + (f", rounds {out['rounds']}, acceptance {out['acceptance']:.3f} "
+           f"({out['accepted']}/{out['proposed']}), wasted draft tokens "
+           f"{out['wasted']}, draft feed tokens {out['feed_tokens']}, last "
+           f"depth {out['depth']}" if ss["enabled"] else "")
+        + f"; ledger: propose {out['propose_s']:.3f} s, feed "
+        f"{out['feed_s']:.3f} s, fused (verify) steps {out['fused_s']:.3f} "
+        f"s; K1 {k1} = {layers} x {out['fused_steps']} + {dlayers} x {fwd}")
+    return streams, out
+
+
+def _ce(torch, params, cfg, toks, mask):
+    from senweaver_ide_tpu_torch.models import forward
+    from senweaver_ide_tpu_torch.training.grpo import token_logprobs
+    toks = torch.from_numpy(toks).cuda()
+    m = torch.from_numpy(mask).cuda()[:, 1:].float()
+    with torch.no_grad():
+        logp = token_logprobs(forward(params, cfg, toks[:, :-1]),
+                              toks[:, 1:])
+    return float(-(logp * m).sum() / m.sum().clamp_min(1.0))
+
+
+def phase_spec(torch, cfg, params, seed, smi, dcfg=None):
+    """Speculative decoding at full width: the engine's fused speculation
+    at fixed depths, under the default controller and with a self-draft,
+    every stream held to the non-speculative reference; a publish
+    stamping the draft stale; the draft's distillation on the harvested
+    outcomes (K2) and its install; SpeculativeDecoder on both layouts
+    (K1, and K3 for the slot cache's one-token draft feeds)."""
+    import dataclasses
+
+    import numpy as np
+    from senweaver_ide_tpu_torch import obs
+    from senweaver_ide_tpu_torch.models import (init_params,
+                                                qwen2_5_coder_0_5b)
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    from senweaver_ide_tpu_torch.rollout import (RolloutEngine,
+                                                 SampleParams,
+                                                 SpeculativeDecoder)
+    from senweaver_ide_tpu_torch.training import DraftDistiller
+    dcfg = dcfg or qwen2_5_coder_0_5b()
+    layers, dlayers = cfg.num_layers, dcfg.num_layers
+    draft = init_params(dcfg, torch.Generator(device="cuda").manual_seed(
+        seed + 1), device="cuda")
+    log(f"[spec] draft {dcfg.name}: {dlayers} layers, hidden "
+        f"{dcfg.hidden_size}, heads {dcfg.num_heads}/{dcfg.num_kv_heads} D "
+        f"{dcfg.head_dim}, random weights (seed {seed + 1})")
+    rng = np.random.default_rng(seed + 10)
+    obs.set_profiler(obs.RuntimeProfiler())
+    tie_atol, tie_diff = _spec_tie_atol(torch, params, cfg, rng)
+    log(f"[spec] logit paths (verify window on the pool and on a slot "
+        f"cache, decode entries alone and batched, chunked prefill, plain "
+        f"forward; {TIE_ROWS} rows x {TIE_DEPTH} positions after "
+        f"{TIE_PROMPT} tokens): max |diff| {tie_diff:.4f}; SPEC_TIE_ATOL = "
+        f"{TIE_FACTOR} x min(that, TIE_DIFF_MAX {TIE_DIFF_MAX}) = "
+        f"{tie_atol:.4f}")
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(SPEC_PROMPT_LENS[0],
+                                     SPEC_PROMPT_LENS[1] + 1,
+                                     size=SPEC_REQUESTS)]
+    greedy = SampleParams(0.0, 0, 1.0)
+
+    def engine():
+        return RolloutEngine(params, cfg, num_slots=SPEC_SLOTS,
+                             max_len=SPEC_MAX_LEN, sample=greedy, seed=seed,
+                             device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine()
+    ref, base = _spec_drive(torch, obs, eng, prompts, layers, 0,
+                            "reference (no speculation)", smi)
+    del eng
+    runs = {"reference": base}
+    k1_total = base["k1"]
+    held = {"reference": _teacher_forced(torch, params, cfg, prompts, ref,
+                                         tie_atol, "reference")}
+    # one depth-4 run serves all SPEC_REQUESTS prompts (the distiller's
+    # harvest); every other speculative run serves the first
+    # SPEC_SELF_REQUESTS of them
+    few = prompts[:SPEC_SELF_REQUESTS]
+
+    def spec_run(name, draft_params, draft_cfg, ps=few, install=None, **kw):
+        nonlocal k1_total
+        name = f"{name}, {len(ps)} requests"
+        eng = engine()
+        eng.enable_speculation(draft_params, draft_cfg, **kw)
+        if install is not None:
+            install(eng)
+        streams, out = _spec_drive(torch, obs, eng, ps, layers,
+                                   draft_cfg.num_layers, name, smi)
+        k1_total += out["k1"]
+        held[name] = _teacher_forced(torch, params, cfg, ps, streams,
+                                     tie_atol, name, ref=ref[:len(ps)])
+        runs[name] = out
+        return eng, out
+
+    eng, before = spec_run("depth 4", draft, dcfg, ps=prompts, depth=4)
+    # the distiller's data, then a publish on the target
+    distiller = DraftDistiller(
+        draft, dataclasses.replace(dcfg, attn_impl="flash"),
+        batch_size=DRAFT_DISTILL_BATCH, seed=seed)
+    harvested = distiller.harvest(eng)
+    if harvested != min(before["rounds"], 512):
+        fail(f"spec: harvested {harvested} outcomes of {before['rounds']} "
+             f"rounds")
+    eng.update_params(params)
+    ss = eng.spec_stats()
+    if ss["draft_staleness"] != 1 or ss["acceptance_ema"] is not None:
+        fail(f"spec: a target publish left staleness "
+             f"{ss['draft_staleness']}, EMA {ss['acceptance_ema']}")
+    log("[spec] update_params on the target: draft staleness 1, "
+        "acceptance EMA reset")
+    del eng
+    for depth in SPEC_DEPTHS:
+        if depth != 4:
+            spec_run(f"depth {depth}", draft, dcfg, depth=depth)
+    spec_run("controller ladder", draft, dcfg)
+    # the self-draft (draft = target): a draft that agrees is accepted,
+    # and takes fewer rounds at depth 8 than at depth 2
+    self_runs = {d: spec_run(f"self-draft depth {d}", params, cfg,
+                             depth=d)[1] for d in SPEC_DEPTHS}
+    acc_self = self_runs[4]["acceptance"]
+    if acc_self < SPEC_SELF_ACCEPT_MIN:
+        fail(f"spec: self-draft acceptance {acc_self:.3f} < "
+             f"{SPEC_SELF_ACCEPT_MIN}")
+    if not self_runs[8]["rounds"] < self_runs[2]["rounds"]:
+        fail(f"spec: the self-draft took {self_runs[8]['rounds']} rounds at "
+             f"depth 8 against {self_runs[2]['rounds']} at depth 2")
+
+    # -- the draft's distillation on the harvested outcomes (K2) ---------
+    fixed = distiller.batch()
+    ce0 = _ce(torch, distiller.params, distiller.config, *fixed)
+    k2 = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkdv,
+          fa.flash_attention_bwd_dq)
+    for w in k2:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [distiller.step() for _ in range(DRAFT_DISTILL_STEPS)]
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    k2_launches = {n: w.launches for n, w in zip(("fwd", "dkdv", "dq"), k2)}
+    want = dlayers * DRAFT_DISTILL_STEPS
+    if any(v != want for v in k2_launches.values()):
+        fail(f"spec: distillation K2 launches {k2_launches}, expected "
+             f"{want} each ({dlayers} layers x {DRAFT_DISTILL_STEPS} steps)")
+    if not all(np.isfinite(losses)):
+        fail(f"spec: non-finite distillation loss {losses}")
+    ce1 = _ce(torch, distiller.params, distiller.config, *fixed)
+    if not ce1 < ce0:
+        fail(f"spec: CE on a fixed harvested batch {ce0:.4f} -> {ce1:.4f} "
+             f"did not fall")
+    log(f"[spec] distillation, {smi}: {harvested} outcomes harvested, "
+        f"{DRAFT_DISTILL_STEPS} steps of batch {DRAFT_DISTILL_BATCH} x "
+        f"{fixed[0].shape[1]} in {distill_s:.3f} s, losses "
+        f"{[round(x, 4) for x in losses]}; CE on a fixed harvested batch "
+        f"{ce0:.4f} -> {ce1:.4f}; K2 launches {k2_launches} = {dlayers} x "
+        f"{DRAFT_DISTILL_STEPS}")
+    eng, after = spec_run("depth 4, distilled draft", draft, dcfg,
+                          install=distiller.install, depth=4)
+    if eng.spec_stats()["draft_version"] != 1:
+        fail("spec: the distilled draft was not installed")
+    del eng
+    log(f"[spec] acceptance at depth 4: {before['acceptance']:.4f} before "
+        f"distillation ({len(prompts)} requests), {after['acceptance']:.4f} "
+        f"after ({len(few)} requests)")
+
+    # -- SpeculativeDecoder, both layouts ------------------------------
+    prompt = rng.integers(0, cfg.vocab_size, size=DECODER_PROMPT).tolist()
+    ref_eng = RolloutEngine(params, cfg, num_slots=1,
+                            max_len=DECODER_MAX_LEN, sample=greedy,
+                            device="cuda")
+    rid = ref_eng.submit(prompt, max_new_tokens=DECODER_NEW)
+    dec_ref = ref_eng.run()[rid]
+    del ref_eng
+    held["decoder reference"] = _teacher_forced(
+        torch, params, cfg, [prompt], [dec_ref], tie_atol,
+        "decoder reference")
+    fd_cfg = dataclasses.replace(dcfg, decode_attn_impl="flash")
+    for layout in ("paged", "slots"):
+        dec = SpeculativeDecoder(params, cfg, draft,
+                                 fd_cfg if layout == "slots" else dcfg,
+                                 k=DECODER_K, kv_layout=layout)
+        flash_decode.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dec.generate(prompt, max_new_tokens=DECODER_NEW,
+                           max_len=DECODER_MAX_LEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3 = flash_decode.launches
+        held[f"decoder {layout}"] = _teacher_forced(
+            torch, params, cfg, [prompt], [got], tie_atol,
+            f"decoder {layout}", ref=[dec_ref])
+        if layout == "paged":
+            for kv in dec._last_paged_kv:
+                if kv.allocator.used_blocks != len(kv.table):
+                    fail("decoder: a rolled-back block was not released")
+                kv.free()
+                kv.allocator.check_leaks()
+            if k3:
+                fail(f"decoder paged: K3 launched {k3} times")
+        elif k3 != dlayers * DECODER_K * dec.rounds:
+            fail(f"decoder slots: K3 launches {k3} != {dlayers} x "
+                 f"{DECODER_K} x {dec.rounds} one-token draft feeds")
+        log(f"[spec] SpeculativeDecoder {layout}, {smi}: {DECODER_PROMPT}-"
+            f"token prompt, {len(got)} new in {wall:.2f} s = "
+            f"{len(got) / wall:.1f} tok/s, {dec.rounds} rounds of k="
+            f"{DECODER_K}, acceptance {dec.acceptance_rate:.3f}"
+            + (f", K3 {k3} = {dlayers} x {DECODER_K} x "
+                          f"{dec.rounds}" if layout == "slots" else
+                          ", every block freed"))
+    peak = torch.cuda.max_memory_allocated()
+    _log_held("spec", held, tie_atol)
+    log(f"[spec] peak memory {peak} bytes; {smi}")
+    del draft, distiller
+    return {"k1": k1_total, "k3": k3, **k2_launches, "tie_atol": tie_atol}
+
+
+def phase_group(torch, cfg, params, seed, smi, tie_atol, dcfg=None):
+    """Group-shared rollout at full width: a group of GROUP_SIZE on one
+    prompt pays one prefill and matches independent submits; then a tree
+    GRPO round through GroupRollout with speculation on (K1 on both
+    pools, K2 in the update)."""
+    import dataclasses
+
+    import numpy as np
+    from senweaver_ide_tpu_torch import obs
+    from senweaver_ide_tpu_torch.models import (init_params,
+                                                qwen2_5_coder_0_5b)
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    from senweaver_ide_tpu_torch.rollout import (BranchPolicy,
+                                                 GroupRollout,
+                                                 RolloutEngine,
+                                                 SampleParams)
+    from senweaver_ide_tpu_torch.training import (grpo_round,
+                                                  make_optimizer,
+                                                  make_train_state)
+    dcfg = dcfg or qwen2_5_coder_0_5b()
+    layers, dlayers = cfg.num_layers, dcfg.num_layers
+    rng = np.random.default_rng(seed + 20)
+    greedy = SampleParams(0.0, 0, 1.0)
+    prompt = rng.integers(0, cfg.vocab_size, size=GROUP_PROMPT).tolist()
+    # the phase runs no slot cache: K3 is read at its end and must be 0
+    flash_decode.launches = 0
+
+    # -- independent submits, then the group --------------------------
+    eng = RolloutEngine(params, cfg, num_slots=GROUP_SIZE, max_len=2048,
+                        sample=greedy, device="cuda")
+    rids = [eng.submit(prompt, max_new_tokens=GROUP_NEW)
+            for _ in range(GROUP_SIZE)]
+    eng.run()
+    ref = [eng.result(r) for r in rids]
+    del eng
+    eng = RolloutEngine(params, cfg, num_slots=GROUP_SIZE, max_len=2048,
+                        sample=greedy, device="cuda")
+    paged_flash_decode.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = eng.submit_group(prompt, GROUP_SIZE, max_new_tokens=GROUP_NEW)
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_group = paged_flash_decode.launches
+    st = eng.stats()
+    if k1_group != layers * st["decode_steps"]:
+        fail(f"group: K1 launches {k1_group} != {layers} x "
+             f"{st['decode_steps']}")
+    followers = GROUP_SIZE - 1
+    want = {"prefills": 1, "group_prefills": 1, "group_forks": followers,
+            "prefill_tokens": GROUP_PROMPT + followers,
+            "group_prefill_tokens_avoided": followers * (GROUP_PROMPT - 1),
+            "group_degrades": 0}
+    got = {k: st[k] for k in want}
+    if got != want:
+        fail(f"group: counters {got}, expected {want}")
+    held = {
+        "independent submits": _teacher_forced(
+            torch, params, cfg, [prompt] * GROUP_SIZE, ref, tie_atol,
+            "independent submits"),
+        "group": _teacher_forced(
+            torch, params, cfg, [prompt] * GROUP_SIZE,
+            [eng.result(r) for r in rids], tie_atol, "group", ref=ref)}
+    eng._alloc.check_leaks()
+    log(f"[group] {smi}: submit_group of {GROUP_SIZE} on a {GROUP_PROMPT}-"
+        f"token prompt, {GROUP_NEW} new: wall {wall:.2f} s, "
+        f"{st['decode_steps']} fused steps, counters {got}, "
+        f"kv_cow_copies {st['kv_cow_copies']}; K1 {k1_group}")
+    _log_held("group", held, tie_atol)
+    del eng
+
+    # -- the tree round, speculation on ----------------------------------
+    tcfg = dataclasses.replace(cfg, attn_impl="flash", remat=TRAIN_REMAT)
+    draft = init_params(dcfg, torch.Generator(device="cuda").manual_seed(
+        seed + 1), device="cuda")
+    eng = RolloutEngine(params, tcfg, num_slots=SPEC_SLOTS, max_len=2048,
+                        sample=greedy, device="cuda")
+    eng.enable_speculation(draft, dcfg, depth=4)
+    planner = GroupRollout(eng, BranchPolicy(**TREE_POLICY))
+    tasks = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+             for n in TREE_TASK_LENS]
+    state = make_train_state(tcfg, params=params,
+                             optimizer=make_optimizer(TRAIN_LR))
+    k2 = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkdv,
+          fa.flash_attention_bwd_dq)
+    paged_flash_decode.launches = 0
+    for w in k2:
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = grpo_round(state, tcfg, None, None, tasks, group_size=TREE_GROUP,
+                     pad_id=0, accum_steps=ROUND_ACCUM,
+                     reward_override=lambda ti, li, rec: (
+                         1.0 if li % 2 == 0 else -1.0),
+                     planner=planner, engine=eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k1": paged_flash_decode.launches,
+                "fwd": fa.flash_attention_fwd.launches,
+                "dkdv": fa.flash_attention_bwd_dkdv.launches,
+                "dq": fa.flash_attention_bwd_dq.launches}
+    st = eng.stats()
+    sp = eng._spec
+    want_k1 = (layers * st["decode_steps"]
+               + dlayers * (sp.propose_forwards + sp.feed_forwards))
+    if launches["k1"] != want_k1:
+        fail(f"tree round: K1 {launches['k1']} != {layers} x "
+             f"{st['decode_steps']} + {dlayers} x "
+             f"{sp.propose_forwards + sp.feed_forwards}")
+    remat = 2 if TRAIN_REMAT else 1
+    want_k2 = {"fwd": layers * ROUND_ACCUM * remat,
+               "dkdv": layers * ROUND_ACCUM, "dq": layers * ROUND_ACCUM}
+    got_k2 = {k: launches[k] for k in want_k2}
+    if got_k2 != want_k2:
+        fail(f"tree round: K2 launches {got_k2}, expected {want_k2}")
+    bad = {k: v for k, v in out.metrics.items()
+           if not np.isfinite(float(v))}
+    if bad or out.update_skipped is not None:
+        fail(f"tree round: non-finite metrics {bad} or a skipped update "
+             f"({out.update_skipped})")
+    bs = planner.branch_stats()
+    if bs["branched_leaves"] < 1 or bs["groups"] != len(tasks):
+        fail(f"tree round: branch_stats {bs}")
+    eng._alloc.check_leaks()
+    eng.spec_check_leaks()
+    ss = eng.spec_stats()
+    log(f"[group] tree round, {smi}: {len(tasks)} tasks x {TREE_GROUP}, "
+        f"{len(out.trajectories)} leaves, branch_stats {bs}, wall "
+        f"{wall:.2f} s; {st['decode_steps']} fused steps, spec rounds "
+        f"{ss['rounds']} acceptance "
+        f"{ss['accepted'] / max(1, ss['proposed']):.3f}; group_forks "
+        f"{st['group_forks']} branch_forks {st['branch_forks']}; loss "
+        f"{out.metrics['loss']:.4g} grad_norm {out.metrics['grad_norm']:.4g}"
+        f" ratio_mean {out.metrics['ratio_mean']:.6f}; K1 {launches['k1']} "
+        f"= {layers} x {st['decode_steps']} + {dlayers} x "
+        f"{sp.propose_forwards + sp.feed_forwards}, K2 {got_k2}; "
+        f"check_leaks and spec_check_leaks clean")
+    del eng, draft, planner
+    k3 = flash_decode.launches
+    if k3 != 0:
+        fail(f"group: K3 launched {k3} times (the phase runs no slot cache)")
+    return {"k1": k1_group + launches["k1"], **got_k2, "k3": k3}
+
+
 def _spread_reward(task_idx, g, session):
     """Rewards that spread within a group (random weights tie every group
     on the trace reward, which would make every update zero)."""
@@ -3004,6 +3754,7 @@ def main(argv=None) -> int:
               f"beside this script ({e})", file=sys.stderr)
         return 2
     from senweaver_ide_tpu_torch.models import (init_params, mistral_7b,
+                                                qwen2_5_coder_0_5b,
                                                 qwen2_5_coder_1_5b)
     t_start = time.perf_counter()
     smi = phase_device(torch)
@@ -3011,6 +3762,7 @@ def main(argv=None) -> int:
     cfg = qwen2_5_coder_1_5b()
     timer = Timer(torch)
     kern = phase_kernel(torch, cfg, timer)
+    kspec = phase_kernel_spec(torch, cfg, qwen2_5_coder_0_5b(), timer)
     fd = phase_flash_decode(torch, timer)
     if args.kernels_only:
         phase_flash(torch, cfg, timer)
@@ -3032,6 +3784,9 @@ def main(argv=None) -> int:
     online_launches, _ = phase_online(torch, cfg, loaded, args.seed, smi)
     reuse_launches = phase_reuse(torch, cfg, loaded, args.seed, smi)
     async_launches = phase_async(torch, cfg, loaded, args.seed, smi)
+    spec_launches = phase_spec(torch, cfg, loaded, args.seed, smi)
+    group_launches = phase_group(torch, cfg, loaded, args.seed, smi,
+                                 spec_launches["tie_atol"])
     # the 1.5B weights (trained in place) make way for mistral-7b
     del params, loaded
     gc.collect()
@@ -3063,7 +3818,13 @@ def main(argv=None) -> int:
                                    variant),
             "launches_async": (async_launches["k1"] if variant == "bf16"
                                else None),
-            "max_abs_err": r["max_abs_err"],
+            "launches_spec": (spec_launches["k1"] if variant == "bf16"
+                              else None),
+            "launches_group": (group_launches["k1"] if variant == "bf16"
+                               else None),
+            "max_abs_err": (max(r["max_abs_err"], kspec["max_abs_err_d64"],
+                                kspec["max_abs_err_verify"])
+                            if variant == "bf16" else r["max_abs_err"]),
             "tolerance": f"{KERNEL_ATOL} + {KERNEL_RTOL} * |plain|",
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3082,6 +3843,12 @@ def main(argv=None) -> int:
             "mixed_tiles": r["mixed_tiles"],
             "mixed_splits": r["mixed_splits"],
             "mixed_chunk": r["mixed_chunk"],
+            **{key: (kspec[key] if variant == "bf16" else None)
+               for key in ("d64_ms", "d64_plain_ms", "d64_bound_ms",
+                           "max_abs_err_d64", "verify_ms",
+                           "verify_untiled_ms", "verify_plain_ms",
+                           "verify_bound_ms", "verify_tiles",
+                           "max_abs_err_verify")},
             "resources": r["resources"]})
     replaces = {"fwd": "senweaver_ide_tpu/ops/flash_attention.py:48",
                 "dkdv": "senweaver_ide_tpu/ops/flash_attention.py:177",
@@ -3099,6 +3866,8 @@ def main(argv=None) -> int:
             "launches_online": online_launches[kname],
             "launches_reuse": reuse_launches[kname],
             "launches_async": async_launches[kname],
+            "launches_spec": spec_launches[kname],
+            "launches_group": group_launches[kname],
             "max_abs_err": r["max_abs_err"],
             "tolerance": _fa_tol_text(FA_TOL[FA_ERR_OF[kname][0]]),
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
@@ -3117,6 +3886,8 @@ def main(argv=None) -> int:
         "launches_int8_slots_qwen": int8_launches,
         "launches_reuse": reuse_launches["k3"],
         "launches_async": async_launches["k3"],
+        "launches_spec": spec_launches["k3"],
+        "launches_group": group_launches["k3"],
         "max_abs_err": fd["max_abs_err"],
         "max_abs_err_f32": fd["max_abs_err_f32"],
         "tolerance": f"{FD_TOL['bf16'][0]} + {FD_TOL['bf16'][1]} * |plain|",

@@ -1,8 +1,11 @@
 from .engine import EngineConfig, PrefixImportError, QueueFull, RolloutEngine
+from .group_tree import BranchPolicy, GroupRollout, Leaf
 from .paged_kv import (KV_DTYPES, BlockAllocator, BlockPayload,
-                       BlocksExhausted, PagedKVPool, init_paged_pool,
-                       resolve_kv_dtypes)
+                       BlocksExhausted, PagedKVPool, PagedSeqKV,
+                       init_paged_pool, resolve_kv_dtypes)
 from .policy_client import EnginePolicyClient
 from .sampler import (SampleParams, decode_step, generate, generate_scan,
                       prefill, prefill_chunked)
 from .session import RolloutSession, TurnResult
+from .spec_controller import FixedDepth, SpecController, SpecControllerConfig
+from .speculative import OnlineDraftLearner, SpeculativeDecoder

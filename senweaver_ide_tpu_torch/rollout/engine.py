@@ -39,13 +39,29 @@ next turn (``continue_from=``) prefills only its new tokens.
 ``update_params`` drops every prefix and every hold: their KV belongs to
 the old policy.
 
-Speculation, adapters, groups, migration and tensor-parallel meshes
-belong to later slices and raise where requested; :meth:`stats` reports
-their counters as 0 so the key set is the JAX engine's.
+**Speculation** (:meth:`RolloutEngine.enable_speculation`, paged and
+greedy only): a draft model with its own block pool proposes up to
+``depth`` tokens per decoding row (``k`` draft forwards whose argmax
+stays on the device, one device→host copy of the proposals), the target
+verifies each row's window in the same fused step as everything else,
+and both caches roll back to the verified prefix. The depth comes from a
+:class:`~.spec_controller.SpecController` (load → ladder) or is pinned.
+
+**Groups and trees** (:meth:`RolloutEngine.submit_group`,
+:meth:`RolloutEngine.fork_request`): a GRPO group pays one prefill; the
+followers graft the donor's prompt spine (refcount bumps) and rescore
+its last token with the write dropped; a fork shares its parent's whole
+spine, copy-on-write.
+
+Adapters, migration (apart from :meth:`RolloutEngine.release_request`)
+and tensor-parallel meshes belong to later slices and raise where
+requested; :meth:`stats` reports their counters as 0 so the key set is
+the JAX engine's.
 
 Observability is the JAX engine's, under its names: the step bodies run
 under the runtime ledger entries ``engine.fused_step`` (paged) and
-``engine.decode_step`` (slots), each step's one device→host copy goes
+``engine.decode_step`` (slots), the draft's under ``engine.spec_propose``
+and ``engine.spec_feed``, each step's one device→host copy goes
 through ``profiled_device_get``, the spans ``engine.decode_step``,
 ``engine.prefill`` and ``engine.prefill_batch`` and the
 ``senweaver_engine_*`` counters record while tracing is on, and the
@@ -77,6 +93,7 @@ from .paged_kv import (BlockAllocator, BlockPayload, BlocksExhausted,
                        init_paged_pool, install_blocks, install_blocks_quant,
                        pool_bytes_per_block, resolve_kv_dtypes)
 from .sampler import SampleParams, prefill
+from .spec_controller import FixedDepth, SpecController
 
 
 class QueueFull(RuntimeError):
@@ -158,6 +175,85 @@ class _RowPreempted(Exception):
     and was requeued; skip it for this step."""
 
 
+class _DraftMetricsView:
+    """Registry adapter for the draft block allocator: re-prefixes the
+    ``senweaver_kv_*`` series to ``senweaver_spec_draft_kv_*`` so the
+    draft pool's bookkeeping doesn't overwrite the target pool's
+    gauges."""
+
+    def __init__(self, registry):
+        self._registry = registry
+
+    @staticmethod
+    def _rename(name: str) -> str:
+        return name.replace("senweaver_kv_", "senweaver_spec_draft_kv_")
+
+    def gauge(self, name, desc=""):
+        return self._registry.gauge(self._rename(name), desc)
+
+    def counter(self, name, desc=""):
+        return self._registry.counter(self._rename(name), desc)
+
+
+@dataclasses.dataclass
+class _SpecState:
+    """Host-side state for fused speculative decoding (one per engine,
+    created by :meth:`RolloutEngine.enable_speculation`). All fields are
+    guarded by the engine lock."""
+
+    params: Params
+    config: ModelConfig
+    controller: object          # SpecController / FixedDepth duck type
+    alloc: BlockAllocator       # draft KV block pool bookkeeping
+    version: int = 0            # draft weight version
+    # target publishes seen vs. the target version the draft was last
+    # installed against: staleness = target_version - draft_synced_at
+    target_version: int = 0
+    draft_synced_at: int = 0
+    # a fleet publisher already stamped the in-flight publish
+    # (spec_note_publish_begin); the install consumes the stamp instead
+    # of double-counting
+    publish_pending: bool = False
+    ema: float = 0.0            # acceptance-rate EMA (reset on publish)
+    ema_init: bool = False
+    depth_applied: int = 0      # controller depth used by the last step
+    # verification outcomes for the online distiller (training/
+    # draft_distill.py): bounded ring of {context, targets, accepted}
+    ctx_window: int = 64
+    outcomes: Deque = dataclasses.field(
+        default_factory=lambda: deque(maxlen=512))
+    depth_gauge: object = None
+    accept_gauge: object = None
+    staleness_gauge: object = None
+    wasted_total: object = None
+    # draft forwards run: the propose loop's (k a proposal step) and the
+    # catch-up's (one a feed step)
+    propose_forwards: int = 0
+    feed_forwards: int = 0
+
+
+@dataclasses.dataclass
+class _GroupShare:
+    """Shared-prefill bookkeeping for one GRPO group (guarded by the
+    engine lock). The donor request prefills the group's prompt ONCE;
+    when that prefill completes (before the donor's first sampled token
+    is written, so the block table is the pure prompt spine) the engine
+    captures an engine-retained fork of the table and enqueues the
+    waiting followers. Each follower grafts the spine with a refcount
+    bump and rescores only the last prompt token. ``degraded`` flips if
+    the donor dies before capture (preemption after emitting, a release):
+    followers fall back to plain unshared prefills, slower, never
+    inexact."""
+
+    gid: int
+    donor_rid: int
+    spine: Optional[List[int]] = None    # engine-retained table fork
+    spine_len: int = 0
+    waiters: List["_Request"] = dataclasses.field(default_factory=list)
+    pending: int = 0                     # followers not yet grafted
+    degraded: bool = False
+
+
 @dataclasses.dataclass
 class _Request:
     rid: int
@@ -180,6 +276,25 @@ class _Request:
     # times this request lost its blocks to preempt-by-recomputation; at
     # EngineConfig.max_preempts it becomes non-preemptible
     preempt_count: int = 0
+    # Group-shared rollout (submit_group): followers graft the donor's
+    # prefilled prompt spine instead of paying their own prefill.
+    # `group_grafted` latches once so a preempted follower cannot
+    # double-decrement the group's pending count on reschedule.
+    group: Optional["_GroupShare"] = None
+    group_grafted: bool = False
+    # Tree-structured rollout lineage (fork_request): the rid this request
+    # branched from, the parent's emitted-token count at the branch point,
+    # and the branch depth (root submits are depth 0).
+    parent_rid: Optional[int] = None
+    branch_pos: Optional[int] = None
+    branch_depth: int = 0
+
+
+def _no_adapters(adapter_id: Optional[str]) -> None:
+    if adapter_id is not None:
+        raise NotImplementedError(
+            "multi-tenant LoRA adapters arrive with a later slice of the "
+            "PyTorch port")
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -339,17 +454,73 @@ def _paged_fused_step(params: Params, config: ModelConfig,
     return next_tok, sampled_logprob(logits, next_tok), pool
 
 
-# Runtime observatory wiring (obs/runtime_profile.py): the two step
-# drivers keep their ledgers and device-time histograms under the JAX
-# engine's names. Params/config (args 0-1) are skipped from the per-call
-# signature scan. The fused step takes exact-size token batches (eager
-# PyTorch needs no padding ladder), so its signatures span every token
-# count up to the step budget times the table-width buckets; the storm
-# threshold sits above that, and only an unbounded stream trips it.
+@torch.no_grad()
+def _draft_propose(params: Params, config: ModelConfig,
+                   cur_tok: torch.Tensor, base_pos: torch.Tensor,
+                   tables: torch.Tensor, pool, k: int,
+                   use_kernel: bool) -> tuple:
+    """Greedy draft proposals for the speculating rows: ``k`` draft
+    decode steps over all of them at once, each feeding its own argmax
+    back in. ``cur_tok`` / ``base_pos`` (R,) and ``tables`` (R, mb) are
+    the rows' pending tokens, fill levels and draft block tables, on the
+    host; write blocks and positions come from ``base_pos + i`` on the
+    host, the argmax stays on the device and feeds the next call, and
+    nothing is copied to the host here (the JAX version runs the same
+    loop as one on-device scan). Returns ``(proposals (R, k) on the
+    device, pool)``."""
+    bs = pool.block_size
+    seq_row = torch.arange(cur_tok.shape[0])
+    tbl = tables.long()
+    tok = cur_tok
+    props = []
+    for i in range(k):
+        pos = base_pos + i
+        logits, pool = forward_paged(
+            params, config, tok, pool=pool, tables=tables, seq_row=seq_row,
+            positions=pos, write_block=tbl[seq_row, pos // bs],
+            write_off=pos % bs, use_kernel=use_kernel)
+        tok = torch.argmax(logits, dim=-1)
+        props.append(tok)
+    return torch.stack(props, dim=1), pool
+
+
+@torch.no_grad()
+def _draft_feed_step(params: Params, config: ModelConfig,
+                     toks: torch.Tensor, tables: torch.Tensor,
+                     seq_row: torch.Tensor, positions: torch.Tensor,
+                     write_block: torch.Tensor, write_off: torch.Tensor,
+                     pool, use_kernel: bool):
+    """Draft-cache catch-up: run the draft model over a flat token batch
+    purely for its KV writes (logits discarded, no transfer). This is how
+    the draft reaches lockstep with the target after prefill,
+    continuations, preemption resume, rollback or a depth-0 stretch: the
+    host replays the already-known token stream."""
+    _logits, pool = forward_paged(
+        params, config, toks, pool=pool, tables=tables, seq_row=seq_row,
+        positions=positions, write_block=write_block, write_off=write_off,
+        use_kernel=use_kernel)
+    return pool
+
+
+# Runtime observatory wiring (obs/runtime_profile.py): the step functions
+# keep their ledgers and device-time histograms under the JAX engine's
+# names. Params/config (args 0-1) are skipped from the per-call signature
+# scan. The fused step takes exact-size token batches (eager PyTorch
+# needs no padding ladder), so its signatures span every token count up
+# to the step budget times the table-width buckets; the storm threshold
+# sits above that, and only an unbounded stream trips it. The draft
+# steps' signatures span the speculating rows x depths and the catch-up
+# widths.
 _pool_decode_step = ProfiledFunction(
     _pool_decode_step, "engine.decode_step", skip_args=(0, 1))
 _paged_fused_step = ProfiledFunction(
     _paged_fused_step, "engine.fused_step", skip_args=(0, 1),
+    storm_threshold=1024)
+_draft_propose = ProfiledFunction(
+    _draft_propose, "engine.spec_propose", skip_args=(0, 1),
+    storm_threshold=1024)
+_draft_feed_step = ProfiledFunction(
+    _draft_feed_step, "engine.spec_feed", skip_args=(0, 1),
     storm_threshold=1024)
 
 
@@ -434,7 +605,7 @@ class RolloutEngine:
         self._hold_seq = 0                      # guarded-by: _lock
         self._slot_hold_seq: List[int] = [0] * num_slots  # guarded-by: _lock
         # The JAX engine's counters, all of them: those of features this
-        # port has not taken yet (speculation, migration, groups) stay 0.
+        # port has not taken yet (migration) stay 0.
         self._stats = {"prefills": 0, "prefill_tokens": 0,  # guarded-by: _lock
                        "batched_prefills": 0, "batched_prefill_slots": 0,
                        "prefix_installs": 0, "prefix_tokens_reused": 0,
@@ -460,6 +631,19 @@ class RolloutEngine:
         self._queue: Deque[_Request] = deque()  # guarded-by: _lock
         self._requests: Dict[int, _Request] = {}  # guarded-by: _lock
         self._next_rid = 0                      # guarded-by: _lock
+        # Group-shared rollout (submit_group): live groups by gid; entries
+        # drop once the last follower grafts or the group degrades.
+        self._groups: Dict[int, _GroupShare] = {}  # guarded-by: _lock
+        self._next_gid = 0                      # guarded-by: _lock
+        # Fused speculation (enable_speculation): draft model + its own
+        # block pool, in lockstep with the target rows. None = off.
+        self._spec: Optional[_SpecState] = None  # guarded-by: _lock
+        self._draft_tables: List[List[int]] = []  # guarded-by: _lock
+        self._draft_len: List[int] = []         # guarded-by: _lock
+        self._draft_pool = None                 # guarded-by: _lock
+        # fleet load signal (remaining decode tokens) pushed by a serving
+        # replica for the depth controller; None = standalone
+        self._spec_fleet_tokens: Optional[float] = None  # guarded-by: _lock
         # Slot layout: tokens sampled during prefill, surfaced by the next
         # step().
         self._pending_emits: Dict[int, List[int]] = {}  # guarded-by: _lock
@@ -528,7 +712,10 @@ class RolloutEngine:
         Registered prefixes are DROPPED (their KV was computed by the old
         policy): clients holding a prefix_id get a KeyError on next use
         and re-register (EnginePolicyClient does so). Held conversations
-        are dropped for the same reason; their next turn re-prefills."""
+        are dropped for the same reason; their next turn re-prefills. With
+        speculation on, the draft is stamped stale and the acceptance EMA
+        restarts (unless a fleet publisher already stamped this publish
+        through :meth:`spec_note_publish_begin`)."""
         embed = params["embed"]
         if embed.device.type != self.device.type:
             raise ValueError(f"params live on {embed.device}, engine on "
@@ -541,6 +728,184 @@ class RolloutEngine:
                 self.release_prefix(pid)
             for slot in range(self.num_slots):
                 self._drop_hold(slot)
+            if self._spec is not None:
+                if self._spec.publish_pending:
+                    self._spec.publish_pending = False
+                else:
+                    self._spec_mark_stale()
+
+    # -- fused speculative decoding ----------------------------------------
+
+    def enable_speculation(self, draft_params: Params,
+                           draft_config: ModelConfig, *,
+                           controller=None, depth: Optional[int] = None,
+                           num_blocks: Optional[int] = None,
+                           version: int = 0) -> None:
+        """Turn on fused speculative decoding: a draft model proposes up
+        to ``depth`` tokens per row and the target verifies them inside
+        the engine's fused step, sharing the ``step_tokens`` budget with
+        chunked prefill and continuous batching. Greedy acceptance
+        (proposal == target argmax) keeps outputs identical to
+        non-speculative decode.
+
+        ``controller`` picks the depth per step from load
+        (spec_controller.SpecController, the default); ``depth`` pins a
+        fixed depth instead. The draft serves from its own block pool
+        (``num_blocks``; default (num_slots + 2) rows' worth) on the
+        engine's device, whose gauges publish under
+        ``senweaver_spec_draft_kv_*``."""
+        if self.kv_layout != "paged":
+            raise ValueError(
+                "fused speculation needs the paged KV layout (engine "
+                f"fell back to slots: {self.kv_layout_fallback})")
+        if self.sample.temperature > 0:
+            raise ValueError(
+                "fused speculation is greedy-only: construct the "
+                "engine with sample.temperature == 0")
+        if draft_config.vocab_size != self.config.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft_config.vocab_size} != target "
+                f"vocab {self.config.vocab_size}")
+        embed = draft_params["embed"]
+        if embed.device.type != self.device.type:
+            raise ValueError(f"draft params live on {embed.device}, engine "
+                             f"on {self.device}")
+        with self._lock:
+            if controller is None:
+                controller = (FixedDepth(int(depth)) if depth is not None
+                              else SpecController())
+            bs = self._alloc.block_size
+            nb = int(num_blocks) if num_blocks else (
+                (self.num_slots + 2) * self._blocks_per_row)
+            reg = get_registry()
+            self._spec = _SpecState(
+                params=draft_params, config=draft_config,
+                controller=controller, version=int(version),
+                alloc=BlockAllocator(nb, bs,
+                                     registry=_DraftMetricsView(reg)),
+                depth_gauge=reg.gauge(
+                    "senweaver_spec_depth",
+                    "Applied speculation depth of the most recently "
+                    "stepped engine (0 = speculation off)."),
+                accept_gauge=reg.gauge(
+                    "senweaver_spec_acceptance_rate",
+                    "EMA of the draft-token acceptance rate (reset on "
+                    "weight publish)."),
+                staleness_gauge=reg.gauge(
+                    "senweaver_spec_draft_staleness",
+                    "Target weight publishes since the draft was last "
+                    "republished (0 = draft tracks the policy)."),
+                wasted_total=reg.counter(
+                    "senweaver_spec_wasted_draft_tokens_total",
+                    "Draft tokens proposed but rejected by "
+                    "verification (pure wasted draft+verify work)."))
+            self._draft_pool = init_paged_pool(draft_config, nb, bs,
+                                               device=self.device)
+            self._draft_tables = [[] for _ in range(self.num_slots)]
+            self._draft_len = [0] * self.num_slots
+            self._spec.staleness_gauge.set(0.0)
+
+    def update_draft_params(self, params: Params, *,
+                            version: Optional[int] = None) -> None:
+        """Install republished draft weights (the online distiller's
+        output). Draft rows are dropped (their KV came from the old
+        draft) and re-fed from the host token stream by catch-up; the
+        acceptance EMA restarts. Never blocks on in-flight requests:
+        draft weights cannot affect output correctness, only the
+        acceptance rate."""
+        with self._lock:
+            sp = self._spec
+            if sp is None:
+                raise RuntimeError("enable_speculation() first")
+            sp.params = params
+            sp.version = sp.version + 1 if version is None else int(version)
+            sp.draft_synced_at = sp.target_version
+            for row in range(self.num_slots):
+                self._draft_release_row(row)
+            self._spec_reset_ema()
+            sp.staleness_gauge.set(0.0)
+
+    def spec_note_publish_begin(self) -> None:
+        """Fleet hook: the policy is about to change, so stamp the draft
+        stale and reset the acceptance EMA now, instead of trusting
+        stats from a draft that no longer matches the policy being
+        rolled out."""
+        with self._lock:
+            if self._spec is None:
+                return
+            self._spec.publish_pending = True
+            self._spec_mark_stale()
+
+    def _spec_mark_stale(self) -> None:
+        # guarded-by: caller
+        sp = self._spec
+        sp.target_version += 1
+        self._spec_reset_ema()
+        sp.staleness_gauge.set(sp.target_version - sp.draft_synced_at)
+
+    def _spec_reset_ema(self) -> None:
+        # guarded-by: caller
+        sp = self._spec
+        sp.ema = 0.0
+        sp.ema_init = False
+        sp.accept_gauge.set(0.0)
+
+    def set_spec_depth(self, depth: int) -> None:
+        """Pin the speculation depth (tests, manual override)."""
+        with self._lock:
+            sp = self._spec
+            if sp is None:
+                raise RuntimeError("enable_speculation() first")
+            if hasattr(sp.controller, "force_depth"):
+                sp.controller.force_depth(depth)
+            else:
+                sp.controller.value = int(depth)
+
+    def note_decode_load(self, remaining_tokens: float) -> None:
+        """Serving-replica hook: push the router's remaining-decode-token
+        gauge for this replica so the depth controller sees fleet load,
+        not just local occupancy."""
+        with self._lock:
+            self._spec_fleet_tokens = float(remaining_tokens)
+
+    def drain_spec_outcomes(self) -> List[dict]:
+        """Hand the buffered verification outcomes (context, the
+        target-chosen tokens, accepted count) to the online distiller and
+        clear the ring."""
+        with self._lock:
+            if self._spec is None:
+                return []
+            out = list(self._spec.outcomes)
+            self._spec.outcomes.clear()
+            return out
+
+    def spec_stats(self) -> Dict[str, object]:
+        """Speculation snapshot: depth, acceptance EMA, staleness,
+        proposal/acceptance counters."""
+        with self._lock:
+            sp = self._spec
+            if sp is None:
+                return {"enabled": False}
+            return {
+                "enabled": True,
+                "depth": sp.depth_applied,
+                "acceptance_ema": sp.ema if sp.ema_init else None,
+                "draft_version": sp.version,
+                "draft_staleness": sp.target_version - sp.draft_synced_at,
+                "rounds": self._stats["spec_rounds"],
+                "proposed": self._stats["spec_proposed"],
+                "accepted": self._stats["spec_accepted"],
+                "wasted_draft_tokens": self._stats["spec_wasted"],
+                "draft_feed_tokens": self._stats["spec_feed_tokens"],
+                "draft_blocks_free": sp.alloc.free_blocks,
+            }
+
+    def spec_check_leaks(self) -> None:
+        """Tripwire for tests: after all rows release, the DRAFT pool
+        must be fully free too (rollback, preemption and finish paths)."""
+        with self._lock:
+            if self._spec is not None:
+                self._spec.alloc.check_leaks()
 
     # -- public API ---------------------------------------------------------
 
@@ -550,44 +915,218 @@ class RolloutEngine:
                hold_slot: bool = False,
                continue_from: Optional[int] = None,
                adapter_id: Optional[str] = None) -> int:
-        if adapter_id is not None:
-            raise NotImplementedError(
-                "multi-tenant LoRA adapters arrive with a later slice of "
-                "the PyTorch port")
+        _no_adapters(adapter_id)
         with self._lock:
-            if not prompt:
-                raise ValueError("empty prompt")
-            if continue_from is not None:
-                return self._submit_continuation(
-                    prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
-                    hold_slot=hold_slot, continue_from=continue_from)
-            if len(prompt) >= self.context_bound:
+            return self._submit(prompt, max_new_tokens=max_new_tokens,
+                                prefix_id=prefix_id, eos_id=eos_id,
+                                hold_slot=hold_slot,
+                                continue_from=continue_from)
+
+    def _submit(self, prompt: List[int], *, max_new_tokens: int,
+                eos_id: Optional[int], prefix_id: Optional[int] = None,
+                hold_slot: bool = False,
+                continue_from: Optional[int] = None) -> int:
+        # guarded-by: caller
+        if not prompt:
+            raise ValueError("empty prompt")
+        if continue_from is not None:
+            return self._submit_continuation(
+                prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
+                hold_slot=hold_slot, continue_from=continue_from)
+        if len(prompt) >= self.context_bound:
+            raise ValueError(
+                f"prompt length {len(prompt)} ≥ engine max_len bound "
+                f"{self.context_bound}")
+        if (self.max_queue is not None
+                and len(self._queue) >= self.max_queue):
+            raise QueueFull(
+                f"engine queue at max_queue={self.max_queue} "
+                f"({len(self._queue)} queued)")
+        if prefix_id is not None:
+            if prefix_id not in self._prefixes:
+                raise KeyError(f"unknown prefix_id {prefix_id}")
+            p_tokens = self._prefixes[prefix_id][0]
+            if list(prompt[:len(p_tokens)]) != p_tokens:
                 raise ValueError(
-                    f"prompt length {len(prompt)} ≥ engine max_len bound "
-                    f"{self.context_bound}")
-            if (self.max_queue is not None
-                    and len(self._queue) >= self.max_queue):
-                raise QueueFull(
-                    f"engine queue at max_queue={self.max_queue} "
-                    f"({len(self._queue)} queued)")
-            if prefix_id is not None:
-                if prefix_id not in self._prefixes:
-                    raise KeyError(f"unknown prefix_id {prefix_id}")
-                p_tokens = self._prefixes[prefix_id][0]
-                if list(prompt[:len(p_tokens)]) != p_tokens:
-                    raise ValueError(
-                        "prompt does not start with the registered prefix "
-                        f"(prefix_id {prefix_id}, {len(p_tokens)} tokens)")
-            rid = self._next_rid
+                    "prompt does not start with the registered prefix "
+                    f"(prefix_id {prefix_id}, {len(p_tokens)} tokens)")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = _Request(rid=rid, prompt=list(prompt),
+                       max_new_tokens=max_new_tokens,
+                       eos_id=self.eos_id if eos_id is None else eos_id,
+                       prefix_id=prefix_id, hold_slot=hold_slot)
+        self._requests[rid] = req
+        # enqueue only: scheduling happens at the next step(), so a burst
+        # of submissions lands in the queue together
+        self._queue.append(req)
+        return rid
+
+    def submit_group(self, prompt: List[int], group_size: int, *,
+                     max_new_tokens: int = 128,
+                     eos_id: Optional[int] = None,
+                     adapter_id: Optional[str] = None) -> List[int]:
+        """Submit a GRPO group of ``group_size`` decodes of one shared
+        ``prompt``, paying exactly ONE prefill. The first member (the
+        donor) takes the normal chunked prefill; when it completes,
+        before the donor's first sampled token is written (so the table
+        is the pure prompt spine), the engine captures a fork of the
+        table and each follower grafts it (refcount bump, zero KV bytes
+        moved) plus a one-token dropped-write rescore of the last prompt
+        token: the same logits the donor sampled its first token from, so
+        greedy outputs equal ``group_size`` independent submits.
+        Divergence into the shared boundary block copies it on first
+        write. If the donor dies before capture (preemption with emitted
+        tokens, a release), followers degrade to plain unshared
+        prefills: exactness is never traded for sharing. Requires the
+        paged KV layout. Returns the group's rids, donor first."""
+        _no_adapters(adapter_id)
+        if group_size < 1:
+            raise ValueError(f"group_size {group_size} < 1")
+        if self.kv_layout != "paged":
+            raise ValueError("submit_group requires the paged KV layout")
+        with self._lock:
+            donor_rid = self._submit(prompt,
+                                     max_new_tokens=max_new_tokens,
+                                     eos_id=eos_id)
+            if group_size == 1:
+                return [donor_rid]
+            donor = self._requests[donor_rid]
+            gid = self._next_gid
+            self._next_gid += 1
+            group = _GroupShare(gid=gid, donor_rid=donor_rid,
+                                pending=group_size - 1)
+            self._groups[gid] = group
+            donor.group = group
+            rids = [donor_rid]
+            for _ in range(group_size - 1):
+                rid = self._next_rid
+                self._next_rid += 1
+                req = _Request(rid=rid, prompt=list(prompt),
+                               max_new_tokens=max_new_tokens,
+                               eos_id=(self.eos_id if eos_id is None
+                                       else eos_id),
+                               group=group)
+                self._requests[rid] = req
+                # NOT queued: a follower waits on the spine capture so its
+                # scheduling can never race the donor's prefill
+                group.waiters.append(req)
+                rids.append(rid)
+            return rids
+
+    def fork_request(self, rid: int, *, token: Optional[int] = None,
+                     max_new_tokens: Optional[int] = None) -> int:
+        """Branch a new decode off an in-flight request's current
+        position (tree-structured rollout). The child shares the parent's
+        KV spine through a refcounted table fork (zero bytes copied);
+        either side's next write into the shared boundary block copies
+        it. Two modes:
+
+        * ``token=None``: sampled continuation. The child adopts the
+          parent's last sampled token as its own first emission and
+          decodes an alternative suffix after it.
+        * ``token=T``: forced branch. ``T`` REPLACES the parent's last
+          sampled token in the child's stream; the child's first sampled
+          token comes from feeding ``T``.
+
+        Either way the child's greedy output equals an independent
+        submit of the same stream as a fresh prompt. Without a free row
+        the child enters the queue and builds its context through the
+        standard recompute path (unshared but exact). Raises
+        ``KeyError`` for unknown rids and ``ValueError`` for requests
+        that are done or still prefilling."""
+        if self.kv_layout != "paged":
+            raise ValueError("fork_request requires the paged KV layout")
+        with self._lock:
+            parent = self._requests.get(rid)
+            if parent is None:
+                raise KeyError(f"unknown rid {rid}")
+            if parent.done:
+                raise ValueError(f"rid {rid} is not an active decode (done)")
+            if rid in self._prefill_jobs or not parent.tokens:
+                raise ValueError(f"rid {rid} is still prefilling")
+            budget = (max_new_tokens if max_new_tokens is not None
+                      else parent.max_new_tokens)
+            crid = self._next_rid
             self._next_rid += 1
-            req = _Request(rid=rid, prompt=list(prompt),
-                           max_new_tokens=max_new_tokens,
-                           eos_id=self.eos_id if eos_id is None else eos_id,
-                           prefix_id=prefix_id, hold_slot=hold_slot)
-            self._requests[rid] = req
-            # enqueue only: scheduling happens at the next step()
-            self._queue.append(req)
-            return rid
+            # the shared spine is everything whose k/v is resident: prompt
+            # + tokens[:-1] (the last sampled token is written only when
+            # it is fed)
+            spine = list(parent.prompt) + parent.tokens[:-1]
+            lineage = dict(parent_rid=rid, branch_pos=len(parent.tokens),
+                           branch_depth=parent.branch_depth + 1)
+            if token is None:
+                child = _Request(rid=crid, prompt=spine,
+                                 max_new_tokens=budget,
+                                 eos_id=parent.eos_id,
+                                 tokens=[parent.tokens[-1]],
+                                 logps=[parent.logps[-1]], **lineage)
+            else:
+                child = _Request(rid=crid, prompt=spine + [int(token)],
+                                 max_new_tokens=budget,
+                                 eos_id=parent.eos_id, **lineage)
+            self._requests[crid] = child
+            row = parent.slot
+            free = self._free_slots()
+            if row is not None and self._tables[row] and free:
+                crow = free[0]
+                plen = self._row_len[row]
+                nblk = self._alloc.blocks_for(plen)
+                child.slot = crow
+                self._slot_req[crow] = child
+                self._tables[crow] = self._alloc.fork(
+                    self._tables[row][:nblk])
+                self._row_len[crow] = plen
+                self._stats["branch_forks"] += 1
+                self._stats["group_prefill_tokens_avoided"] += plen
+                if token is None:
+                    # a decode row at once: feed the adopted token next
+                    # step (its write copies the shared boundary block)
+                    self._cur_tok_host[crow] = child.tokens[-1]
+                else:
+                    # rescore with REAL writes: feed the forced token at
+                    # the branch position and sample from it
+                    self._stats["prefill_tokens"] += 1
+                    self._prefill_jobs[crid] = _PrefillJob(
+                        toks=[int(token)], pos=plen, sample_last=True)
+            else:
+                # no shareable row: queue the child; tokens non-empty takes
+                # the preemption-resume replay, a forced token a plain full
+                # prefill (both unshared and exact)
+                self._queue.append(child)
+            return crid
+
+    def release_request(self, rid: int) -> bool:
+        """Forget a request: drop its row and blocks, its queue entry and
+        pending emits (the release half of the JAX engine's migration
+        handoff; the rest of migration is not ported). A group donor
+        released before the spine capture degrades its followers to
+        plain prefills; a released follower surrenders its graft slot so
+        the retained spine cannot strand. Idempotent: unknown rids return
+        False."""
+        with self._lock:
+            req = self._requests.get(rid)
+            if req is None:
+                return False
+            self._group_degrade_if_uncaptured(req)
+            self._group_forget_follower(req)
+            del self._requests[rid]
+            try:
+                self._queue.remove(req)
+            except ValueError:
+                pass
+            if self.kv_layout == "paged":
+                self._prefill_jobs.pop(rid, None)
+            self._pending_emits.pop(rid, None)
+            row = req.slot
+            if (row is not None and self.kv_layout == "paged"
+                    and self._slot_req[row] is req):
+                self._slot_req[row] = None
+                self._release_row(row)
+            req.slot = None
+            req.done = True
+            self._schedule()
+            return True
 
     @property
     def has_work(self) -> bool:
@@ -954,10 +1493,50 @@ class RolloutEngine:
 
     # -- row lifecycle ------------------------------------------------------
 
+    def _group_degrade_if_uncaptured(self, req: _Request) -> None:
+        # guarded-by: caller
+        """A group donor died before the spine was captured (preemption
+        with emitted tokens, a storm truncate-finish, a release): enqueue
+        the waiting followers as plain unshared prefills. Slower, never
+        inexact. No-op for non-donors and for groups whose spine already
+        landed (followers hold their own forks)."""
+        g = req.group
+        if (g is None or req.rid != g.donor_rid or g.degraded
+                or g.spine is not None or not g.waiters):
+            return
+        g.degraded = True
+        self._stats["group_degrades"] += 1
+        for w in g.waiters:
+            if not w.done:
+                self._queue.append(w)
+        g.waiters = []
+        self._groups.pop(g.gid, None)
+
+    def _group_forget_follower(self, req: _Request) -> None:
+        # guarded-by: caller
+        """A follower left the group without grafting (released while
+        queued or waiting, finished early): count its graft slot down so
+        the engine-retained spine fork cannot be stranded, and drop it
+        from the waiter list so a later capture cannot re-enqueue a dead
+        request."""
+        g = req.group
+        if g is None or req.rid == g.donor_rid or req.group_grafted:
+            return
+        req.group_grafted = True
+        g.waiters = [w for w in g.waiters if w.rid != req.rid]
+        g.pending -= 1
+        if g.pending <= 0:
+            if g.spine is not None:
+                self._alloc.release(g.spine)
+                g.spine = None
+            self._groups.pop(g.gid, None)
+
     def _finish_request(self, req: _Request, slot: int) -> None:
         # guarded-by: caller
         """Mark a request done and either hold or free its slot."""
         req.done = True
+        self._group_degrade_if_uncaptured(req)
+        self._group_forget_follower(req)
         self._slot_req[slot] = None
         if self.kv_layout == "paged":
             self._prefill_jobs.pop(req.rid, None)
@@ -1020,11 +1599,195 @@ class RolloutEngine:
 
     def _release_row(self, row: int) -> None:
         # guarded-by: caller
-        """Drop the row's reference on every block of its table."""
+        """Drop the row's reference on every block of its table (and the
+        draft pool's mirror row when speculation is on)."""
         if self._tables[row]:
             self._alloc.release(self._tables[row])
         self._tables[row] = []
         self._row_len[row] = 0
+        if self._spec is not None:
+            self._draft_release_row(row)
+
+    # -- fused-speculation internals ----------------------------------------
+
+    def _draft_release_row(self, row: int) -> None:
+        # guarded-by: caller
+        sp = self._spec
+        if sp is None or not self._draft_tables:
+            return
+        if self._draft_tables[row]:
+            sp.alloc.release(self._draft_tables[row])
+        self._draft_tables[row] = []
+        self._draft_len[row] = 0
+
+    def _draft_ensure_range(self, row: int, pos: int, n: int) -> bool:
+        # guarded-by: caller
+        """Make positions ``pos .. pos+n-1`` writable in the draft row's
+        table (append-only: the draft pool has no sharing, so no
+        copy-on-write). Returns False on draft-pool exhaustion: the row
+        simply doesn't speculate this step (never preempts: the draft
+        pool must not disturb target scheduling)."""
+        sp = self._spec
+        bs = sp.alloc.block_size
+        table = self._draft_tables[row]
+        for j in range(n):
+            lb = (pos + j) // bs
+            if lb < len(table):
+                continue
+            if lb > len(table):
+                return False
+            try:
+                table.append(sp.alloc.alloc(1)[0])
+            except BlocksExhausted:
+                return False
+        return True
+
+    def _draft_tables_device(self, rows=None) -> torch.Tensor:
+        # guarded-by: caller
+        """Dense draft block-table array for ``rows`` (default every
+        row), power-of-two bucketed like :meth:`_tables_device`, on the
+        host."""
+        tables = [self._draft_tables[r] for r in (
+            range(self.num_slots) if rows is None else rows)]
+        return self._dense_tables(tables)
+
+    def _spec_observe_depth(self) -> int:
+        # guarded-by: caller
+        """Feed the controller this step's load signals; returns the
+        applied (hysteresis-filtered) ladder depth."""
+        sp = self._spec
+        active = sum(r is not None for r in self._slot_req)
+        occupancy = min(1.0, (active + len(self._queue)) / self.num_slots)
+        kv_pressure = self._alloc.used_blocks / self._alloc.num_blocks
+        k = sp.controller.observe(
+            occupancy=occupancy, kv_pressure=kv_pressure,
+            decode_tokens=self._spec_fleet_tokens,
+            num_slots=self.num_slots)
+        sp.depth_applied = k
+        sp.depth_gauge.set(k)
+        return k
+
+    def _spec_catch_up(self) -> None:
+        # guarded-by: caller
+        """Replay already-known tokens into draft rows that fell behind
+        the target (fresh prefill, continuation delta, preemption resume,
+        rollback, depth-0 stretch), under the step-token budget. One
+        draft forward for all lagging rows."""
+        sp = self._spec
+        bs = sp.alloc.block_size
+        budget = self._step_tokens
+        entries = []                    # (tok, row, pos, wb, wo)
+        advanced = []                   # (row, n)
+        for row in range(self.num_slots):
+            req = self._slot_req[row]
+            if req is None or req.rid in self._prefill_jobs:
+                continue
+            if budget <= 0:
+                break
+            gap = self._row_len[row] - self._draft_len[row]
+            if gap < 0:
+                # the target rolled behind the draft outside a spec round
+                # (not expected): resync by dropping the draft row
+                self._draft_release_row(row)
+                gap = self._row_len[row]
+            if gap == 0:
+                continue
+            stream = req.prompt + req.tokens[:-1]
+            start = self._draft_len[row]
+            n = min(gap, budget)
+            if not self._draft_ensure_range(row, start, n):
+                continue
+            table = self._draft_tables[row]
+            for j in range(n):
+                p = start + j
+                entries.append((stream[p], row, p, table[p // bs], p % bs))
+            advanced.append((row, n))
+            budget -= n
+        if not entries:
+            return
+        # exact width, no sentinel padding (eager PyTorch does not
+        # recompile per batch width)
+        cols = list(zip(*entries))
+        as_t = lambda xs: torch.tensor(xs, dtype=torch.int64)   # noqa: E731
+        self._draft_pool = _draft_feed_step(
+            sp.params, sp.config, as_t(cols[0]), self._draft_tables_device(),
+            as_t(cols[1]), as_t(cols[2]), as_t(cols[3]), as_t(cols[4]),
+            self._draft_pool, self._use_paged_kernel)
+        sp.feed_forwards += 1
+        for row, n in advanced:
+            self._draft_len[row] += n
+        self._stats["spec_feed_tokens"] += len(entries)
+
+    def _spec_begin_step(self) -> tuple:
+        # guarded-by: caller
+        """Pre-step speculation phase: observe load → depth, catch the
+        draft cache up, then run the draft proposal loop for every
+        speculating row in lockstep, with one device→host copy of the
+        proposals. Returns ``(depth, {row: proposals})``, an empty plan
+        when speculation is off or the depth is 0."""
+        sp = self._spec
+        if sp is None:
+            return 0, {}
+        k = self._spec_observe_depth()
+        self._spec_catch_up()
+        if k <= 0:
+            return 0, {}
+        rows = []
+        for row in range(self.num_slots):
+            req = self._slot_req[row]
+            if (req is None or req.rid in self._prefill_jobs
+                    or not req.tokens):
+                continue
+            p = self._row_len[row]
+            if self._draft_len[row] != p:
+                continue        # draft not in lockstep yet
+            if p + k > self.max_len or p + 1 >= self.context_bound - 1:
+                continue        # would finish this step anyway
+            if not self._draft_ensure_range(row, p, k):
+                continue        # draft pool pressure: skip, don't block
+            rows.append(row)
+        if not rows:
+            return k, {}
+        # only the speculating rows run (the JAX scan runs every row and
+        # drops the others' writes)
+        props_dev, self._draft_pool = _draft_propose(
+            sp.params, sp.config,
+            torch.tensor([self._cur_tok_host[r] for r in rows],
+                         dtype=torch.int64),
+            torch.tensor([self._row_len[r] for r in rows],
+                         dtype=torch.int64),
+            self._draft_tables_device(rows), self._draft_pool, k,
+            self._use_paged_kernel)
+        sp.propose_forwards += k
+        props = profiled_device_get(props_dev,
+                                    fn="engine.spec_propose").tolist()
+        plan = {}
+        for i, row in enumerate(rows):
+            plan[row] = [int(x) for x in props[i]]
+            self._draft_len[row] = self._row_len[row] + k
+        return k, plan
+
+    def _spec_rollback(self, row: int, new_len: int) -> None:
+        # guarded-by: caller
+        """Truncate both the target row and its draft mirror to the
+        verified prefix: blocks past ``blocks_for(new_len)`` go back to
+        their pools (stale entries in the kept partial block sit at
+        positions the validity mask never reads and the next write
+        overwrites)."""
+        keep = self._alloc.blocks_for(new_len)
+        table = self._tables[row]
+        if len(table) > keep:
+            self._alloc.release(table[keep:])
+            del table[keep:]
+        self._row_len[row] = new_len
+        sp = self._spec
+        dtable = self._draft_tables[row]
+        dkeep = sp.alloc.blocks_for(new_len)
+        if len(dtable) > dkeep:
+            sp.alloc.release(dtable[dkeep:])
+            del dtable[dkeep:]
+        self._draft_len[row] = min(self._draft_len[row], new_len)
+        self._stats["spec_rollbacks"] += 1
 
     def _preempt_row(self, row: int) -> None:
         # guarded-by: caller
@@ -1042,6 +1805,12 @@ class RolloutEngine:
         self._queue.appendleft(req)
         self._stats["kv_preemptions"] += 1
         req.preempt_count += 1
+        if req.tokens:
+            # an uncaptured group donor preempted AFTER emitting resumes
+            # through the recompute replay and can never again present a
+            # pure-prompt spine: degrade the followers now (a donor
+            # preempted mid-prefill redoes its prefill and still captures)
+            self._group_degrade_if_uncaptured(req)
         if (req.preempt_count >= self.engine_config.max_preempts
                 and req.rid not in self._storm_rids):
             # starvation latch: this request is now non-preemptible
@@ -1330,13 +2099,19 @@ class RolloutEngine:
         engine does), so the plain path's gather tracks the longest live
         sequence. Unused entries hold 0 and are never read past a row's
         fill level. Returned on the host; forward_paged moves it."""
-        widest = max((len(t) for t in self._tables), default=0)
+        return self._dense_tables(self._tables)
+
+    def _dense_tables(self, tables: List[List[int]]) -> torch.Tensor:
+        """``tables`` as one zero-padded host int32 array whose width is
+        the widest table rounded up to a power of two (at most a row's
+        blocks)."""
+        widest = max((len(t) for t in tables), default=0)
         mb = 1
         while mb < widest:
             mb *= 2
         mb = min(self._blocks_per_row, mb)
-        arr = torch.zeros((self.num_slots, mb), dtype=torch.int32)
-        for s, tbl in enumerate(self._tables):
+        arr = torch.zeros((len(tables), mb), dtype=torch.int32)
+        for s, tbl in enumerate(tables):
             if tbl:
                 arr[s, :len(tbl)] = torch.tensor(tbl, dtype=torch.int32)
         return arr
@@ -1361,6 +2136,11 @@ class RolloutEngine:
         # guarded-by: caller
         req.slot = row
         self._slot_req[row] = req
+        g = req.group
+        if (g is not None and g.spine is not None and not g.degraded
+                and req.rid != g.donor_rid and not req.tokens):
+            self._graft_group_spine(req, row, g)
+            return
         self._stats["prefills"] += 1
         if req.tokens:
             # preemption resume: recompute prompt + everything emitted
@@ -1377,6 +2157,35 @@ class RolloutEngine:
         self._stats["prefill_tokens"] += len(req.prompt)
         self._prefill_jobs[req.rid] = _PrefillJob(
             toks=list(req.prompt), pos=0, sample_last=True)
+
+    def _graft_group_spine(self, req: _Request, row: int,
+                           g: _GroupShare) -> None:
+        # guarded-by: caller
+        """Group-shared rollout: graft the donor's pure-prompt spine
+        (refcount bump, zero KV bytes moved) and rescore ONLY the last
+        prompt token with its write DROPPED: its k/v is resident, and
+        these are the logits the donor sampled its first token from, so
+        greedy decode equals an unshared prefill. The follower's first
+        real write copies the shared boundary block."""
+        self._tables[row] = self._alloc.fork(g.spine)
+        self._row_len[row] = g.spine_len
+        self._stats["group_forks"] += 1
+        self._stats["group_prefill_tokens_avoided"] += g.spine_len - 1
+        self._stats["prefill_tokens"] += 1
+        self._prefill_jobs[req.rid] = _PrefillJob(
+            toks=[req.prompt[-1]], pos=g.spine_len - 1, sample_last=True,
+            drop_writes=True)
+        if not req.group_grafted:
+            # a preempted-then-rescheduled follower re-grafts but must not
+            # count down twice
+            req.group_grafted = True
+            g.pending -= 1
+            if g.pending <= 0 and g.spine is not None:
+                # last follower grafted: drop the engine's retained fork;
+                # the followers' own forks keep the blocks alive
+                self._alloc.release(g.spine)
+                g.spine = None
+                self._groups.pop(g.gid, None)
 
     def _graft_prefix(self, req: _Request, row: int) -> bool:
         # guarded-by: caller
@@ -1414,13 +2223,16 @@ class RolloutEngine:
                 sample_last=True, drop_writes=True)
         return True
 
-    def _assemble_paged_plan(self):
+    def _assemble_paged_plan(self, spec_plan=None):
         # guarded-by: caller
         """Build the flat token batch for one fused step: one decode entry
-        per active row, then exact-size chunked-prefill segments
+        per active row, or a verify window for rows with draft proposals
+        (``spec_plan``), then exact-size chunked-prefill segments
         round-robined in row order under the remaining token budget.
         Returns None when there is nothing to run. No padding entries are
-        added (eager PyTorch does not recompile per batch width)."""
+        added (eager PyTorch does not recompile per batch width), so the
+        JAX engine's padded-width ladder (``num_slots * depth`` with
+        speculation, ``step_tokens`` with prefill) has no counterpart."""
         nb = self._alloc.num_blocks
         bs = self._alloc.block_size
         toks_l: List[int] = []
@@ -1429,6 +2241,7 @@ class RolloutEngine:
         wb_l: List[int] = []
         wo_l: List[int] = []
         decode_rows = []           # (entry_idx, row, req)
+        spec_rows = []             # (entry_idx, row, req, proposals, start)
         job_rows = []              # (row, req, job, n, last_idx, wrote)
         committed: set = set()
         for row in range(self.num_slots):
@@ -1436,6 +2249,27 @@ class RolloutEngine:
             if req is None or req.rid in self._prefill_jobs:
                 continue
             p = self._row_len[row]
+            props = spec_plan.get(row) if spec_plan else None
+            if props:
+                # verify window: [pending] + proposals[:-1]; entry i's
+                # logits are the target's argmax judging proposal i
+                feed = [self._cur_tok_host[row]] + list(props[:-1])
+                staged = []
+                try:
+                    for j, ftok in enumerate(feed):
+                        wb = self._ensure_block(row, p + j, committed)
+                        staged.append((ftok, p + j, wb, (p + j) % bs))
+                except _RowPreempted:
+                    continue
+                spec_rows.append((len(toks_l), row, req, list(props), p))
+                for ftok, fp, wb, wo in staged:
+                    toks_l.append(ftok)
+                    rows_l.append(row)
+                    pos_l.append(fp)
+                    wb_l.append(wb)
+                    wo_l.append(wo)
+                committed.add(row)
+                continue
             try:
                 wb = self._ensure_block(row, p, committed)
             except _RowPreempted:
@@ -1485,7 +2319,8 @@ class RolloutEngine:
             # several requests' prefill segments shared one forward
             self._stats["batched_prefills"] += 1
             self._stats["batched_prefill_slots"] += len(job_rows)
-        return toks_l, rows_l, pos_l, wb_l, wo_l, decode_rows, job_rows
+        return (toks_l, rows_l, pos_l, wb_l, wo_l, decode_rows, spec_rows,
+                job_rows)
 
     def _fused_step(self, toks_l, rows_l, pos_l, wb_l, wo_l):
         # guarded-by: caller
@@ -1508,13 +2343,15 @@ class RolloutEngine:
         # first tokens sampled at scheduling (a zero-suffix prefix graft)
         emitted = self._pending_emits
         self._pending_emits = {}
-        plan = self._assemble_paged_plan()
+        _depth, spec_plan = self._spec_begin_step()
+        plan = self._assemble_paged_plan(spec_plan)
         if plan is None:
             return emitted
-        toks_l, rows_l, pos_l, wb_l, wo_l, decode_rows, job_rows = plan
+        (toks_l, rows_l, pos_l, wb_l, wo_l, decode_rows, spec_rows,
+         job_rows) = plan
         tracer = get_tracer()
-        with tracer.span("engine.decode_step",
-                         active=len(decode_rows) + len(job_rows)):
+        n_active = len(decode_rows) + len(spec_rows) + len(job_rows)
+        with tracer.span("engine.decode_step", active=n_active):
             toks, logps = self._fused_step(toks_l, rows_l, pos_l, wb_l,
                                            wo_l)
             self._stats["decode_steps"] += 1
@@ -1533,6 +2370,7 @@ class RolloutEngine:
             out_of_cache = self._row_len[row] >= self.context_bound - 1
             if hit_eos or out_of_budget or out_of_cache:
                 self._finish_request(req, row)
+        n_emitted += self._accept_spec_rows(spec_rows, toks, logps, emitted)
         for row, req, job, n, last_idx, wrote in job_rows:
             self._row_len[row] += wrote
             job.toks = job.toks[n:]
@@ -1540,6 +2378,23 @@ class RolloutEngine:
             if job.toks:
                 continue
             self._prefill_jobs.pop(req.rid, None)
+            g = req.group
+            if (g is not None and req.rid == g.donor_rid
+                    and g.spine is None and not g.degraded
+                    and job.sample_last and not req.tokens):
+                # The donor's prefill just completed and its first sampled
+                # token is NOT written yet (tokens are fed the step after
+                # sampling): the table is the pure prompt spine. Capture an
+                # engine-retained fork (released when the last follower
+                # grafts) and wake the waiters; the donor's own next write
+                # copies the boundary block.
+                g.spine = self._alloc.fork(self._tables[row])
+                g.spine_len = self._row_len[row]
+                self._stats["group_prefills"] += 1
+                for w in g.waiters:
+                    if not w.done:
+                        self._queue.append(w)
+                g.waiters = []
             if job.sample_last:
                 tok = toks[last_idx]
                 req.tokens.append(tok)
@@ -1562,6 +2417,73 @@ class RolloutEngine:
         self._alloc.publish_fragmentation(used_tokens)
         self._schedule_paged()
         return emitted
+
+    def _accept_spec_rows(self, spec_rows, toks, logps, emitted) -> int:
+        # guarded-by: caller
+        """Greedy acceptance of every verify window: walk it until the
+        target's argmax disagrees with the proposal (the disagreeing
+        argmax IS the correction, so every round emits at least one token
+        and the output equals non-speculative greedy decode), record the
+        outcome for the distiller, roll both caches back to the emitted
+        stream and fold the round's acceptance into the EMA. Returns the
+        tokens emitted."""
+        sp = self._spec
+        n_emitted = total_proposed = total_accepted = 0
+        for base, row, req, props, start in spec_rows:
+            k = len(props)
+            window = []
+            for i in range(k):
+                tok = toks[base + i]
+                window.append((tok, logps[base + i]))
+                if tok != props[i]:
+                    break
+            accepted = sum(1 for (tok, _), pr in zip(window, props)
+                           if tok == pr)
+            total_proposed += k
+            total_accepted += accepted
+            self._stats["spec_rounds"] += 1
+            self._stats["spec_proposed"] += k
+            self._stats["spec_accepted"] += accepted
+            self._stats["spec_wasted"] += k - accepted
+            sp.wasted_total.inc(k - accepted)
+            # distillation harvest: the target-chosen continuation of the
+            # pre-round stream (accepted run + the correction)
+            stream_before = req.prompt + req.tokens
+            sp.outcomes.append({
+                "context": stream_before[-sp.ctx_window:],
+                "targets": [tok for tok, _ in window],
+                "accepted": accepted,
+                "proposed": k,
+            })
+            finish = False
+            emitted_row = 0
+            for tok, lp in window:
+                req.tokens.append(tok)
+                req.logps.append(lp)
+                self._stats["tokens_emitted"] += 1
+                n_emitted += 1
+                emitted.setdefault(req.rid, []).append(tok)
+                emitted_row += 1
+                hit_eos = req.eos_id is not None and tok == req.eos_id
+                out_of_budget = len(req.tokens) >= req.max_new_tokens
+                out_of_cache = start + emitted_row >= self.context_bound - 1
+                if hit_eos or out_of_budget or out_of_cache:
+                    finish = True
+                    break
+            self._cur_tok_host[row] = req.tokens[-1]
+            # roll BOTH caches back to the verified prefix: the fed window
+            # is exactly the emitted stream, so the new length is start +
+            # tokens actually emitted
+            self._spec_rollback(row, start + emitted_row)
+            if finish:
+                self._finish_request(req, row)
+        if total_proposed:
+            rate = total_accepted / total_proposed
+            sp.ema = (rate if not sp.ema_init
+                      else 0.9 * sp.ema + 0.1 * rate)
+            sp.ema_init = True
+            sp.accept_gauge.set(sp.ema)
+        return n_emitted
 
     @staticmethod
     def _count_step(n_emitted: int) -> None:

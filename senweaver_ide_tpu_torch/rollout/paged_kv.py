@@ -491,6 +491,62 @@ class BlockAllocator:
             self._frag_gauge.set(max(0.0, frac))
 
 
+class PagedSeqKV:
+    """One sequence's paged cache: a private pool + allocator + table.
+
+    The speculative decoder's verify path uses this instead of a
+    contiguous ``KVCache``: each verify round writes up to ``k`` draft
+    tokens past the accepted prefix, and a rejection must ROLL BACK —
+    :meth:`truncate` releases every block past the accepted length, so
+    rejected drafts can never leak pool capacity (checked by
+    ``allocator.check_leaks``). The pool lives on ``device`` (the card
+    unless the caller asks for the CPU) and takes the kv-dtype ladder of
+    :func:`init_paged_pool`."""
+
+    def __init__(self, config: ModelConfig, *, max_len: int,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 registry=None, kv_dtype: str = "bf16",
+                 kv_dtype_per_layer=None, device="cuda"):
+        if num_blocks is None:
+            num_blocks = -(-max_len // block_size)
+        self.pool = init_paged_pool(config, num_blocks, block_size,
+                                    kv_dtype=kv_dtype,
+                                    kv_dtype_per_layer=kv_dtype_per_layer,
+                                    device=device)
+        self.allocator = BlockAllocator(
+            num_blocks, block_size, registry=registry,
+            bytes_per_block=pool_bytes_per_block(self.pool))
+        self.max_blocks = -(-max_len // block_size)
+        self.table: List[int] = []
+        self.length = 0
+
+    def ensure(self, new_len: int) -> None:
+        """Grow the table to cover positions ``< new_len``."""
+        need = self.allocator.blocks_for(new_len)
+        if need > len(self.table):
+            self.table.extend(self.allocator.alloc(need - len(self.table)))
+
+    def truncate(self, length: int) -> None:
+        """Roll back to ``length`` valid tokens, RELEASING every block
+        past the boundary; stale data inside the kept partial block lies
+        past ``length`` and is never read."""
+        keep = self.allocator.blocks_for(length)
+        if keep < len(self.table):
+            self.allocator.release(self.table[keep:])
+            del self.table[keep:]
+        self.length = length
+
+    def free(self) -> None:
+        """Release the whole table (end of generation)."""
+        self.truncate(0)
+
+    def tables_array(self) -> torch.Tensor:
+        """Dense (1, max_blocks) int32 table row for forward_paged, on the
+        host (forward_paged moves it)."""
+        row = self.table + [0] * (self.max_blocks - len(self.table))
+        return torch.tensor([row], dtype=torch.int32)
+
+
 def _index(idx, device) -> torch.Tensor:
     return torch.as_tensor(idx, dtype=torch.int64).to(device)
 

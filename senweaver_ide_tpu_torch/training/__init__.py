@@ -25,3 +25,4 @@ from .experience import (BehaviorParamsCache, BehaviorParamsEvicted,
                          trajectories_to_episodes)
 from .checkpoint import CheckpointManager
 from .online import OnlineImprovementLoop, OnlineRoundResult
+from .draft_distill import DraftDistiller

@@ -227,10 +227,8 @@ def collect_tree_trajectories(
 ) -> CollectResult:
     """Token-list collection through the shared-KV tree planner.
 
-    ``planner`` is a ``rollout.group_tree.GroupRollout``; the port cannot
-    build one until that module lands with the engine's
-    ``submit_group`` (the group/tree rollout slice), so this path runs
-    only with a caller-supplied planner of the same interface.
+    ``planner`` is a ``rollout.group_tree.GroupRollout`` over a paged
+    engine.
 
     The session path below runs G INDEPENDENT episodes per task — G
     prefills of the same prompt. This path routes token-list tasks

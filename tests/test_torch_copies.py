@@ -32,6 +32,7 @@ COPIES = (
     "traces/schema", "traces/features", "traces/store", "traces/uploader",
     "traces/collector", "traces/__init__",
     "rollout/policy_client", "rollout/session", "rollout/kv_pressure",
+    "rollout/spec_controller", "rollout/group_tree",
     "rewards/__init__",
     "apo/types", "apo/patterns", "apo/report", "apo/rollouts",
     "apo/gradient", "apo/segments", "apo/synthetic", "apo/service",

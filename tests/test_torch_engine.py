@@ -264,8 +264,8 @@ def test_query_tiles_on_engine_plans(weights):
     plans = []
     assemble = eng._assemble_paged_plan
 
-    def capture():
-        plan = assemble()
+    def capture(*args):
+        plan = assemble(*args)
         if plan is not None:
             plans.append(plan)
         return plan
@@ -274,9 +274,9 @@ def test_query_tiles_on_engine_plans(weights):
     for n in (70, 45, 9, 33, 3):
         eng.submit(list(range(1, n + 1)), max_new_tokens=12)
     eng.run()
-    assert plans and any(len(p[5]) and len(p[6]) for p in plans)
+    assert plans and any(len(p[5]) and len(p[7]) for p in plans)
     long_runs = 0
-    for _, rows, pos, _, _, decode_rows, _ in plans:
+    for _, rows, pos, _, _, decode_rows, _, _ in plans:
         tiles = query_tiles(torch.tensor(rows), torch.tensor(pos), rep)
         check_query_tiles(tiles, len(rows), rep)
         decode_idx = {i for i, _, _ in decode_rows}

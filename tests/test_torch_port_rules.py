@@ -15,7 +15,8 @@ import torch
 import senweaver_ide_tpu_torch
 from senweaver_ide_tpu_torch.models import (init_params, params_from_numpy,
                                             tiny_test)
-from senweaver_ide_tpu_torch.rollout import RolloutEngine, init_paged_pool
+from senweaver_ide_tpu_torch.rollout import (PagedSeqKV, RolloutEngine,
+                                             init_paged_pool)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(senweaver_ide_tpu_torch.__file__)
@@ -86,6 +87,18 @@ print("imported", n)
 """
 
 
+# modules whose scan the tests above must include: each slice's new ones
+PORTED_MODULES = ("rollout/speculative", "rollout/spec_controller",
+                  "rollout/group_tree", "rollout/paged_kv",
+                  "rollout/engine", "training/draft_distill",
+                  "training/rl_loop")
+
+
+@pytest.mark.parametrize("module", PORTED_MODULES)
+def test_scan_covers_module(module):
+    assert os.path.join(PKG, module + ".py") in _port_files()
+
+
 def test_port_imports_with_jax_blocked():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -109,6 +122,9 @@ def test_entry_points_refuse_without_a_card(no_cuda):
         params_from_numpy({})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_paged_pool(cfg, 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedSeqKV(cfg, max_len=16, block_size=4)
+    PagedSeqKV(cfg, max_len=16, block_size=4, device="cpu")
     params = init_params(cfg, torch.Generator(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RolloutEngine(params, cfg)
