@@ -172,12 +172,43 @@ Phases, each fatal on failure:
     every root branches once; finite metrics; K1 = 28 x fused steps + 24
     x draft forwards, K2 224/112/112 and K3 0 (read over the whole phase)
     exactly; check_leaks and spec_check_leaks.
-19. A JSON line with every kernel's numbers (``launches_round``,
+19. Multi-tenant LoRA (``phase_tenants``): an AdapterPool (ranks 8 and
+    16, 4 slots a rung) on the serving engine (16 slots, block 16, step
+    budget 64, greedy), six tenants (three at rank 8, three at 16, B
+    random from a seed each), 16 requests of 128-1024 tokens, 64 new, two
+    per tenant and four base; every token of every stream held by teacher
+    forcing against the plain forward over merge_lora(base, adapter) (or
+    the base), under SPEC_TIE_ATOL widened to TIE_FACTOR x the measured
+    difference between the adapter's paged and plain paths if that is
+    larger (both capped); the same traffic on a base-only engine beside
+    it (tok/s, p50 / p90 step ms); the pool's bank bytes and
+    adapter_stats(). Then one lora_base GRPO step of a rank-16 tenant
+    (4 x 512, flash, remat: K2 = 56 / 28 / 28), published mid-decode: the
+    in-flight request keeps v1 and its stream is held against v1, the
+    next request against v2. Then two waves of four tenants through two
+    slots a rung on the same prompts: 8 installs, 4 evictions, and the
+    fused-step signatures, compiles and kernel builds the same after
+    both waves; the second wave teacher-forced. K1 = 28 x the fused steps
+    of every engine, K3 0.
+20. Live migration (``phase_migrate``): engines A and B (8 rows, block 16,
+    greedy, an adapter pool each with the same tenant), 8 requests of
+    512-1536 tokens, 128 new (a group of 2, a tenant request, 5 base);
+    once every row has 32 tokens, 2 base rows, the tenant row and the
+    group follower are checkpointed on A, round-tripped through
+    to_wire / from_wire, restored on B through the fast path (the
+    installed blocks, gathered again on B, bit-identical to the payload)
+    and released on A; a fifth row restores on a block-32 engine through
+    the recompute path; an int8-pool row moves to an int8 engine and must
+    finish equal to a never-migrated int8 run. Every stream held by
+    teacher forcing; K1 = 28 x the fused steps of every engine, K2 and K3
+    0. Prints checkpoint bytes, gather and install ms and GB/s, and the
+    recompute restore's ms.
+21. A JSON line with every kernel's numbers (``launches_round``,
     ``launches_online``, ``launches_reuse``, ``launches_async``,
-    ``launches_spec`` and ``launches_group``: the counts of those phases'
-    runs; K1's entry also its times at the draft's heads, ``d64_*``, and
-    at the verify step, ``verify_*``), the card line, and last the JSON ok
-    line.
+    ``launches_spec``, ``launches_group``, ``launches_tenants`` and
+    ``launches_migrate``: the counts of those phases' runs; K1's entry
+    also its times at the draft's heads, ``d64_*``, and at the verify
+    step, ``verify_*``), the card line, and last the JSON ok line.
 
 Exits non-zero, printing no result, without CUDA or without the
 ``senweaver_ide_tpu_torch`` package beside this file.
@@ -3553,6 +3584,560 @@ def phase_group(torch, cfg, params, seed, smi, tie_atol, dcfg=None):
     return {"k1": k1_group + launches["k1"], **got_k2, "k3": k3}
 
 
+# The tenants (phase_tenants): one AdapterPool (default config: ranks 8
+# and 16, 4 slots a rung, wq/wk/wv/wo) on the serving engine, one adapter
+# per TENANT_RANKS entry (A scaled like init_lora, B ~ N(0, 1) x
+# TENANT_B_SCALE, each from its own seed), TENANT_REQUESTS greedy requests
+# of TENANT_PROMPT_LENS tokens, TENANT_NEW new: two per tenant, the rest
+# base. Churn: two waves of four tenants each, on the same prompts, through
+# a pool of CHURN_SLOTS_PER_RANK slots a rung. The tenant train step: one
+# lora_base GRPO step on TENANT_TRAIN_B x TENANT_TRAIN_S tokens at
+# TENANT_TRAIN_LR (an adapter's learning rate; at the trainer's 1e-5 an
+# Adam step moves B less than a bf16 ulp).
+TENANT_RANKS, TENANT_B_SCALE = (8, 8, 8, 16, 16, 16), 0.02
+TENANT_REQUESTS, TENANT_PROMPT_LENS, TENANT_NEW = 16, (128, 1024), 64
+CHURN_SLOTS_PER_RANK, CHURN_PROMPT_LENS, CHURN_NEW = 2, (128, 256), 16
+TENANT_TRAIN_B, TENANT_TRAIN_S, TENANT_TRAIN_LR = 4, 512, 1e-3
+# Live migration (phase_migrate): engines of MIGRATE_SLOTS rows, greedy;
+# MIGRATE_PROMPTS requests of MIGRATE_PROMPT_LENS tokens, MIGRATE_NEW new,
+# checkpointed once every row has MIGRATE_AFTER tokens
+MIGRATE_SLOTS, MIGRATE_PROMPTS = 8, 7
+MIGRATE_PROMPT_LENS, MIGRATE_NEW, MIGRATE_AFTER = (512, 1536), 128, 32
+
+
+def _tenant_lora(torch, cfg, seed, rank):
+    """A rank-``rank`` adapter on the card, from ``seed``: A scaled like
+    init_lora's (alpha = 2 rank), B nonzero (init_lora's B = 0 would make
+    every check pass vacuously)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    dims = {"wq": (cfg.hidden_size, cfg.q_dim),
+            "wk": (cfg.hidden_size, cfg.kv_dim),
+            "wv": (cfg.hidden_size, cfg.kv_dim),
+            "wo": (cfg.q_dim, cfg.hidden_size)}
+    layers = {}
+    for t, (d_in, d_out) in dims.items():
+        a = rng.standard_normal((cfg.num_layers, d_in, rank),
+                                dtype=np.float32) * (2.0 / d_in ** 0.5)
+        b = rng.standard_normal((cfg.num_layers, rank, d_out),
+                                dtype=np.float32) * TENANT_B_SCALE
+        layers[t + "_lora_a"] = torch.from_numpy(a).to("cuda", cfg.dtype)
+        layers[t + "_lora_b"] = torch.from_numpy(b).to("cuda", cfg.dtype)
+    return {"layers": layers}
+
+
+def _adapter_path_diff(torch, params, cfg, pool, loras, prompts):
+    """The largest logit difference between a tenant's two logit paths:
+    a paged prefill through K1 with the pool's banks and the tenant's slot
+    ids (the engine's masked delta) and the plain forward over
+    ``merge_lora(base, adapter)`` (``_teacher_forced``'s reference), at
+    the last TIE_DEPTH positions of each prompt. Runs before the phase's
+    counts are zeroed (it launches K1)."""
+    from senweaver_ide_tpu_torch.models import forward, forward_paged
+    from senweaver_ide_tpu_torch.rollout import init_paged_pool
+    from senweaver_ide_tpu_torch.training import merge_lora
+    worst = 0.0
+    for key, prompt in prompts:
+        b = pool.acquire(key)
+        n, bs = len(prompt), 16
+        nb = -(-n // bs)
+        kv = init_paged_pool(cfg, nb, bs, device="cuda")
+        pos = torch.arange(n)
+        with torch.no_grad():
+            paged, _ = forward_paged(
+                params, cfg, torch.tensor(prompt), pool=kv,
+                tables=torch.arange(nb, dtype=torch.int32)[None],
+                seq_row=torch.zeros(n, dtype=torch.long), positions=pos,
+                write_block=pos // bs, write_off=pos % bs, use_kernel=True,
+                adapters=pool.banks(),
+                adapter_ids=tuple(torch.full((n,), s, dtype=torch.long)
+                                  for s in b.slot_ids))
+            plain = forward(merge_lora(params, loras[key]), cfg,
+                            torch.tensor(prompt, device="cuda")[None])[0]
+        pool.release(b)
+        worst = max(worst, float((paged[-TIE_DEPTH:].float()
+                                  - plain[-TIE_DEPTH:].float()).abs().max()))
+    return worst
+
+
+def _drive_counted(torch, engine, label, layers):
+    """Drive ``engine`` to completion; K1's launches over the run must be
+    layers x the run's fused steps. Returns (wall s, per-step ms, fused
+    steps, tokens emitted, K1 launches)."""
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    st0 = engine.stats()
+    k0 = paged_flash_decode.launches
+    torch.cuda.synchronize()
+    step_ms = []
+    t0 = time.perf_counter()
+    while engine.has_work:
+        s = time.perf_counter()
+        engine.step()
+        step_ms.append((time.perf_counter() - s) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = engine.stats()
+    steps = st["decode_steps"] - st0["decode_steps"]
+    k1 = paged_flash_decode.launches - k0
+    if k1 != layers * steps:
+        fail(f"{label}: K1 launches {k1} != {layers} x {steps} fused steps")
+    return (wall, step_ms, steps,
+            st["tokens_emitted"] - st0["tokens_emitted"], k1)
+
+
+def _step_ms_text(step_ms):
+    return (f"p50 step {statistics.median(step_ms):.2f} ms, p90 step "
+            f"{statistics.quantiles(step_ms, n=10)[-1]:.2f} ms")
+
+
+def phase_tenants(torch, cfg, params, seed, smi, tie_atol):
+    """Multi-tenant LoRA serving at full width: six tenants and base rows
+    in one batch on the serving engine, every token held by teacher
+    forcing against its tenant's merged params; tenant churn through a
+    two-slot pool with flat kernel builds and fused-step signatures; a
+    tenant's lora_base train step (K2) published mid-decode."""
+    import dataclasses
+
+    import numpy as np
+    from senweaver_ide_tpu_torch import obs
+    from senweaver_ide_tpu_torch.ops import _build
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    from senweaver_ide_tpu_torch.rollout import (AdapterPool,
+                                                 AdapterPoolConfig,
+                                                 EngineConfig,
+                                                 RolloutEngine,
+                                                 SampleParams)
+    from senweaver_ide_tpu_torch.training import (make_lora_train_state,
+                                                  merge_lora, train_step)
+    t_phase = time.perf_counter()
+    layers = cfg.num_layers
+    rng = np.random.default_rng(seed + 30)
+    greedy = SampleParams(0.0, 0, 1.0)
+    ec = EngineConfig(block_size=16, step_tokens=64)
+
+    def engine(pool=None, num_slots=16):
+        return RolloutEngine(params, cfg, num_slots=num_slots, max_len=2048,
+                             sample=greedy, adapter_pool=pool,
+                             engine_config=ec, device="cuda")
+
+    keys = [f"t{i}" for i in range(len(TENANT_RANKS))]
+    loras = {k: _tenant_lora(torch, cfg, seed + 100 + i, r)
+             for i, (k, r) in enumerate(zip(keys, TENANT_RANKS))}
+    pool = AdapterPool(cfg, device="cuda")
+    eng = engine(pool)
+    for k in keys:
+        if eng.publish_adapter(k, loras[k]) != 1:
+            fail(f"tenants: first publish of {k} is not version 1")
+    lo, hi = TENANT_PROMPT_LENS
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(lo, hi + 1, size=TENANT_REQUESTS)]
+    owners = [keys[i // 2] if i < 2 * len(keys) else None
+              for i in range(TENANT_REQUESTS)]
+    diff = _adapter_path_diff(torch, params, cfg, pool, loras,
+                              [(keys[0], prompts[0][:TIE_PROMPT]),
+                               (keys[-1], prompts[-5][:TIE_PROMPT])])
+    tie = max(tie_atol, TIE_FACTOR * min(diff, TIE_DIFF_MAX))
+    # every count zeroed just before the phase's runs, read at its end
+    paged_flash_decode.launches = 0
+    flash_decode.launches = 0
+    k2 = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkdv,
+          fa.flash_attention_bwd_dq)
+    for w in k2:
+        w.launches = 0
+
+    # -- the mixed batch, then the same traffic on a base-only engine ----
+    # the pool's install / eviction counters are process-wide series
+    ev0 = pool.stats()["evictions"]
+    rids = [eng.submit(p, max_new_tokens=TENANT_NEW, adapter_id=o)
+            for p, o in zip(prompts, owners)]
+    wall, step_ms, steps, toks, _ = _drive_counted(torch, eng, "tenants",
+                                                   layers)
+    streams = [eng.result(r) for r in rids]
+    if any(len(x) != TENANT_NEW for x in streams):
+        fail("tenants: a greedy request stopped early")
+    st = eng.stats()
+    ap = eng.adapter_stats()
+    if (st["adapters_published"] != len(keys) or ap["evictions"] != ev0
+            or not all(pool.resident(k) for k in keys)):
+        fail(f"tenants: adapter_stats {ap}")
+    base = engine()
+    base_rids = [base.submit(p, max_new_tokens=TENANT_NEW) for p in prompts]
+    b_wall, b_ms, b_steps, b_toks, _ = _drive_counted(torch, base,
+                                                      "tenants base", layers)
+    base_streams = [base.result(r) for r in base_rids]
+    base._alloc.check_leaks()
+    del base
+    pool.note_gather_overhead(statistics.median(step_ms)
+                              / statistics.median(b_ms))
+    held = {}
+    for k in keys + [None]:
+        idx = [i for i, o in enumerate(owners) if o == k]
+        held[k or "base rows"] = _teacher_forced(
+            torch, params if k is None else merge_lora(params, loras[k]),
+            cfg, [prompts[i] for i in idx], [streams[i] for i in idx], tie,
+            f"tenants {k or 'base rows'}")
+    moved = sum(a != b for i, o in enumerate(owners) if o
+                for a, b in zip(streams[i], base_streams[i]))
+    log(f"[tenants] {smi}: AdapterPool {pool.pool_config} on the serving "
+        f"engine (16 slots, block 16, step budget 64, greedy), bank bytes "
+        f"{pool.bank_bytes()}; {len(keys)} tenants at ranks {TENANT_RANKS}; "
+        f"{TENANT_REQUESTS} requests of {min(map(len, prompts))}.."
+        f"{max(map(len, prompts))} tokens, {TENANT_NEW} new, "
+        f"{2 * len(keys)} under tenants: wall {wall:.2f} s, {steps} fused "
+        f"steps, {toks / wall:.1f} tok/s, {_step_ms_text(step_ms)}; the "
+        f"same traffic base-only: wall {b_wall:.2f} s, {b_steps} fused "
+        f"steps, {b_toks / b_wall:.1f} tok/s, {_step_ms_text(b_ms)}; "
+        f"{moved} tenant tokens differ from the base stream; adapter path "
+        f"difference {diff:.4f}, tie tolerance {tie:.4f}")
+    _log_held("tenants", held, tie)
+    log(f"[tenants] adapter_stats {ap}")
+    eng._alloc.check_leaks()
+
+    # -- a tenant's lora_base train step, published mid-decode -------------
+    key = keys[-1]
+    tcfg = dataclasses.replace(cfg, attn_impl="flash", remat=TRAIN_REMAT)
+    state = make_lora_train_state(
+        tcfg, params, torch.Generator(device="cuda").manual_seed(seed),
+        rank=TENANT_RANKS[-1], learning_rate=TENANT_TRAIN_LR)
+    for name, t in state.params["layers"].items():
+        t.copy_(loras[key]["layers"][name])
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(TENANT_TRAIN_B, TENANT_TRAIN_S))).cuda()
+    mask = torch.zeros_like(tokens, dtype=torch.bool)
+    mask[:, TENANT_TRAIN_S * 3 // 4:] = True
+    rewards = torch.tensor([1.0, -1.0] * (TENANT_TRAIN_B // 2),
+                           device="cuda")
+    gids = torch.arange(TENANT_TRAIN_B, device="cuda") // 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = train_step(state, tcfg, None, tokens, mask, rewards,
+                                gids, num_groups=TENANT_TRAIN_B // 2,
+                                lora_base=params)
+    m = {k: float(v) for k, v in metrics.items()}
+    train_s = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in m.values()):
+        fail(f"tenant train step: non-finite metrics {m}")
+    dB = max(float((state.params["layers"][n].float()
+                    - loras[key]["layers"][n].float()).abs().max())
+             for n in state.params["layers"] if n.endswith("_lora_b"))
+    if not dB > 0:
+        fail("tenant train step: the adapter did not move")
+    prompt = prompts[-5]
+    rid_old = eng.submit(prompt, max_new_tokens=TENANT_NEW, adapter_id=key)
+    while len(eng.result(rid_old)) < TENANT_NEW // 4:
+        eng.step()
+    mid = len(eng.result(rid_old))
+    version = eng.publish_adapter(key, state.params)
+    if version != 2 or eng._requests[rid_old].adapter_binding.version != 1:
+        fail(f"tenant publish: version {version}, in-flight binding "
+             f"{eng._requests[rid_old].adapter_binding}")
+    _drive_counted(torch, eng, "tenant publish (in flight)", layers)
+    rid_new = eng.submit(prompt, max_new_tokens=TENANT_NEW, adapter_id=key)
+    _drive_counted(torch, eng, "tenant publish (next request)", layers)
+    old, new = eng.result(rid_old), eng.result(rid_new)
+    held = {"in flight (v1)": _teacher_forced(
+                torch, merge_lora(params, loras[key]), cfg, [prompt], [old],
+                tie, "tenant publish: in-flight stream under v1"),
+            "next request (v2)": _teacher_forced(
+                torch, merge_lora(params, state.params), cfg, [prompt],
+                [new], tie, "tenant publish: next stream under v2")}
+    if eng.adapter_stats()["adapters"][key] != 2:
+        fail(f"tenant publish: {eng.adapter_stats()}")
+    eng._alloc.check_leaks()
+    log(f"[tenants] lora_base train step of {key} (rank "
+        f"{TENANT_RANKS[-1]}, {TENANT_TRAIN_B} x {TENANT_TRAIN_S}, "
+        f"attn_impl=flash, remat={TRAIN_REMAT}, lr {TENANT_TRAIN_LR}): "
+        f"{train_s:.3f} s, loss {m['loss']:.4g}, max |dB| {dB:.3g}; "
+        f"publish_adapter -> version {version} after {mid} tokens of an "
+        f"in-flight request, which kept v1; its next request decoded "
+        f"under v2; streams equal: {old == new}")
+    _log_held("tenants", held, tie)
+    del eng, state
+
+    # -- churn: two waves through two slots a rung ---------------------------
+    cpool = AdapterPool(cfg, AdapterPoolConfig(
+        slots_per_rank=CHURN_SLOTS_PER_RANK), device="cuda")
+    ceng = engine(cpool, num_slots=8)
+    ranks = (8, 8, 16, 16)
+    waves = [[f"w{w}{i}" for i in range(len(ranks))] for w in range(2)]
+    wl = {k: _tenant_lora(torch, cfg, seed + 200 + 10 * w + i, ranks[i])
+          for w, wave in enumerate(waves) for i, k in enumerate(wave)}
+    for k, lora in wl.items():
+        ceng.publish_adapter(k, lora)
+    lo, hi = CHURN_PROMPT_LENS
+    cprompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+                for n in rng.integers(lo, hi + 1, size=len(ranks))]
+    led = obs.get_profiler().ledger
+    c0 = ceng.adapter_stats()
+    snaps = []
+    for w, wave in enumerate(waves):
+        crids = [ceng.submit(p, max_new_tokens=CHURN_NEW, adapter_id=k)
+                 for p, k in zip(cprompts, wave)]
+        _drive_counted(torch, ceng, f"churn wave {w}", layers)
+        fs = led()["engine.fused_step"]
+        snaps.append(({x["key"] for x in fs["signatures"]}, fs["compiles"],
+                      {n: (b.path, b.build_seconds)
+                       for n, b in _build._loaded.items()}))
+        cst = [ceng.result(r) for r in crids]
+    if snaps[1] != snaps[0]:
+        fail(f"churn: fused-step signatures {len(snaps[0][0])} -> "
+             f"{len(snaps[1][0])}, compiles {snaps[0][1]} -> {snaps[1][1]}, "
+             f"kernel builds {snaps[0][2]} -> {snaps[1][2]}")
+    cstats = ceng.adapter_stats()
+    installs = cstats["installs"] - c0["installs"]
+    evictions = cstats["evictions"] - c0["evictions"]
+    if (installs, evictions) != (2 * len(ranks), len(ranks)):
+        fail(f"churn: installs {installs}, evictions {evictions} "
+             f"(expected {2 * len(ranks)} and {len(ranks)})")
+    held = {f"wave 1 {k}": _teacher_forced(
+        torch, merge_lora(params, wl[k]), cfg, [p], [x], tie,
+        f"churn wave 1 {k}") for k, p, x in zip(waves[1], cprompts, cst)}
+    ceng._alloc.check_leaks()
+    log(f"[tenants] churn, {smi}: {len(ranks)} tenants a wave on the same "
+        f"{len(ranks)} prompts through {CHURN_SLOTS_PER_RANK} slots a rung: "
+        f"installs {installs:g}, evictions {evictions:g}; "
+        f"fused-step signatures {len(snaps[0][0])} and compiles "
+        f"{snaps[0][1]} after each wave, kernel libraries "
+        f"{sorted(snaps[0][2])} unchanged")
+    _log_held("tenants", held, tie)
+    del ceng
+    launches = {"k1": paged_flash_decode.launches,
+                "fwd": fa.flash_attention_fwd.launches,
+                "dkdv": fa.flash_attention_bwd_dkdv.launches,
+                "dq": fa.flash_attention_bwd_dq.launches,
+                "k3": flash_decode.launches}
+    remat = 2 if TRAIN_REMAT else 1
+    want_k2 = {"fwd": layers * remat, "dkdv": layers, "dq": layers}
+    if {k: launches[k] for k in want_k2} != want_k2 or launches["k3"]:
+        fail(f"tenants: K2 {launches}, expected {want_k2} and K3 0")
+    log(f"[tenants] K1 {launches['k1']} = {layers} x the fused steps of "
+        f"the phase's engines, K2 {want_k2}, K3 0; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_migrate(torch, cfg, params, seed, smi, tie_atol):
+    """Live migration at full width: four in-flight decodes (two base, one
+    under a tenant, one group follower) checkpointed on engine A, round-
+    tripped through the wire form, restored on engine B through the fast
+    path (the installed blocks bit for bit), released on A; a fifth
+    restored through the recompute path (block size 32); an int8-pool row
+    migrated to an int8 engine. Every stream is held by teacher forcing."""
+    import numpy as np
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    from senweaver_ide_tpu_torch.rollout import (AdapterPool, EngineConfig,
+                                                 RolloutEngine,
+                                                 SampleParams)
+    from senweaver_ide_tpu_torch.rollout.migration import DecodeCheckpoint
+    from senweaver_ide_tpu_torch.rollout.paged_kv import gather_blocks_quant
+    from senweaver_ide_tpu_torch.training import merge_lora
+    t_phase = time.perf_counter()
+    layers = cfg.num_layers
+    rng = np.random.default_rng(seed + 40)
+    greedy = SampleParams(0.0, 0, 1.0)
+    lora = _tenant_lora(torch, cfg, seed + 300, 16)
+
+    def engine(block_size=16, kv_dtype="bf16", pool=False,
+               num_slots=MIGRATE_SLOTS):
+        e = RolloutEngine(params, cfg, num_slots=num_slots, max_len=2048,
+                          sample=greedy,
+                          adapter_pool=(AdapterPool(cfg, device="cuda")
+                                        if pool else None),
+                          engine_config=EngineConfig(block_size=block_size,
+                                                     kv_dtype=kv_dtype),
+                          device="cuda")
+        if pool:
+            e.publish_adapter("m0", lora)
+        return e
+
+    def wire_bits(t):
+        return t.contiguous().view(
+            {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+                t.element_size()]).cpu().numpy()
+
+    def installed_equal(eng, rid, ck):
+        """The restored row's blocks, gathered again on ``eng``, against
+        the checkpoint's payload, bit for bit."""
+        row = eng._requests[rid].slot
+        nblk = np.shape(ck.kv_k)[1]
+        got = gather_blocks_quant(eng.pool, eng._tables[row][:nblk])
+        for name in ("k", "v", "k_scale", "v_scale"):
+            want = getattr(ck, "kv_" + name)
+            t = getattr(got, name)
+            if (want is None) != (t is None) or (want is not None and not (
+                    np.array_equal(wire_bits(t),
+                                   np.ascontiguousarray(want).view(
+                                       wire_bits(t).dtype)))):
+                fail(f"migrate: installed {name} blocks differ from the "
+                     f"checkpoint payload")
+
+    def checkpoint(eng, rid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck = eng.checkpoint_request(rid)
+        dt = time.perf_counter() - t0
+        ck = DecodeCheckpoint.from_wire(ck.to_wire())
+        nbytes = sum(a.nbytes for a in (ck.kv_k, ck.kv_v, ck.kv_k_scale,
+                                        ck.kv_v_scale) if a is not None)
+        return ck, dt, nbytes
+
+    def restore(eng, ck):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rid = eng.restore_request(ck)
+        torch.cuda.synchronize()
+        return rid, time.perf_counter() - t0
+
+    lo, hi = MIGRATE_PROMPT_LENS
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(lo, hi + 1, size=MIGRATE_PROMPTS)]
+    a, b = engine(pool=True), engine(pool=True)
+    b32 = engine(block_size=32)
+    paged_flash_decode.launches = 0
+    flash_decode.launches = 0
+    for w in (fa.flash_attention_fwd, fa.flash_attention_bwd_dkdv,
+              fa.flash_attention_bwd_dq):
+        w.launches = 0
+    k1_of = {}
+
+    def run(eng, label, until=None):
+        st0 = eng.stats()["decode_steps"]
+        k0 = paged_flash_decode.launches
+        while eng.has_work and (until is None or not until()):
+            eng.step()
+        steps = eng.stats()["decode_steps"] - st0
+        k1 = paged_flash_decode.launches - k0
+        if k1 != layers * steps:
+            fail(f"migrate {label}: K1 {k1} != {layers} x {steps}")
+        k1_of[label] = k1_of.get(label, 0) + k1
+
+    donor, follower = a.submit_group(prompts[0], 2,
+                                     max_new_tokens=MIGRATE_NEW)
+    tenant = a.submit(prompts[1], max_new_tokens=MIGRATE_NEW,
+                      adapter_id="m0")
+    plain = [a.submit(p, max_new_tokens=MIGRATE_NEW) for p in prompts[2:]]
+    owner = {donor: 0, follower: 0, tenant: 1,
+             **{r: i + 2 for i, r in enumerate(plain)}}
+    run(a, "A", until=lambda: min(len(a.result(r)) for r in owner)
+        >= MIGRATE_AFTER)
+    if a.stats()["group_prefills"] != 1:
+        fail("migrate: the group did not share its prefill")
+    moved = [plain[0], plain[1], tenant, follower]
+    out_of, ck_s, in_s, nbytes, blocks = {}, [], [], [], 0
+    for rid in moved:
+        ck, dt, nb = checkpoint(a, rid)
+        if ck.kv_k is None or ck.kv_len != len(ck.prompt) + len(
+                ck.tokens) - 1:
+            fail(f"migrate: rid {rid}'s checkpoint carries no full payload")
+        copies0 = b.stats()["kv_install_copies"]
+        new, rt = restore(b, ck)
+        got = b.stats()["kv_install_copies"] - copies0
+        if got != np.shape(ck.kv_k)[1]:
+            fail(f"migrate: rid {rid} did not take the fast path "
+                 f"({got} install copies)")
+        installed_equal(b, new, ck)
+        if not a.release_request(rid):
+            fail(f"migrate: release of rid {rid} on A failed")
+        out_of[rid] = (b, new)
+        ck_s.append(dt)
+        in_s.append(rt)
+        nbytes.append(nb)
+        blocks += got
+    ck, dt, nb = checkpoint(a, plain[2])
+    new, rt = restore(b32, ck)
+    if b32.stats()["kv_install_copies"] != 0 or b32.stats()[
+            "migrations_in"] != 1:
+        fail("migrate: the block-size-32 restore did not recompute")
+    a.release_request(plain[2])
+    out_of[plain[2]] = (b32, new)
+    b_binding = b._requests[out_of[tenant][1]].adapter_binding
+    if b_binding is None or b_binding.version != 1:
+        fail(f"migrate: the tenant row's binding on B is {b_binding}")
+    run(a, "A")
+    run(b, "B")
+    run(b32, "B32")
+    streams, srcs = [], []
+    for rid in owner:
+        eng, r = out_of.get(rid, (a, rid))
+        if len(eng.result(r)) != MIGRATE_NEW:
+            fail(f"migrate: rid {rid} stopped at {len(eng.result(r))}")
+        streams.append(eng.result(r))
+        srcs.append(rid)
+    held = {}
+    for label, pick, p in (
+            ("base rows", [r for r in srcs if r != tenant], params),
+            ("tenant row", [tenant], merge_lora(params, lora))):
+        held[label] = _teacher_forced(
+            torch, p, cfg, [prompts[owner[r]] for r in pick],
+            [streams[srcs.index(r)] for r in pick], tie_atol,
+            f"migrate {label}")
+    st_a, st_b = a.stats(), b.stats()
+    if (st_a["migrations_out"], st_b["migrations_in"]) != (5, 4):
+        fail(f"migrate: counters out {st_a['migrations_out']} in "
+             f"{st_b['migrations_in']}")
+    for e in (a, b, b32):
+        e._alloc.check_leaks()
+    del a, b, b32
+
+    # -- an int8-pool row to an int8 engine ----------------------------------
+    p8 = prompts[2]
+    ref8 = engine(kv_dtype="int8", num_slots=2)
+    rref = ref8.submit(p8, max_new_tokens=MIGRATE_NEW)
+    run(ref8, "int8 reference")
+    a8, b8 = (engine(kv_dtype="int8", num_slots=2) for _ in range(2))
+    r8 = a8.submit(p8, max_new_tokens=MIGRATE_NEW)
+    run(a8, "int8 A", until=lambda: len(a8.result(r8)) >= MIGRATE_AFTER)
+    ck8, dt8, nb8 = checkpoint(a8, r8)
+    if ck8.kv_k.dtype != np.int8 or ck8.kv_k_scale is None:
+        fail(f"migrate int8: payload {ck8.kv_k.dtype}, scales "
+             f"{ck8.kv_k_scale is not None}")
+    n8, rt8 = restore(b8, ck8)
+    installed_equal(b8, n8, ck8)
+    a8.release_request(r8)
+    run(b8, "int8 B")
+    if b8.result(n8) != ref8.result(rref):
+        fail("migrate int8: the migrated stream differs from the "
+             "never-migrated int8 run")
+    for e in (ref8, a8, b8):
+        e._alloc.check_leaks()
+    del ref8, a8, b8
+    k2 = {"fwd": fa.flash_attention_fwd.launches,
+          "dkdv": fa.flash_attention_bwd_dkdv.launches,
+          "dq": fa.flash_attention_bwd_dq.launches}
+    k1 = paged_flash_decode.launches
+    if k1 != sum(k1_of.values()) or any(k2.values()) or flash_decode.launches:
+        fail(f"migrate: K1 {k1} against {k1_of}, K2 {k2}, K3 "
+             f"{flash_decode.launches}")
+    int8_k1 = sum(v for k, v in k1_of.items() if k.startswith("int8"))
+    total = sum(nbytes)
+    log(f"[migrate] {smi}: engines of {MIGRATE_SLOTS} rows (block 16, "
+        f"greedy), {len(owner)} requests of {min(map(len, prompts))}.."
+        f"{max(map(len, prompts))} tokens, {MIGRATE_NEW} new; after >= "
+        f"{MIGRATE_AFTER} tokens each, 4 rows (2 base, 1 tenant, 1 group "
+        f"follower) moved A -> B on the fast path ({blocks} blocks installed, "
+        f"bit-identical when gathered again), 1 A -> B (block 32) by "
+        f"recomputation, an int8 row to an int8 engine (stream equal to "
+        f"the never-migrated int8 run). Checkpoint bytes "
+        f"{nbytes} (+ int8 {nb8}); gather {', '.join(f'{x * 1e3:.2f}' for x in ck_s)} ms = "
+        f"{total / sum(ck_s) / 1e9:.2f} GB/s, install "
+        f"{', '.join(f'{x * 1e3:.2f}' for x in in_s)} ms = "
+        f"{total / sum(in_s) / 1e9:.2f} GB/s; recompute restore "
+        f"{rt * 1e3:.2f} ms; int8 gather {dt8 * 1e3:.2f} ms, install "
+        f"{rt8 * 1e3:.2f} ms; K1 {k1} = {layers} x the fused steps of "
+        f"every engine ({k1_of}), K2 0, K3 0; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    _log_held("migrate", held, tie_atol)
+    return {"k1": k1 - int8_k1, "k1_int8": int8_k1, **k2,
+            "k3": flash_decode.launches}
+
+
 def _spread_reward(task_idx, g, session):
     """Rewards that spread within a group (random weights tie every group
     on the trace reward, which would make every update zero)."""
@@ -3787,6 +4372,10 @@ def main(argv=None) -> int:
     spec_launches = phase_spec(torch, cfg, loaded, args.seed, smi)
     group_launches = phase_group(torch, cfg, loaded, args.seed, smi,
                                  spec_launches["tie_atol"])
+    tenant_launches = phase_tenants(torch, cfg, loaded, args.seed, smi,
+                                    spec_launches["tie_atol"])
+    migrate_launches = phase_migrate(torch, cfg, loaded, args.seed, smi,
+                                     spec_launches["tie_atol"])
     # the 1.5B weights (trained in place) make way for mistral-7b
     del params, loaded
     gc.collect()
@@ -3822,6 +4411,11 @@ def main(argv=None) -> int:
                               else None),
             "launches_group": (group_launches["k1"] if variant == "bf16"
                                else None),
+            "launches_tenants": (tenant_launches["k1"] if variant == "bf16"
+                                 else None),
+            "launches_migrate": {"bf16": migrate_launches["k1"],
+                                 "int8": migrate_launches["k1_int8"]}.get(
+                                     variant),
             "max_abs_err": (max(r["max_abs_err"], kspec["max_abs_err_d64"],
                                 kspec["max_abs_err_verify"])
                             if variant == "bf16" else r["max_abs_err"]),
@@ -3868,6 +4462,8 @@ def main(argv=None) -> int:
             "launches_async": async_launches[kname],
             "launches_spec": spec_launches[kname],
             "launches_group": group_launches[kname],
+            "launches_tenants": tenant_launches[kname],
+            "launches_migrate": migrate_launches[kname],
             "max_abs_err": r["max_abs_err"],
             "tolerance": _fa_tol_text(FA_TOL[FA_ERR_OF[kname][0]]),
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
@@ -3888,6 +4484,8 @@ def main(argv=None) -> int:
         "launches_async": async_launches["k3"],
         "launches_spec": spec_launches["k3"],
         "launches_group": group_launches["k3"],
+        "launches_tenants": tenant_launches["k3"],
+        "launches_migrate": migrate_launches["k3"],
         "max_abs_err": fd["max_abs_err"],
         "max_abs_err_f32": fd["max_abs_err_f32"],
         "tolerance": f"{FD_TOL['bf16'][0]} + {FD_TOL['bf16'][1]} * |plain|",

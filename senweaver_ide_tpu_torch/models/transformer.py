@@ -21,6 +21,11 @@ into a ring of ``ring_capacity`` slots. Its single-token steps attend
 through the flash-decode kernel (``ops/flash_decode.py``) when
 ``config.decode_attn_impl == "flash"`` and the step qualifies.
 
+The paged forward also serves many LoRA tenants in one batch: with an
+adapter pool's banks (``rollout/adapter_pool.py``) each entry of the flat
+batch adds its own adapter's delta to the q/k/v/o projections
+(:func:`_adapter_plan`).
+
 Out of the port so far, and raising ``NotImplementedError`` where
 reached: mixture-of-experts FFNs, int8 weights (later slices) and the
 ring/ulysses attention (the parallel-layout slice).
@@ -232,13 +237,97 @@ def _dense(h: torch.Tensor, lp: Dict[str, torch.Tensor],
     return out
 
 
+class _AdapterTarget(NamedTuple):
+    """One target's adapter factors for one paged forward: every rung's
+    tenant slots side by side as ``C`` columns, and each entry's column
+    mask."""
+
+    a: torch.Tensor          # (L, d_in, C)
+    b: torch.Tensor          # (L, C, d_out)
+    mask: torch.Tensor       # (T, 1, C): 1 on the entry's slot's columns
+
+
+def _adapter_plan(adapters, adapter_ids, dev) -> Optional[Dict[str,
+                                                              _AdapterTarget]]:
+    """Per-target factors and masks for the multi-LoRA delta of one paged
+    forward, or None when no entry carries an adapter.
+
+    ``adapters`` is the pool's rank ladder, one bank dict per rung with
+    leaves ``(L, slots+1, d_in, r)`` / ``(L, slots+1, r, d_out)``, and
+    ``adapter_ids`` the per-rung ``(T,)`` slot ids (0 = the null slot).
+    The JAX version gathers ``A[ids]`` and ``B[ids]`` per token (a ``(T,
+    d_in, r)`` copy per target, layer and rung); here the tenant slots of
+    every rung that this batch uses become the columns of one ``(d_in,
+    C)`` matrix, so the delta is two matmuls and a mask: ``((h @ A) *
+    mask) @ B``. An entry's mask selects its own slot's ``r`` columns in
+    its rung, and nothing for the null slot, so a base row adds exact
+    zeros. The ids are read on the host."""
+    ids = [torch.as_tensor(x).to("cpu", torch.int64).reshape(-1)
+           for x in adapter_ids]
+    if len(ids) != len(adapters):
+        raise ValueError(f"{len(ids)} adapter id vectors for "
+                         f"{len(adapters)} rungs")
+    live = [j for j, i in enumerate(ids) if bool((i > 0).any())]
+    if not live:
+        return None
+    t = ids[0].shape[0]
+    # one (T, slots * r) column mask a live rung; its leaves share a shape
+    rung_mask = {}
+    for j in live:
+        a = next(v for n, v in adapters[j].items() if n.endswith("_lora_a"))
+        slots1, r = a.shape[1], a.shape[3]
+        m = torch.zeros((t, slots1 - 1, r), dtype=a.dtype)
+        sel = ids[j] > 0
+        m[sel, ids[j][sel] - 1] = 1
+        rung_mask[j] = m.reshape(t, (slots1 - 1) * r)
+    names = sorted({n[:-len("_lora_a")] for bank in adapters for n in bank
+                    if n.endswith("_lora_a")})
+    plan, masks = {}, {}
+    for name in names:
+        rungs = tuple(j for j in live if name + "_lora_a" in adapters[j])
+        if not rungs:
+            continue
+        if rungs not in masks:
+            masks[rungs] = torch.cat([rung_mask[j] for j in rungs],
+                                     dim=-1)[:, None].to(dev)
+        a_cols, b_rows = [], []
+        for j in rungs:
+            a = adapters[j][name + "_lora_a"]
+            b = adapters[j][name + "_lora_b"]
+            n_layers, slots1, d_in, r = a.shape
+            n = (slots1 - 1) * r
+            a_cols.append(a[:, 1:].permute(0, 2, 1, 3).reshape(
+                n_layers, d_in, n))
+            b_rows.append(b[:, 1:].reshape(n_layers, n, b.shape[-1]))
+        plan[name] = _AdapterTarget(a=torch.cat(a_cols, dim=-1),
+                                    b=torch.cat(b_rows, dim=1),
+                                    mask=masks[rungs])
+    return plan or None
+
+
+def _with_adapter(out: torch.Tensor, h: torch.Tensor, ad,
+                  name: str) -> torch.Tensor:
+    """``out`` plus the entries' adapter deltas for target ``name``;
+    ``ad`` is ``(plan, layer)`` from :func:`_adapter_plan`, or None."""
+    if ad is None:
+        return out
+    plan, i = ad
+    tgt = plan.get(name)
+    if tgt is None:
+        return out
+    return out + ((h @ tgt.a[i]) * tgt.mask) @ tgt.b[i]
+
+
 def _qkv(c: ModelConfig, lp: Dict[str, torch.Tensor], h: torch.Tensor,
-         cos: torch.Tensor, sin: torch.Tensor):
-    """Project + rotate. h (B, S, D) → q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh)."""
+         cos: torch.Tensor, sin: torch.Tensor, ad=None):
+    """Project + rotate. h (B, S, D) → q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh).
+    Per-entry adapter deltas (``ad``, paged forward only) land where the
+    merged-LoRA hook of ``_dense`` does: after the base matmul, before
+    bias, norm and rope."""
     b, s, _ = h.shape
-    q = _dense(h, lp, "wq")
-    k = _dense(h, lp, "wk")
-    v = _dense(h, lp, "wv")
+    q = _with_adapter(_dense(h, lp, "wq"), h, ad, "wq")
+    k = _with_adapter(_dense(h, lp, "wk"), h, ad, "wk")
+    v = _with_adapter(_dense(h, lp, "wv"), h, ad, "wv")
     if c.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = q.reshape(b, s, c.num_heads, c.head_dim)
@@ -596,8 +685,8 @@ def _paged_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
                  write_off: torch.Tensor, use_kernel: bool,
                  k_scale_pool: Optional[torch.Tensor] = None,
                  v_scale_pool: Optional[torch.Tensor] = None,
-                 q_tiles: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 q_tiles: Optional[torch.Tensor] = None,
+                 ad=None) -> torch.Tensor:
     """One transformer block over one layer's paged pool.
 
     ``x`` is the flat token batch ``(T, 1, D)``. Every kept entry
@@ -609,10 +698,11 @@ def _paged_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
     earlier ones within the same step. ``tables_tok`` is each entry's
     table row ``(T, MB)`` int32 and ``lengths`` its valid count
     ``positions + 1``; ``q_tiles`` the kernel's query tiles
-    (``ops.paged_attention.query_tiles``), or None."""
+    (``ops.paged_attention.query_tiles``), or None; ``ad`` the entries'
+    adapter deltas (:func:`_with_adapter`), or None."""
     t = x.shape[0]
     h = rms_norm(x, lp["attn_norm"], c.rms_norm_eps)
-    q, k, v = _qkv(c, lp, h, cos, sin)       # q (T,1,Hq,Dh), k/v (T,1,Hkv,Dh)
+    q, k, v = _qkv(c, lp, h, cos, sin, ad)   # q (T,1,Hq,Dh), k/v (T,1,Hkv,Dh)
     k_new, v_new = k[keep, 0], v[keep, 0]
     if k_scale_pool is not None:
         # quantize-at-write: payload and scale land through the SAME
@@ -629,7 +719,8 @@ def _paged_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
     attend = paged_flash_decode if use_kernel else paged_flash_decode_plain
     out = attend(q[:, 0], k_pool, v_pool, tables_tok, lengths,
                  k_scale_pool, v_scale_pool, q_tiles=q_tiles)
-    x = x + _dense(out.reshape(t, 1, c.q_dim), lp, "wo")
+    attn_in = out.reshape(t, 1, c.q_dim)
+    x = x + _with_adapter(_dense(attn_in, lp, "wo"), attn_in, ad, "wo")
     return _mlp(c, lp, x)
 
 
@@ -648,8 +739,8 @@ def forward_paged(
                                   # (num_blocks = drop)
     write_off: torch.Tensor,      # (T,) int — offset within block
     use_kernel: bool = False,     # CUDA paged-attention kernel
-    adapters=None,
-    adapter_ids=None,
+    adapters=None,                # per-rung LoRA bank dicts, leading L
+    adapter_ids=None,             # per-rung (T,) int slot ids (0 = none)
 ):
     """Run the model over a paged KV pool: every entry of the flat
     ``(T,)`` batch is one (sequence, position) pair, a decode step or
@@ -661,13 +752,19 @@ def forward_paged(
     The integer inputs may live on the host or on the pool's device.
     Which entries write is decided from ``write_block`` on the host (a
     host copy costs a device sync when it was passed on the card), then
-    the kept indices move to the device with the rest."""
+    the kept indices move to the device with the rest.
+
+    With an adapter pool (``rollout/adapter_pool.py``), ``adapters`` is
+    its tuple of per-rung bank dicts (``AdapterPool.banks()``) and
+    ``adapter_ids`` the per-rung ``(T,)`` slot id of every entry; each
+    entry adds its own adapter's delta to q/k/v/o (see
+    :func:`_adapter_plan`), a null-slot entry exactly nothing."""
     c = config
-    if adapters is not None or adapter_ids is not None:
-        raise NotImplementedError(
-            "multi-tenant LoRA adapters arrive with a later slice of the "
-            "PyTorch port")
+    if (adapters is None) != (adapter_ids is None):
+        raise ValueError("pass adapters and adapter_ids together")
     dev = pool.k.device
+    plan = (None if adapters is None
+            else _adapter_plan(adapters, adapter_ids, dev))
     nb = pool.num_blocks
     wb_host = write_block.to("cpu", torch.int64)
     keep_host = torch.nonzero(wb_host < nb).squeeze(1)
@@ -705,5 +802,6 @@ def forward_paged(
         x = _paged_layer(c, lp, x, cos, sin, kv[0], kv[1], tables_tok,
                          lengths, keep, wb, wo, use_kernel,
                          k_scale_pool=kv[2], v_scale_pool=kv[3],
-                         q_tiles=q_tiles)
+                         q_tiles=q_tiles,
+                         ad=None if plan is None else (plan, i))
     return _logits(params, c, x)[:, 0], pool

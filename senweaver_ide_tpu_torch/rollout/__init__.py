@@ -1,3 +1,5 @@
+from .adapter_pool import (AdapterBinding, AdapterPool, AdapterPoolConfig,
+                           AdapterPoolFull, StaleAdapterVersion)
 from .engine import EngineConfig, PrefixImportError, QueueFull, RolloutEngine
 from .group_tree import BranchPolicy, GroupRollout, Leaf
 from .paged_kv import (KV_DTYPES, BlockAllocator, BlockPayload,

@@ -53,10 +53,21 @@ followers graft the donor's prompt spine (refcount bumps) and rescore
 its last token with the write dropped; a fork shares its parent's whole
 spine, copy-on-write.
 
-Adapters, migration (apart from :meth:`RolloutEngine.release_request`)
-and tensor-parallel meshes belong to later slices and raise where
-requested; :meth:`stats` reports their counters as 0 so the key set is
-the JAX engine's.
+**Tenants** (``RolloutEngine(adapter_pool=...)``, paged only): many LoRA
+adapters over one base model in one batch. ``submit(adapter_id=)``
+binds the tenant's current adapter version to the request for its whole
+life (``rollout/adapter_pool.py``); every fused step passes the pool's
+banks and each entry's slot id to ``forward_paged``.
+:meth:`RolloutEngine.publish_adapter` changes only what the tenant's
+NEXT request decodes under.
+
+**Migration** (:meth:`RolloutEngine.checkpoint_request`,
+:meth:`RolloutEngine.restore_request`, ``rollout/migration.py``): an
+in-flight decode is frozen, its KV blocks and host state leave as a
+portable checkpoint, and another engine resumes it token-exactly.
+
+Tensor-parallel meshes belong to a later slice and raise where
+requested.
 
 Observability is the JAX engine's, under its names: the step bodies run
 under the runtime ledger entries ``engine.fused_step`` (paged) and
@@ -288,13 +299,15 @@ class _Request:
     parent_rid: Optional[int] = None
     branch_pos: Optional[int] = None
     branch_depth: int = 0
-
-
-def _no_adapters(adapter_id: Optional[str]) -> None:
-    if adapter_id is not None:
-        raise NotImplementedError(
-            "multi-tenant LoRA adapters arrive with a later slice of the "
-            "PyTorch port")
+    # live-migration freeze (rollout/migration.py): a paused request is
+    # skipped by the step assembler, the speculation planner and the
+    # scheduler, so its state cannot advance between a checkpoint and
+    # the release or resume
+    paused: bool = False
+    # multi-tenant LoRA: the tenant and the (rung, slot, version) binding
+    # acquired at submit, held for the request's life
+    adapter: Optional[str] = None
+    adapter_binding: Optional[object] = None
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -441,13 +454,17 @@ def _paged_fused_step(params: Params, config: ModelConfig,
                       seq_row: torch.Tensor, positions: torch.Tensor,
                       write_block: torch.Tensor, write_off: torch.Tensor,
                       pool, generator: torch.Generator,
-                      sample: SampleParams, use_kernel: bool) -> tuple:
+                      sample: SampleParams, use_kernel: bool,
+                      adapters=None, adapter_ids=None) -> tuple:
     """forward_paged + in-step sampling over one flat token batch;
-    returns (next tokens, their log-probs, pool) on the device."""
+    returns (next tokens, their log-probs, pool) on the device. With an
+    adapter pool, ``adapters`` (its banks, fixed shapes) and
+    ``adapter_ids`` (per-rung (T,) slot ids, 0 for base rows) ride every
+    call."""
     logits, pool = forward_paged(
         params, config, toks, pool=pool, tables=tables, seq_row=seq_row,
         positions=positions, write_block=write_block, write_off=write_off,
-        use_kernel=use_kernel)
+        use_kernel=use_kernel, adapters=adapters, adapter_ids=adapter_ids)
     next_tok = sample_token(logits, generator,
                             temperature=sample.temperature,
                             top_k=sample.top_k, top_p=sample.top_p)
@@ -544,10 +561,6 @@ class RolloutEngine:
             raise NotImplementedError(
                 "tensor-parallel meshes arrive with the parallel-layout "
                 "slice of the PyTorch port")
-        if adapter_pool is not None:
-            raise NotImplementedError(
-                "multi-tenant LoRA adapters arrive with a later slice of "
-                "the PyTorch port")
         embed = params["embed"]
         if embed.device.type != self.device.type:
             raise ValueError(f"params live on {embed.device}, engine on "
@@ -589,6 +602,20 @@ class RolloutEngine:
                 "KV layout"
                 + (f" (fell back to slots: {fallback})" if fallback
                    else " (kv_layout='slots' has its own kv_quant knob)"))
+        # Multi-tenant LoRA (rollout/adapter_pool.py): the pool's banks and
+        # per-entry slot ids ride the paged step. Paged only: the slot
+        # path has no flat token batch to hook.
+        if adapter_pool is not None:
+            if self.kv_layout != "paged":
+                raise ValueError(
+                    "adapter_pool needs the paged KV layout"
+                    + (f" (fell back to slots: {fallback})" if fallback
+                       else ""))
+            if adapter_pool.device.type != self.device.type:
+                raise ValueError(f"adapter_pool lives on "
+                                 f"{adapter_pool.device}, engine on "
+                                 f"{self.device}")
+        self.adapter_pool = adapter_pool
         if self.kv_layout == "slots":
             cache = init_kv_cache(config, num_slots, max_len,
                                   device=self.device)
@@ -604,8 +631,7 @@ class RolloutEngine:
         # monotonic hold sequence per slot: eviction drops the OLDEST
         self._hold_seq = 0                      # guarded-by: _lock
         self._slot_hold_seq: List[int] = [0] * num_slots  # guarded-by: _lock
-        # The JAX engine's counters, all of them: those of features this
-        # port has not taken yet (migration) stay 0.
+        # The JAX engine's counters, under its names.
         self._stats = {"prefills": 0, "prefill_tokens": 0,  # guarded-by: _lock
                        "batched_prefills": 0, "batched_prefill_slots": 0,
                        "prefix_installs": 0, "prefix_tokens_reused": 0,
@@ -625,6 +651,14 @@ class RolloutEngine:
                        "group_prefills": 0, "group_forks": 0,
                        "group_prefill_tokens_avoided": 0,
                        "group_degrades": 0, "branch_forks": 0}
+        # Live migration (rollout/migration.py): with a migrating
+        # coordinator attached (it sets this flag), the pressure ladder
+        # OFFERS a request at the preemption cap for migration (one
+        # preemption, its rid surfaced by take_pressure_migrations) before
+        # falling back to truncate-finish. Off for a standalone engine.
+        self.migrate_on_pressure = False
+        self._pressure_migrations: List[int] = []  # guarded-by: _lock
+        self._migration_offered: set = set()    # guarded-by: _lock
         # Bounded admission (None = unbounded): submit() raises QueueFull
         # past this many QUEUED requests.
         self.max_queue = max_queue
@@ -825,6 +859,36 @@ class RolloutEngine:
             self._spec_reset_ema()
             sp.staleness_gauge.set(0.0)
 
+    # -- multi-tenant adapters ----------------------------------------------
+
+    def publish_adapter(self, adapter_id: str, lora, *,
+                        version: Optional[int] = None) -> int:
+        """No-drain per-tenant adapter publish: hand the pool a new host
+        copy under the tenant's monotonic ``adapter_version``. Nothing
+        resident changes: in-flight requests finish on the binding they
+        acquired at submit, and the tenant's next submit uploads the new
+        version on demand. Unlike :meth:`update_params` this drops no
+        prefix and stamps no draft stale: the base policy is untouched."""
+        if self.adapter_pool is None:
+            raise RuntimeError("engine has no adapter_pool")
+        return self.adapter_pool.publish(adapter_id, lora, version=version)
+
+    def has_adapter(self, adapter_id: Optional[str]) -> bool:
+        """True when a tenant adapter is published (host copy held);
+        ``submit(adapter_id=...)`` will decode under it."""
+        return (self.adapter_pool is not None
+                and self.adapter_pool.has(adapter_id))
+
+    def adapter_resident(self, adapter_id: str) -> bool:
+        """True when the tenant's CURRENT version occupies a device slot
+        (a router's warm-affinity signal)."""
+        return (self.adapter_pool is not None
+                and self.adapter_pool.resident(adapter_id))
+
+    def adapter_stats(self) -> Dict[str, object]:
+        return ({} if self.adapter_pool is None
+                else self.adapter_pool.stats())
+
     def spec_note_publish_begin(self) -> None:
         """Fleet hook: the policy is about to change, so stamp the draft
         stale and reset the acceptance EMA now, instead of trusting
@@ -915,24 +979,30 @@ class RolloutEngine:
                hold_slot: bool = False,
                continue_from: Optional[int] = None,
                adapter_id: Optional[str] = None) -> int:
-        _no_adapters(adapter_id)
         with self._lock:
             return self._submit(prompt, max_new_tokens=max_new_tokens,
                                 prefix_id=prefix_id, eos_id=eos_id,
                                 hold_slot=hold_slot,
-                                continue_from=continue_from)
+                                continue_from=continue_from,
+                                adapter_id=adapter_id)
 
     def _submit(self, prompt: List[int], *, max_new_tokens: int,
                 eos_id: Optional[int], prefix_id: Optional[int] = None,
                 hold_slot: bool = False,
-                continue_from: Optional[int] = None) -> int:
+                continue_from: Optional[int] = None,
+                adapter_id: Optional[str] = None) -> int:
         # guarded-by: caller
         if not prompt:
             raise ValueError("empty prompt")
         if continue_from is not None:
+            if adapter_id is not None:
+                raise ValueError("continuations inherit the held slot's "
+                                 "KV; submit adapter decodes fresh")
             return self._submit_continuation(
                 prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
                 hold_slot=hold_slot, continue_from=continue_from)
+        if adapter_id is not None and self.adapter_pool is None:
+            raise ValueError("engine has no adapter_pool")
         if len(prompt) >= self.context_bound:
             raise ValueError(
                 f"prompt length {len(prompt)} ≥ engine max_len bound "
@@ -950,12 +1020,21 @@ class RolloutEngine:
                 raise ValueError(
                     "prompt does not start with the registered prefix "
                     f"(prefix_id {prefix_id}, {len(p_tokens)} tokens)")
+        binding = None
+        if adapter_id is not None:
+            # Resolve the tenant's CURRENT adapter version to a device slot
+            # now and hold it for the request's whole life: a publish that
+            # lands mid-decode is picked up only by the next request.
+            # Raises KeyError (unpublished tenant) or AdapterPoolFull
+            # before any engine state is touched.
+            binding = self.adapter_pool.acquire(adapter_id)
         rid = self._next_rid
         self._next_rid += 1
         req = _Request(rid=rid, prompt=list(prompt),
                        max_new_tokens=max_new_tokens,
                        eos_id=self.eos_id if eos_id is None else eos_id,
-                       prefix_id=prefix_id, hold_slot=hold_slot)
+                       prefix_id=prefix_id, hold_slot=hold_slot,
+                       adapter=adapter_id, adapter_binding=binding)
         self._requests[rid] = req
         # enqueue only: scheduling happens at the next step(), so a burst
         # of submissions lands in the queue together
@@ -978,9 +1057,12 @@ class RolloutEngine:
         Divergence into the shared boundary block copies it on first
         write. If the donor dies before capture (preemption with emitted
         tokens, a release), followers degrade to plain unshared
-        prefills: exactness is never traded for sharing. Requires the
-        paged KV layout. Returns the group's rids, donor first."""
-        _no_adapters(adapter_id)
+        prefills: exactness is never traded for sharing.
+
+        Followers pin the donor's adapter binding (``retain``), so a
+        publish landing mid-group cannot mix adapter versions across the
+        group. Requires the paged KV layout. Returns the group's rids,
+        donor first."""
         if group_size < 1:
             raise ValueError(f"group_size {group_size} < 1")
         if self.kv_layout != "paged":
@@ -988,7 +1070,7 @@ class RolloutEngine:
         with self._lock:
             donor_rid = self._submit(prompt,
                                      max_new_tokens=max_new_tokens,
-                                     eos_id=eos_id)
+                                     eos_id=eos_id, adapter_id=adapter_id)
             if group_size == 1:
                 return [donor_rid]
             donor = self._requests[donor_rid]
@@ -1000,12 +1082,20 @@ class RolloutEngine:
             donor.group = group
             rids = [donor_rid]
             for _ in range(group_size - 1):
+                binding = None
+                if donor.adapter_binding is not None:
+                    # version-exact pin of the donor's binding: the donor's
+                    # reference keeps the slot alive under the engine lock,
+                    # so this cannot miss
+                    binding = self.adapter_pool.retain(
+                        donor.adapter_binding)
                 rid = self._next_rid
                 self._next_rid += 1
                 req = _Request(rid=rid, prompt=list(prompt),
                                max_new_tokens=max_new_tokens,
                                eos_id=(self.eos_id if eos_id is None
                                        else eos_id),
+                               adapter=adapter_id, adapter_binding=binding,
                                group=group)
                 self._requests[rid] = req
                 # NOT queued: a follower waits on the spine capture so its
@@ -1029,22 +1119,27 @@ class RolloutEngine:
           sampled token in the child's stream; the child's first sampled
           token comes from feeding ``T``.
 
-        Either way the child's greedy output equals an independent
-        submit of the same stream as a fresh prompt. Without a free row
-        the child enters the queue and builds its context through the
-        standard recompute path (unshared but exact). Raises
-        ``KeyError`` for unknown rids and ``ValueError`` for requests
-        that are done or still prefilling."""
+        Either way the child decodes under the parent's PINNED adapter
+        version, and its greedy output equals an independent submit of
+        the same stream as a fresh prompt. Without a free row the child
+        enters the queue and builds its context through the standard
+        recompute path (unshared but exact). Raises ``KeyError`` for
+        unknown rids and ``ValueError`` for requests that are done,
+        paused or still prefilling."""
         if self.kv_layout != "paged":
             raise ValueError("fork_request requires the paged KV layout")
         with self._lock:
             parent = self._requests.get(rid)
             if parent is None:
                 raise KeyError(f"unknown rid {rid}")
-            if parent.done:
-                raise ValueError(f"rid {rid} is not an active decode (done)")
+            if parent.done or parent.paused:
+                raise ValueError(
+                    f"rid {rid} is not an active decode (done/paused)")
             if rid in self._prefill_jobs or not parent.tokens:
                 raise ValueError(f"rid {rid} is still prefilling")
+            binding = None
+            if parent.adapter_binding is not None:
+                binding = self.adapter_pool.retain(parent.adapter_binding)
             budget = (max_new_tokens if max_new_tokens is not None
                       else parent.max_new_tokens)
             crid = self._next_rid
@@ -1054,7 +1149,8 @@ class RolloutEngine:
             # it is fed)
             spine = list(parent.prompt) + parent.tokens[:-1]
             lineage = dict(parent_rid=rid, branch_pos=len(parent.tokens),
-                           branch_depth=parent.branch_depth + 1)
+                           branch_depth=parent.branch_depth + 1,
+                           adapter=parent.adapter, adapter_binding=binding)
             if token is None:
                 child = _Request(rid=crid, prompt=spine,
                                  max_new_tokens=budget,
@@ -1096,37 +1192,73 @@ class RolloutEngine:
                 self._queue.append(child)
             return crid
 
+    # -- live migration (rollout/migration.py) -------------------------------
+
+    def checkpoint_request(self, rid: int, *, pause: bool = True):
+        """Snapshot an in-flight request into a portable
+        :class:`~.migration.DecodeCheckpoint` (non-destructive; the
+        request is left PAUSED so its state cannot advance between the
+        snapshot and the coordinator's release or resume). Freeze and
+        snapshot happen together under the engine lock."""
+        from .migration import checkpoint_from_engine
+        with self._lock:
+            return checkpoint_from_engine(self, rid, pause=pause)
+
+    def restore_request(self, ckpt) -> int:
+        """Install a peer's checkpoint under a fresh rid and return it:
+        one in-place install when a free row and a matching block layout
+        exist, otherwise a front-of-queue requeue that resumes through the
+        preemption-recompute replay. Either way the resumed output is
+        token-exact against never migrating."""
+        from .migration import restore_into_engine
+        with self._lock:
+            rid = restore_into_engine(self, ckpt)
+            self._schedule()
+            return rid
+
     def release_request(self, rid: int) -> bool:
-        """Forget a request: drop its row and blocks, its queue entry and
-        pending emits (the release half of the JAX engine's migration
-        handoff; the rest of migration is not ported). A group donor
-        released before the spine capture degrades its followers to
-        plain prefills; a released follower surrenders its graft slot so
-        the retained spine cannot strand. Idempotent: unknown rids return
-        False."""
+        """Forget a request (the post-handoff cleanup of a migration):
+        drop its row and blocks, adapter binding, queue entry and pending
+        emits. A group donor released before the spine capture degrades
+        its followers to plain prefills; a released follower surrenders
+        its graft slot so the retained spine cannot strand. Idempotent:
+        unknown rids return False."""
+        from .migration import release_from_engine
         with self._lock:
             req = self._requests.get(rid)
-            if req is None:
-                return False
-            self._group_degrade_if_uncaptured(req)
-            self._group_forget_follower(req)
-            del self._requests[rid]
-            try:
-                self._queue.remove(req)
-            except ValueError:
-                pass
-            if self.kv_layout == "paged":
-                self._prefill_jobs.pop(rid, None)
-            self._pending_emits.pop(rid, None)
-            row = req.slot
-            if (row is not None and self.kv_layout == "paged"
-                    and self._slot_req[row] is req):
-                self._slot_req[row] = None
-                self._release_row(row)
-            req.slot = None
-            req.done = True
+            if req is not None:
+                self._group_degrade_if_uncaptured(req)
+                self._group_forget_follower(req)
+            out = release_from_engine(self, rid)
             self._schedule()
-            return True
+            return out
+
+    def pause_request(self, rid: int) -> None:
+        """Freeze one request (migration prepare): skipped by the step
+        assembler, the speculation planner and the scheduler."""
+        from .migration import set_paused
+        with self._lock:
+            set_paused(self, rid, True)
+
+    def resume_request(self, rid: int) -> None:
+        """Unfreeze a paused request (migration aborted: the fence
+        tripped, the install failed, or the target died): it resumes
+        decoding HERE, token-exactly, as if never frozen."""
+        from .migration import set_paused
+        with self._lock:
+            set_paused(self, rid, False)
+
+    def take_pressure_migrations(self) -> List[int]:
+        """Drain the rids the pressure ladder offered for migration
+        instead of truncate-finishing (paused, blocks already freed). The
+        coordinator either migrates each or resumes it locally; a resumed
+        request that caps out again truncates."""
+        with self._lock:
+            out = [rid for rid in self._pressure_migrations
+                   if rid in self._requests
+                   and not self._requests[rid].done]
+            self._pressure_migrations = []
+            return out
 
     @property
     def has_work(self) -> bool:
@@ -1172,6 +1304,11 @@ class RolloutEngine:
             out["kv_bytes_device"] = self._alloc.used_bytes
             out["kv_bytes_host"] = self._alloc.swapped_bytes
             out["paged_kernel"] = int(self._use_paged_kernel)
+            if self.adapter_pool is not None:
+                ap = self.adapter_pool.stats()
+                out["adapters_published"] = len(ap["adapters"])
+                out["adapter_installs"] = int(ap["installs"])
+                out["adapter_evictions"] = int(ap["evictions"])
             return out
 
     @property
@@ -1240,6 +1377,12 @@ class RolloutEngine:
                        max_new_tokens=max_new_tokens,
                        eos_id=self.eos_id if eos_id is None else eos_id,
                        hold_slot=hold_slot, slot=slot)
+        # The held KV was computed under prev's adapter binding, so the
+        # continuation inherits it (ownership transfers; released when
+        # this request finishes without holding).
+        req.adapter = prev.adapter
+        req.adapter_binding = prev.adapter_binding
+        prev.adapter_binding = None
         self._requests[rid] = req
         self._slot_held[slot] = None
         self._slot_req[slot] = req
@@ -1540,6 +1683,12 @@ class RolloutEngine:
         self._slot_req[slot] = None
         if self.kv_layout == "paged":
             self._prefill_jobs.pop(req.rid, None)
+        # Held conversations keep their adapter binding (the resident KV
+        # was computed under it; a continuation inherits it).
+        if (req.adapter_binding is not None and not req.hold_slot
+                and self.adapter_pool is not None):
+            self.adapter_pool.release(req.adapter_binding)
+            req.adapter_binding = None
         if req.hold_slot:
             # the last sampled token's k/v is not written yet (a token is
             # fed the step after it is sampled), so the resident history
@@ -1562,6 +1711,9 @@ class RolloutEngine:
         prev = self._requests[rid]
         prev.held_history = None
         prev.slot = None
+        if prev.adapter_binding is not None and self.adapter_pool is not None:
+            self.adapter_pool.release(prev.adapter_binding)
+            prev.adapter_binding = None
         self._slot_held[slot] = None
         if self.kv_layout == "paged":
             self._release_row(slot)
@@ -1680,7 +1832,7 @@ class RolloutEngine:
         advanced = []                   # (row, n)
         for row in range(self.num_slots):
             req = self._slot_req[row]
-            if req is None or req.rid in self._prefill_jobs:
+            if req is None or req.paused or req.rid in self._prefill_jobs:
                 continue
             if budget <= 0:
                 break
@@ -1735,7 +1887,8 @@ class RolloutEngine:
         rows = []
         for row in range(self.num_slots):
             req = self._slot_req[row]
-            if (req is None or req.rid in self._prefill_jobs
+            if (req is None or req.paused
+                    or req.rid in self._prefill_jobs
                     or not req.tokens):
                 continue
             p = self._row_len[row]
@@ -1972,8 +2125,23 @@ class RolloutEngine:
             if need > self._alloc.num_blocks or req.preempt_count >= cap:
                 # could never fit, or out of preemption budget with every
                 # other row capped too: truncate-finish (the request
-                # completes short, it is never lost)
-                self._finish_request(req, row)
+                # completes short, it is never lost). With a migrating
+                # coordinator attached, offer the request for migration
+                # FIRST (one preemption frees the blocks, the tokens
+                # survive); a second trip here, when no engine took it,
+                # truncates as before, so nothing livelocks.
+                if (self.migrate_on_pressure
+                        and req.rid not in self._migration_offered):
+                    self._migration_offered.add(req.rid)
+                    self._pressure_migrations.append(req.rid)
+                    # paused so the scheduler cannot put it straight back
+                    # into the freed row (and cap it again) before the
+                    # coordinator decides; it resumes the request when no
+                    # engine has room
+                    req.paused = True
+                    self._preempt_row(row)
+                else:
+                    self._finish_request(req, row)
             else:
                 self._preempt_row(row)
         return False
@@ -2122,7 +2290,22 @@ class RolloutEngine:
         # guarded-by: caller
         """Assign queued requests to free rows and turn their prompts into
         chunked-prefill jobs. No device work happens here apart from a
-        host-tier restore: prefix installs are table grafts."""
+        host-tier restore: prefix installs are table grafts. Paused
+        (migration-frozen) requests are lifted out of the queue for the
+        duration and put back at the front: they keep their place but
+        cannot be scheduled."""
+        paused = None
+        if any(r.paused for r in self._queue):
+            paused = [r for r in self._queue if r.paused]
+            self._queue = deque(r for r in self._queue if not r.paused)
+        try:
+            self._schedule_paged_queue()
+        finally:
+            if paused:
+                self._queue.extendleft(reversed(paused))
+
+    def _schedule_paged_queue(self) -> None:
+        # guarded-by: caller
         self._evict_oldest_hold_if_stuck()
         while self._queue:
             free = self._free_slots()
@@ -2142,6 +2325,13 @@ class RolloutEngine:
             self._graft_group_spine(req, row, g)
             return
         self._stats["prefills"] += 1
+        if req.adapter_binding is not None and req.prefix_id is not None:
+            # Shared prefixes are BASE-policy KV: any adapter target
+            # perturbs the residual stream and so every later layer's
+            # k/v, and grafting a base prefix under an adapter would
+            # silently mix policies. Adapter rows take the full prefill.
+            req.prefix_id = None
+            self._stats["prefix_cache_misses"] += 1
         if req.tokens:
             # preemption resume: recompute prompt + everything emitted
             # except the last token (whose k/v is written when it is
@@ -2246,7 +2436,7 @@ class RolloutEngine:
         committed: set = set()
         for row in range(self.num_slots):
             req = self._slot_req[row]
-            if req is None or req.rid in self._prefill_jobs:
+            if req is None or req.paused or req.rid in self._prefill_jobs:
                 continue
             p = self._row_len[row]
             props = spec_plan.get(row) if spec_plan else None
@@ -2284,7 +2474,7 @@ class RolloutEngine:
         budget = max(0, self._step_tokens - len(toks_l))
         for row in range(self.num_slots):
             req = self._slot_req[row]
-            if req is None or budget <= 0:
+            if req is None or req.paused or budget <= 0:
                 continue
             job = self._prefill_jobs.get(req.rid)
             if job is None:
@@ -2327,10 +2517,27 @@ class RolloutEngine:
         """The fused step over the flat batch; returns host (tokens,
         log-probs) lists from ONE device→host copy."""
         as_t = lambda xs: torch.tensor(xs, dtype=torch.int64)   # noqa: E731
+        adapters = adapter_ids = None
+        if self.adapter_pool is not None:
+            # Per-rung slot ids beside the token batch: each entry takes
+            # its request's bound slot (the null slot 0 for base rows).
+            # Built on every step, prefill, decode and verify entries
+            # alike; the banks' shapes never change.
+            aid = [[0] * len(toks_l)
+                   for _ in range(self.adapter_pool.num_rungs)]
+            for i, row in enumerate(rows_l):
+                req = self._slot_req[row]
+                b = req.adapter_binding if req is not None else None
+                if b is not None:
+                    for j, s in enumerate(b.slot_ids):
+                        aid[j][i] = s
+            adapters = self.adapter_pool.banks()
+            adapter_ids = tuple(as_t(g) for g in aid)
         next_tok, logp, self.pool = _paged_fused_step(
             self.params, self.config, as_t(toks_l), self._tables_device(),
             as_t(rows_l), as_t(pos_l), as_t(wb_l), as_t(wo_l), self.pool,
-            self._gen, self.sample, self._use_paged_kernel)
+            self._gen, self.sample, self._use_paged_kernel,
+            adapters=adapters, adapter_ids=adapter_ids)
         # token ids (< 2**24) and f32 log-probs are both exact in f64
         host = profiled_device_get(
             torch.stack([next_tok.double(), logp.double()]),

@@ -56,6 +56,18 @@ ROUNDED_TOL = 1e-4 + 1e-9
 TASKS = apo.SIX_PATTERN_TASKS[:3]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def cpu_collector(**kw):
     return TraceCollector(
         reward_fn=functools.partial(score_trace, device="cpu"), **kw)

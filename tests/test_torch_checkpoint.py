@@ -27,6 +27,18 @@ from senweaver_ide_tpu_torch.training.checkpoint import STATE_FILE
 from senweaver_ide_tpu_torch.training.trainer import flatten_params
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _state(seed=0):
     cfg = tiny_test()
     return cfg, make_train_state(cfg, torch.Generator().manual_seed(seed),

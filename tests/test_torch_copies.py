@@ -11,6 +11,7 @@ import os
 import re
 
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -54,6 +55,18 @@ REWORDED_LINES = {
 ALLOWED_TO_DIFFER = {}
 
 _NAME = re.compile(r"\bsenweaver_ide_tpu\b")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("module", COPIES)

@@ -4,6 +4,8 @@ log-probs within 1e-4 (fp32 tiny-test config, block_size 4), through
 slot contention, mid-stream submits, eos, pool-exhaustion preemption and
 the int8 KV ladder. Shared stats() counters must agree."""
 
+import types
+
 import jax
 import numpy as np
 import pytest
@@ -16,10 +18,23 @@ from senweaver_ide_tpu.rollout import EngineConfig as JaxEngineConfig
 from senweaver_ide_tpu.rollout import RolloutEngine as JaxEngine
 from senweaver_ide_tpu.rollout.sampler import SampleParams as JaxSample
 from senweaver_ide_tpu_torch.models import params_from_numpy, tiny_test
-from senweaver_ide_tpu_torch.rollout import (EngineConfig, RolloutEngine,
+from senweaver_ide_tpu_torch.rollout import (AdapterPool, EngineConfig,
+                                             RolloutEngine,
                                              SampleParams)
 
 LOGP_ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)
@@ -228,10 +243,19 @@ def test_kernel_on_cpu_and_out_of_slice_submits_raise(weights):
         RolloutEngine(tparams, tcfg, device="cpu",
                       engine_config=EngineConfig(paged_kernel=True))
     eng = RolloutEngine(tparams, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # adapters are served now: without a pool an adapter submit is
+    # refused as the JAX engine refuses it, and a pool needs the paged
+    # layout and the engine's device
+    with pytest.raises(ValueError, match="no adapter_pool"):
         eng.submit([1, 2], adapter_id="t")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        RolloutEngine(tparams, tcfg, device="cpu", adapter_pool=object())
+    with pytest.raises(ValueError, match="paged KV layout"):
+        RolloutEngine(tparams, tcfg, device="cpu",
+                      adapter_pool=AdapterPool(tcfg, device="cpu"),
+                      engine_config=EngineConfig(kv_layout="slots"))
+    with pytest.raises(ValueError, match="adapter_pool lives on"):
+        RolloutEngine(tparams, tcfg, device="cpu",
+                      adapter_pool=types.SimpleNamespace(
+                          device=torch.device("meta")))
 
 
 def test_params_on_wrong_device_raise(weights):

@@ -35,6 +35,18 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _inputs(rng, spec, d=16):
     b, sq, skv = spec["b"], spec["sq"], spec["skv"]
     q = rng.standard_normal((b, sq, spec["hq"], d)).astype(np.float32)

@@ -21,6 +21,18 @@ ATOL = 2e-5          # the JAX tests' kernel-vs-reference tolerance
 BF16_ATOL = 3e-2     # bf16 I/O, fp32 accumulation on both sides
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _mk(rng, b, smax, hq, hkv, d):
     q = rng.standard_normal((b, 1, hq, d)).astype(np.float32)
     k = rng.standard_normal((b, smax, hkv, d)).astype(np.float32)

@@ -1,14 +1,15 @@
 """The port's group-shared and tree-structured rollout against the JAX
 package's, on the same weights (fp32 ``tiny_test``, greedy, paged,
-4-token blocks). Mirrors tests/test_group_tree.py without its LoRA and
-fleet cases (those wait for the port's adapter pool and serving fleet):
+4-token blocks). Mirrors tests/test_group_tree.py without its fleet case
+(that waits for the port's serving fleet):
 
 - ``fork_n`` and ``fork`` on the port's allocator;
 - a group of 8 paying one prefill; a group with speculation on; more
   members than slots; a tree fork at every depth with speculation on
   and off; fork validation; donor death before the spine capture and
-  mid-decode; block exhaustion mid-group; a weight publish mid-roll.
-  Each scenario runs on a JAX and a port engine step by step: emitted
+  mid-decode; block exhaustion mid-group; a weight publish mid-roll;
+  under an active LoRA tenant: a group, forks at every depth, and an
+  adapter publish mid-roll pinning the tree's version. Each scenario runs on a JAX and a port engine step by step: emitted
   tokens equal at every step, every leaf equal to an unshared
   independent decode of its stream, the shared ``stats()`` counters
   (``group_*``, ``branch_forks``, ``kv_cow_copies``) equal, and both
@@ -29,6 +30,7 @@ import torch
 from senweaver_ide_tpu import obs as jobs
 from senweaver_ide_tpu.models import init_params as jax_init_params
 from senweaver_ide_tpu.models import tiny_test as jax_tiny_test
+from senweaver_ide_tpu.rollout import AdapterPool as JaxAdapterPool
 from senweaver_ide_tpu.rollout import BranchPolicy as JaxPolicy
 from senweaver_ide_tpu.rollout import EngineConfig as JaxEngineConfig
 from senweaver_ide_tpu.rollout import GroupRollout as JaxGroupRollout
@@ -42,12 +44,14 @@ from senweaver_ide_tpu.training.rl_loop import \
     collect_tree_trajectories as jax_collect_tree
 from senweaver_ide_tpu_torch import obs
 from senweaver_ide_tpu_torch.models import params_from_numpy, tiny_test
-from senweaver_ide_tpu_torch.rollout import (BlockAllocator, BranchPolicy,
+from senweaver_ide_tpu_torch.rollout import (AdapterPool, BlockAllocator,
+                                             BranchPolicy,
                                              EngineConfig, GroupRollout,
                                              RolloutEngine, SampleParams)
 from senweaver_ide_tpu_torch.training import (collect_group_trajectories,
                                               collect_tree_trajectories,
                                               grpo_round, make_train_state)
+from senweaver_ide_tpu_torch.training.lora import merge_lora
 
 PROMPT = [5, 9, 2, 7, 1, 3]
 LOGP_ATOL = 1e-4
@@ -95,16 +99,21 @@ class Pair:
     ``fn`` to both and requires the same return value."""
 
     def __init__(self, m, *, num_slots=8, max_len=96, num_blocks=None,
-                 spec=False):
+                 spec=False, adapters=False):
         self.m = m
         self.j = JaxEngine(m["jt"], m["jcfg"], num_slots=num_slots,
                            max_len=max_len, sample=JaxSample(0.0, 0, 1.0),
+                           adapter_pool=(JaxAdapterPool(m["jcfg"])
+                                         if adapters else None),
                            engine_config=JaxEngineConfig(
                                kv_layout="paged", block_size=4,
                                num_blocks=num_blocks))
         self.t = RolloutEngine(m["tt"], m["tcfg"], num_slots=num_slots,
                                max_len=max_len,
                                sample=SampleParams(0.0, 0, 1.0),
+                               adapter_pool=(AdapterPool(m["tcfg"],
+                                                         device="cpu")
+                                             if adapters else None),
                                engine_config=EngineConfig(
                                    block_size=4, num_blocks=num_blocks),
                                device="cpu")
@@ -116,6 +125,15 @@ class Pair:
         a, b = fn(self.j), fn(self.t)
         assert a == b
         return b
+
+    def publish(self, key, seed, scale=0.05):
+        """The same nonzero-B rank-4 adapter, from a numpy seed, to both
+        engines; returns the port's copy."""
+        arrs = _lora_arrays(self.m["tcfg"], seed, scale)
+        self.do(lambda e: e.publish_adapter(key, {"layers": {
+            k: (torch.from_numpy(v) if e is self.t else jax.numpy.asarray(v))
+            for k, v in arrs.items()}}))
+        return {"layers": {k: torch.from_numpy(v) for k, v in arrs.items()}}
 
     def steps(self, n=None):
         i = 0
@@ -143,9 +161,27 @@ class Pair:
         return ts
 
 
+def _lora_arrays(cfg, seed, scale, rank=4):
+    """A rank-``rank`` adapter with NONZERO B (init_lora's B = 0 would
+    make an adapter parity vacuous), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    dims = {"wq": (cfg.hidden_size, cfg.q_dim),
+            "wk": (cfg.hidden_size, cfg.kv_dim),
+            "wv": (cfg.hidden_size, cfg.kv_dim),
+            "wo": (cfg.q_dim, cfg.hidden_size)}
+    out = {}
+    for t, (d_in, d_out) in dims.items():
+        out[t + "_lora_a"] = (rng.standard_normal(
+            (cfg.num_layers, d_in, rank)) * 2.0 / d_in ** 0.5).astype(
+                np.float32)
+        out[t + "_lora_b"] = (rng.standard_normal(
+            (cfg.num_layers, rank, d_out)) * scale).astype(np.float32)
+    return out
+
+
 def independent(m, prompt, max_new, params=None):
     """The unshared reference on the port: a fresh engine, a plain
-    prefill."""
+    prefill (``params`` may carry merged adapter leaves)."""
     eng = RolloutEngine(params or m["tt"], m["tcfg"], num_slots=2,
                         max_len=96, sample=SampleParams(0.0, 0, 1.0),
                         engine_config=EngineConfig(block_size=4),
@@ -239,6 +275,32 @@ def test_tree_fork_exact_at_every_depth(models, spec):
         >= 1
 
 
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+def test_tree_fork_exact_at_every_depth_with_lora(models, spec):
+    """The same tree under an active adapter: every branch decodes under
+    the root's binding and equals an independent decode of its stream on
+    ``merge_lora(base, adapter)``."""
+    pair = Pair(models, spec=spec, adapters=True)
+    merged = merge_lora(models["tt"], pair.publish("t1", seed=5))
+    root = pair.do(lambda e: e.submit(PROMPT, max_new_tokens=14,
+                                      adapter_id="t1"))
+    pair.step_until(root, 4)
+    c_sampled = pair.do(lambda e: e.fork_request(root))
+    c_forced = pair.do(lambda e: e.fork_request(root, token=7))
+    pair.step_until(c_sampled, len(pair.t.result(c_sampled)) + 3)
+    c_deep = pair.do(lambda e: e.fork_request(c_sampled, token=2))
+    assert pair.t._requests[c_deep].adapter_binding.version == 1
+    pair.steps()
+    for rid in (root, c_sampled, c_forced, c_deep):
+        stream = pair.t._requests[rid].prompt
+        got = pair.t.result(rid)
+        assert got == independent(models, stream, len(got), params=merged)
+    assert got != independent(models, stream, len(got))   # not vacuous
+    assert pair.check([root, c_sampled, c_forced, c_deep])["branch_forks"] \
+        >= 1
+    assert pair.t.adapter_stats() == pair.j.adapter_stats()
+
+
 def test_fork_validation_errors(models):
     pair = Pair(models)
     rid = pair.do(lambda e: e.submit(PROMPT, max_new_tokens=6))
@@ -259,8 +321,10 @@ def test_fork_validation_errors(models):
         slots.submit_group(PROMPT, 2)
     with pytest.raises(ValueError, match="paged"):
         slots.fork_request(0)
-    with pytest.raises(NotImplementedError):
-        pair.t.submit_group(PROMPT, 2, adapter_id="t1")
+    for e in (pair.j, pair.t):
+        # a tenant group needs an adapter pool (the JAX engine's refusal)
+        with pytest.raises(ValueError, match="no adapter_pool"):
+            e.submit_group(PROMPT, 2, adapter_id="t1")
 
 
 # ---- degrade paths ----------------------------------------------------------
@@ -317,6 +381,46 @@ def test_publish_mid_roll_matches_jax(models):
     pair.steps()
     s = pair.check(rids + [child])
     assert s["branch_forks"] == 1 and s["group_prefills"] == 1
+
+
+def test_group_exact_under_active_adapter(models):
+    """A group under a LoRA tenant matches the merged-params unshared
+    reference: the graft shares adapter-conditioned KV."""
+    pair = Pair(models, adapters=True)
+    merged = merge_lora(models["tt"], pair.publish("t1", seed=3))
+    ref = independent(models, PROMPT, 10, params=merged)
+    rids = pair.do(lambda e: e.submit_group(PROMPT, 4, max_new_tokens=10,
+                                            adapter_id="t1"))
+    pair.steps()
+    assert all(pair.t.result(r) == ref for r in rids)
+    assert ref != independent(models, PROMPT, 10)
+    assert pair.check(rids)["group_prefills"] == 1
+    assert pair.t.adapter_stats() == pair.j.adapter_stats()
+
+
+def test_branch_under_mid_roll_publish_pins_version(models):
+    """An adapter publish landing mid-tree must not mix policies: the
+    group and a branch forked AFTER the publish stay on the submit-time
+    version and match the v1 merged reference end to end."""
+    pair = Pair(models, adapters=True)
+    v1 = merge_lora(models["tt"], pair.publish("t1", seed=11))
+    ref = independent(models, PROMPT, 12, params=v1)
+    rids = pair.do(lambda e: e.submit_group(PROMPT, 3, max_new_tokens=12,
+                                            adapter_id="t1"))
+    pair.step_until(rids[0], 3)
+    pair.publish("t1", seed=12, scale=0.2)      # mid-roll publish
+    child = pair.do(lambda e: e.fork_request(rids[0]))
+    assert pair.do(lambda e: e._requests[child].adapter_binding.version) \
+        == pair.t._requests[rids[0]].adapter_binding.version == 1
+    assert pair.t.adapter_stats()["version_skew"] == 1
+    pair.steps()
+    assert all(pair.t.result(r) == ref for r in rids)
+    stream = pair.t._requests[child].prompt
+    got = pair.t.result(child)
+    assert got == independent(models, stream, len(got), params=v1)
+    pair.check(rids + [child])
+    assert pair.t.adapter_stats() == pair.j.adapter_stats()
+    assert pair.t.adapter_stats()["version_skew"] == 0
 
 
 # ---- the GroupRollout planner -----------------------------------------------

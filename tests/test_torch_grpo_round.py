@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from senweaver_ide_tpu import obs
 from senweaver_ide_tpu.models import forward as jax_forward
@@ -46,6 +47,18 @@ METRIC_TOL = 1e-5
 # log-probs by ~1e-5; 1e-4 as in tests/test_torch_engine.py
 LOGP_ATOL = 1e-4
 LOGITS_ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _reward(tokens):

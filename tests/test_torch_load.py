@@ -61,6 +61,18 @@ LOGITS_TOL = 2e-4          # tests/test_load.py's HF parity tolerance
 IDS = np.asarray([[1, 5, 9, 42, 7, 3, 100, 2]])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _bits(x) -> np.ndarray:
     """An array's bits as a numpy array: bf16 (torch or ml_dtypes) as
     uint16, fp8 as uint8, everything else as is."""

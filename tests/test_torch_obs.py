@@ -30,6 +30,18 @@ from senweaver_ide_tpu_torch.rollout import paged_kv as tpaged
 PROMPTS = [[5, 9, 2], list(range(20, 40)), [300, 7]]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _rearm_memory_sampling():
     """Each module-level profiled function samples device memory every
     ``mem_every`` calls, on a countdown that outlives ``_reset_for_tests``;

@@ -22,6 +22,11 @@ whose ``runtime/`` is not ported) and the resume cases of
   restored params.
 - A plumbing run on the port's own engine (``EnginePolicyClient``, gates
   lowered): APO analyzes and runs its beam inside the loop.
+- A tenant loop (``tenant_id``) on each side over adapter leaves from
+  ``make_lora_train_state``, each with an engine holding an adapter pool:
+  every round publishes the tenant's adapter (never the base weights) at
+  the same ``adapter_version`` on both, and the tenant's next request
+  decodes under it.
 """
 
 import dataclasses
@@ -39,6 +44,9 @@ from senweaver_ide_tpu import apo as japo
 from senweaver_ide_tpu.models.tokenizer import ByteTokenizer as JaxTokenizer
 from senweaver_ide_tpu.rollout.session import RolloutSession as JaxSession
 from senweaver_ide_tpu.traces.collector import TraceCollector as JaxCollector
+from senweaver_ide_tpu.rollout import AdapterPool as JaxAdapterPool
+from senweaver_ide_tpu.rollout import RolloutEngine as JaxEngine
+from senweaver_ide_tpu.rollout.sampler import SampleParams as JaxSample
 from senweaver_ide_tpu.training import OnlineImprovementLoop as JaxLoop
 from senweaver_ide_tpu.training import make_train_state as jax_train_state
 from senweaver_ide_tpu.training.grpo import GRPOConfig as JaxGRPOConfig
@@ -47,7 +55,7 @@ from senweaver_ide_tpu_torch.apo.eval import outcome_feedback
 from senweaver_ide_tpu_torch.models import (ByteTokenizer, params_from_numpy,
                                             tiny_test)
 from senweaver_ide_tpu_torch.rewards import score_trace
-from senweaver_ide_tpu_torch.rollout import (EnginePolicyClient,
+from senweaver_ide_tpu_torch.rollout import (AdapterPool, EnginePolicyClient,
                                              RolloutEngine, RolloutSession,
                                              SampleParams)
 from senweaver_ide_tpu_torch.traces import TraceCollector
@@ -55,7 +63,9 @@ from senweaver_ide_tpu_torch.training import (CheckpointManager,
                                               ExperienceQueue, GRPOConfig,
                                               OnlineImprovementLoop,
                                               StreamingTrainerAdapter,
+                                              make_lora_train_state,
                                               make_train_state, train_step)
+from senweaver_ide_tpu_torch.training.lora import merge_lora, split_lora
 from senweaver_ide_tpu_torch.training.trainer import flatten_params
 from senweaver_ide_tpu_torch.training.online import ANCHOR_FILE
 
@@ -65,6 +75,18 @@ LR = 1e-3
 TASKS2 = apo.SIX_PATTERN_TASKS[:2]
 APO_GATES = dict(min_traces_for_analysis=4, min_feedbacks_for_analysis=4,
                  gradient_min_feedbacks=4, beam_rounds=1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def spread(ti, g, s):
@@ -449,3 +471,77 @@ def test_experience_sink_streams_like_jax(tmp_path, init):
     assert sorted(mt) == sorted(mj)
     for k, v in mj.items():
         assert mt[k] == pytest.approx(v, abs=METRIC_TOL, rel=METRIC_TOL), k
+
+
+def test_tenant_loop_publishes_the_adapter_like_jax(tmp_path, init):
+    """``tenant_id`` on both loops: the round trains the merged tree
+    (base + the adapter leaves of ``make_lora_train_state``, rank 4) and
+    publishes ONLY the adapter leaves to an engine with an adapter pool,
+    at version 1 then 2 on both sides; the base the engine serves is
+    untouched, and after each round the tenant's next request decodes
+    under the new version, equal to a pool-less engine serving
+    ``merge_lora(base, published adapter)``. Before the port's engine had
+    ``publish_adapter``, this loop fell to ``update_params`` with the
+    adapter tree and raised ``KeyError: 'embed'``."""
+    jcfg, host = init
+    cfg = tiny_test()
+    base = params_from_numpy(host, device="cpu")
+    lora0 = make_lora_train_state(cfg, base, torch.Generator().manual_seed(1),
+                                  rank=4).params
+    lora_np = {k: v.numpy().copy() for k, v in lora0["layers"].items()}
+    greedy = dict(num_slots=2, max_len=128, eos_id=None)
+    loops, engines = {}, {}
+    for side in ("jax", "port"):
+        stack = list(_stack(side, tmp_path, init, tag=f"{side}-t",
+                            salt=True))
+        if side == "jax":
+            jbase = jax.tree_util.tree_map(jax.numpy.asarray, host)
+            merged = {**jbase, "layers": {
+                **jbase["layers"],
+                **{k: jax.numpy.asarray(v) for k, v in lora_np.items()}}}
+            stack[0] = jax_train_state(jcfg, None, None, params=merged,
+                                       learning_rate=LR)
+            eng = JaxEngine(jbase, jcfg, sample=JaxSample(0.0, 0, 1.0),
+                            adapter_pool=JaxAdapterPool(jcfg), **greedy)
+        else:
+            merged = merge_lora(base, {"layers": {
+                k: torch.from_numpy(v.copy()) for k, v in lora_np.items()}})
+            stack[0] = make_train_state(cfg, params=merged, learning_rate=LR)
+            eng = RolloutEngine(base, cfg, sample=SampleParams(0.0, 0, 1.0),
+                                adapter_pool=AdapterPool(cfg, device="cpu"),
+                                device="cpu", **greedy)
+        engines[side] = eng
+        loops[side] = _loop(side, tuple(stack), TASKS2, engine=eng,
+                            tenant_id="t0", reward_override=spread)
+    prompt = [5, 9, 2, 7, 1, 3]
+    for version in (1, 2):
+        rounds = {side: lp.run_round() for side, lp in loops.items()}
+        got, want = rounds["port"], rounds["jax"]
+        assert (got.rules, got.episodes) == (want.rules, want.episodes)
+        assert got.reward_mean == pytest.approx(want.reward_mean,
+                                                abs=REWARD_TOL)
+        for k in ("loss", "kl"):
+            assert got.train_metrics[k] == pytest.approx(
+                want.train_metrics[k], abs=METRIC_TOL, rel=METRIC_TOL), k
+        for side, lp in loops.items():
+            eng = engines[side]
+            assert lp._published_version == version
+            assert eng.adapter_stats()["adapters"] == {"t0": version}
+            assert eng.stats()["adapters_published"] == 1
+        eng = engines["port"]
+        assert eng.params is base               # the base was not replaced
+        rid = eng.submit(prompt, max_new_tokens=8, adapter_id="t0")
+        out = eng.run()[rid]
+        _, published = split_lora(loops["port"].state.params)
+        ref = RolloutEngine(merge_lora(base, published), cfg,
+                            sample=SampleParams(0.0, 0, 1.0), device="cpu",
+                            **greedy)
+        ref_rid = ref.submit(prompt, max_new_tokens=8)
+        assert out == ref.run()[ref_rid]
+        jeng = engines["jax"]
+        jrid = jeng.submit(prompt, max_new_tokens=8, adapter_id="t0")
+        assert len(jeng.run()[jrid]) == len(out) == 8
+        assert (eng.adapter_stats()["installs"]
+                == jeng.adapter_stats()["installs"] == version)
+    for eng in engines.values():
+        eng._alloc.check_leaks()

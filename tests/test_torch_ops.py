@@ -25,6 +25,18 @@ from senweaver_ide_tpu_torch.ops import sampling as t_sampling
 ATOL = 2e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _close(t_out, j_out, atol=ATOL):
     np.testing.assert_allclose(t_out.detach().numpy(), np.asarray(j_out),
                                atol=atol, rtol=atol)

@@ -23,6 +23,18 @@ from senweaver_ide_tpu_torch.ops.flash_decode import (BLOCKS_PER_SM, FD_TILE,
 ATOL = 2e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _mk(rng, t, nb, bs, mb, hq, hkv, d):
     q = rng.standard_normal((t, hq, d)).astype(np.float32)
     k = rng.standard_normal((nb, bs, hkv, d)).astype(np.float32)

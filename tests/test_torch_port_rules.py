@@ -24,6 +24,18 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "safetensors",
           "ml_dtypes", "senweaver_ide_tpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _banned(module: str) -> bool:
     """Exact match on the top-level name: ``senweaver_ide_tpu_torch``
     shares a prefix with ``senweaver_ide_tpu`` but is not it."""
@@ -91,7 +103,8 @@ print("imported", n)
 PORTED_MODULES = ("rollout/speculative", "rollout/spec_controller",
                   "rollout/group_tree", "rollout/paged_kv",
                   "rollout/engine", "training/draft_distill",
-                  "training/rl_loop")
+                  "training/rl_loop", "rollout/adapter_pool",
+                  "rollout/migration", "models/transformer")
 
 
 @pytest.mark.parametrize("module", PORTED_MODULES)
@@ -129,6 +142,32 @@ def test_entry_points_refuse_without_a_card(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RolloutEngine(params, cfg)
     RolloutEngine(params, cfg, device="cpu")
+
+
+def test_adapter_pool_refuses_without_a_card(no_cuda):
+    from senweaver_ide_tpu_torch.rollout import AdapterPool
+    cfg = tiny_test()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AdapterPool(cfg)
+    pool = AdapterPool(cfg, device="cpu")
+    assert all(a.device.type == "cpu"
+               for bank in pool.banks() for a in bank.values())
+    # a CPU pool on a CPU engine; the engine refuses a pool elsewhere
+    params = init_params(cfg, torch.Generator(), device="cpu")
+    RolloutEngine(params, cfg, adapter_pool=pool, device="cpu")
+
+
+def test_migration_module_imports_under_the_blocker():
+    """The two rewritten modules of this slice import with JAX blocked
+    (the package-wide walk above covers them too; this names them)."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    code = _BLOCKED_IMPORT.format(banned=BANNED) + (
+        "import senweaver_ide_tpu_torch.rollout.adapter_pool\n"
+        "import senweaver_ide_tpu_torch.rollout.migration\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
 
 
 def test_generator_must_match_device(monkeypatch):

@@ -36,6 +36,18 @@ HOT = [5, 9, 2, 7, 4, 4, 8, 1]       # 8 tokens = 2 full blocks @ bs 4
 COLD = [11, 3, 8, 1, 2, 6, 9, 5]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def _fresh_obs():
     obs._reset_for_tests()

@@ -23,6 +23,18 @@ from senweaver_ide_tpu_torch.rollout import sampler
 GREEDY = (0.0, 0, 1.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def weights():
     jparams = jax_init_params(jax_tiny_test(), jax.random.PRNGKey(8))

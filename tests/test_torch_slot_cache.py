@@ -28,6 +28,18 @@ _jax_forward = jax.jit(jax_tf.forward,
                        static_argnames=("config", "fresh_cache", "with_aux"))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny-model engine steps are thousands of small ops: with several
+    pytest-xdist workers, torch's default thread pool in each of them
+    oversubscribes the host's cores and spins, several times slower than
+    one thread. The previous setting is restored for the next module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def weights():
     jcfg = jax_config.tiny_test()
