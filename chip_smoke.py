@@ -203,12 +203,41 @@ Phases, each fatal on failure:
     teacher forcing; K1 = 28 x the fused steps of every engine, K2 and K3
     0. Prints checkpoint bytes, gather and install ms and GB/s, and the
     recompute restore's ms.
-21. A JSON line with every kernel's numbers (``launches_round``,
+21. Weight-only int8 (``phase_int8``) on the 1.5B weights of phases
+    12-20: ``quantize_weights_int8`` (bytes computed and measured), one
+    fused step's logits on int8 weights, K1 vs the plain path and vs the
+    no-cache forward, within the tie tolerance; 16 greedy requests of
+    128-1024 tokens, 64 new, on int8 and on bf16 weights (tok/s, p50 /
+    p90 step ms, device ms a step from a profiled window each); a bf16
+    publish into the int8 engine is quantized again (weight_quant 1) and
+    serves. K1 = 28 x fused steps of every engine, K2 and K3 0.
+22. Mixture-of-experts (``phase_moe``) at full Qwen3-30B-A3B width and
+    depth (48 layers, 128 experts, top-8) after the Mistral weights are
+    freed: K1 (two-entry tiles at rep 8) and K2 (2 x 511) at its 32/4
+    heads against their plain versions, timed beside their bounds;
+    random bf16 weights (61.06 GB); the serving engine (16 slots,
+    max_len 2048, block 16, budget 64) on 16 greedy requests of
+    128-1024 tokens, 32 new, K1 = 48 x fused steps, and the last routed
+    layer of its first fused step against a per-expert loop on that
+    step's own flat batch (dropped share, expert load); the same traffic
+    under a dropless copy of the config (capacity factor E/k: no batch
+    dependence), every token teacher-forced against the plain forward;
+    int8 in place, one stacked tensor at a time (peak printed), the
+    traffic again on int8 weights (tok/s, p50, token agreement as a
+    figure); one QLoRA GRPO step on the int8 base under the dropless
+    copy (rank 16 on wq/wk/wv/wo, flash, remat, accum 4, 2 prompts x 4
+    sampled completions of 64 from an int8 engine): only the adapters
+    move, finite metrics, first-step |ratio_mean - 1|, K2 = 384 / 192 /
+    192; materialize_lora re-quantizes, update_params into the int8
+    engine and one more request.
+23. A JSON line with every kernel's numbers (``launches_round``,
     ``launches_online``, ``launches_reuse``, ``launches_async``,
-    ``launches_spec``, ``launches_group``, ``launches_tenants`` and
-    ``launches_migrate``: the counts of those phases' runs; K1's entry
-    also its times at the draft's heads, ``d64_*``, and at the verify
-    step, ``verify_*``), the card line, and last the JSON ok line.
+    ``launches_spec``, ``launches_group``, ``launches_tenants``,
+    ``launches_migrate``, ``launches_int8``, ``launches_moe`` and
+    ``launches_qlora``: the counts of those phases' runs; K1's entry
+    also its times at the draft's heads, ``d64_*``, at the verify step,
+    ``verify_*``, and at Qwen3-30B-A3B's heads, ``rep8_*``; K2's at
+    those heads, ``rep8_*``), the card line, and last the JSON ok line.
 
 Exits non-zero, printing no result, without CUDA or without the
 ``senweaver_ide_tpu_torch`` package beside this file.
@@ -799,43 +828,39 @@ def phase_kernel(torch, cfg, timer):
 K1_SPEC_DEPTH = 4
 
 
-def phase_kernel_spec(torch, cfg, dcfg, timer):
-    """K1 at the draft's heads against its plain version (ragged lengths,
-    the split plan's chunk and tile edges and 0, segments in two-entry
-    tiles and untiled, NaN past every reach, a second launch
-    bit-identical), then its times beside the bytes bound: the draft's
-    decode step (16 rows, lengths 128..2048) and the 1.5B verify step
-    (16 rows x depth K1_SPEC_DEPTH in query tiles)."""
+def _k1_head_checks(torch, g, hcfg, tag):
+    """K1 against its plain version at ``hcfg``'s heads: ragged lengths,
+    the split plan's chunk and tile edges and 0, decode rows plus prefill
+    segments in query tiles (TILE_ROWS // rep entries) and untiled, NaN
+    past every reach and a second launch bit-identical. Returns the
+    worst |kernel - plain|."""
     from senweaver_ide_tpu_torch.ops.flash_decode import split_plan
-    from senweaver_ide_tpu_torch.ops.paged_attention import (
-        TILE_ROWS, paged_flash_decode, paged_flash_decode_plain,
-        query_tiles)
-    hq, hkv, d, bs = dcfg.num_heads, dcfg.num_kv_heads, dcfg.head_dim, K1_BS
+    from senweaver_ide_tpu_torch.ops.paged_attention import (TILE_ROWS,
+                                                             query_tiles)
+    hq, hkv, d, bs = hcfg.num_heads, hcfg.num_kv_heads, hcfg.head_dim, K1_BS
     rep = hq // hkv
     cap = K1_MB * bs
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    g = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
     # ragged lengths, one table row each
     ragged = [1, 15, 16, 17, 1000, 2048]
     q_r, pool_r, tables_r, lengths_r, _, _ = _k1_seq_batch(
-        torch, g, "bf16", dcfg, ragged,
+        torch, g, "bf16", hcfg, ragged,
         [(i, n - 1) for i, n in enumerate(ragged)])
-    worst = max(worst, _k1_check(torch, "D=64 ragged", q_r, pool_r,
+    worst = max(worst, _k1_check(torch, f"{tag} ragged", q_r, pool_r,
                                  tables_r, lengths_r))
     # lengths on the batch's split-plan chunk and tile edges, and 0
     _, chunk = split_plan(11, hkv, cap, sms)
     lens = [0, 1, 63, 64, 65, chunk - 1, chunk, chunk + 1, 2 * chunk + 1,
             cap - 1, cap]
     q_e, pool_e, tables_e, lengths_e, _, _ = _k1_seq_batch(
-        torch, g, "bf16", dcfg, lens,
+        torch, g, "bf16", hcfg, lens,
         [(i, max(n, 1) - 1) for i, n in enumerate(lens)])
     lengths_e[0] = 0
-    worst = max(worst, _k1_check(torch, f"D=64 edges (chunk {chunk})", q_e,
-                                 pool_e, tables_e, lengths_e))
-    # decode rows plus prefill segments (tiles of TILE_ROWS // 7 = 2
-    # entries), from a block edge, across the tiles' chunk edge and from
-    # a warp's 16-position step
+    worst = max(worst, _k1_check(torch, f"{tag} edges (chunk {chunk})",
+                                 q_e, pool_e, tables_e, lengths_e))
+    # decode rows plus prefill segments, from a block edge, across the
+    # tiles' chunk edge and from a warp's 16-position step
     decode = torch.linspace(128, 2048, 16).round().int().tolist()
     seq_lens = list(decode)
     entries = [(i, n - 1) for i, n in enumerate(decode)]
@@ -844,42 +869,66 @@ def phase_kernel_spec(torch, cfg, dcfg, timer):
         seq_lens.append(p0 + 10)
         entries += [(len(seq_lens) - 1, p) for p in range(p0, p0 + 10)]
     q_m, pool_m, tables_m, lengths_m, seq_row, pos = _k1_seq_batch(
-        torch, g, "bf16", dcfg, seq_lens, entries)
+        torch, g, "bf16", hcfg, seq_lens, entries)
     errs = []
     for tiled in (True, False):
         tiles = query_tiles(seq_row, pos, rep) if tiled else None
         if tiled and int(tiles[:, 1].max()) != TILE_ROWS // rep:
-            fail(f"D=64 tiles hold {int(tiles[:, 1].max())} entries, "
+            fail(f"{tag} tiles hold {int(tiles[:, 1].max())} entries, "
                  f"expected {TILE_ROWS // rep}")
-        e = _k1_check(torch, "D=64 segments " + ("tiled" if tiled
-                                                 else "untiled"),
+        e = _k1_check(torch, f"{tag} segments " + ("tiled" if tiled
+                                                   else "untiled"),
                       q_m, pool_m, tables_m, lengths_m, tiles)
         worst = max(worst, e)
         errs.append(e)
-    log(f"[kernel] D=64 heads {hq}/{hkv} (rep {rep}), bf16 pool: ragged "
-        f"{ragged}, edges {lens} (chunk {chunk}), T={len(entries)} with "
-        f"three 10-token segments in {TILE_ROWS // rep}-entry tiles (max "
-        f"|kernel - plain| {errs[0]:.3g}) and untiled ({errs[1]:.3g}); "
+    log(f"[kernel] {tag} heads {hq}/{hkv} D {d} (rep {rep}), bf16 pool: "
+        f"ragged {ragged}, edges {lens} (chunk {chunk}), T={len(entries)} "
+        f"with three 10-token segments in {TILE_ROWS // rep}-entry tiles "
+        f"(max |kernel - plain| {errs[0]:.3g}) and untiled ({errs[1]:.3g}); "
         f"length 0 exact zeros, NaN past every reach and a second launch "
         f"bit-identical; worst {worst:.3g}")
+    return worst
 
-    out = {"max_abs_err_d64": worst}
-    # timing 1: the draft's decode step, 16 rows spread to 2048
+
+def _k1_decode_time(torch, g, hcfg, timer):
+    """K1 at ``hcfg``'s heads on a decode step of 16 rows, lengths
+    128..2048, on a bf16 pool: (kernel ms, plain ms, bound ms, bytes)."""
+    from senweaver_ide_tpu_torch.ops.paged_attention import (
+        paged_flash_decode, paged_flash_decode_plain)
     lengths_t = torch.linspace(128, 2048, 16).round().int().tolist()
     q_t, pool_t, tables_t, len_t, _, _ = _k1_seq_batch(
-        torch, g, "bf16", dcfg, lengths_t,
+        torch, g, "bf16", hcfg, lengths_t,
         [(i, n - 1) for i, n in enumerate(lengths_t)])
     args = (q_t, pool_t[0], pool_t[1], tables_t, len_t)
     e, ok = _k1_err(paged_flash_decode(*args),
                     paged_flash_decode_plain(q_t.float(), *args[1:]))
     if not ok:
-        fail(f"D=64 timing batch: kernel vs plain max err {e}")
+        fail(f"K1 decode timing batch at heads {hcfg.num_heads}/"
+             f"{hcfg.num_kv_heads}: kernel vs plain max err {e}")
     nbytes, flops = _k1_bound(pool_t, q_t, len_t, lengths_t)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    out.update(d64_ms=timer.ms(lambda: paged_flash_decode(*args)),
-               d64_plain_ms=timer.ms(
-                   lambda: paged_flash_decode_plain(*args), iters=10),
-               d64_bound_ms=bound, d64_bytes=nbytes)
+    return (timer.ms(lambda: paged_flash_decode(*args)),
+            timer.ms(lambda: paged_flash_decode_plain(*args), iters=10),
+            bound, nbytes)
+
+
+def phase_kernel_spec(torch, cfg, dcfg, timer):
+    """K1 at the draft's heads against its plain version (ragged lengths,
+    the split plan's chunk and tile edges and 0, segments in two-entry
+    tiles and untiled, NaN past every reach, a second launch
+    bit-identical), then its times beside the bytes bound: the draft's
+    decode step (16 rows, lengths 128..2048) and the 1.5B verify step
+    (16 rows x depth K1_SPEC_DEPTH in query tiles)."""
+    from senweaver_ide_tpu_torch.ops.paged_attention import (
+        paged_flash_decode, paged_flash_decode_plain, query_tiles)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = _k1_head_checks(torch, g, dcfg, "D=64")
+    out = {"max_abs_err_d64": worst}
+    # timing 1: the draft's decode step, 16 rows spread to 2048
+    ms, plain_ms, bound, nbytes = _k1_decode_time(torch, g, dcfg, timer)
+    out.update(d64_ms=ms, d64_plain_ms=plain_ms, d64_bound_ms=bound,
+               d64_bytes=nbytes)
+    hq, hkv, d = dcfg.num_heads, dcfg.num_kv_heads, dcfg.head_dim
     log(f"[kernel] draft decode step, heads {hq}/{hkv} D {d}, T=16 lengths "
         f"128..2048: kernel {out['d64_ms']:.4f} ms = "
         f"{bound / out['d64_ms']:.3f} of the bound, plain "
@@ -887,6 +936,7 @@ def phase_kernel_spec(torch, cfg, dcfg, timer):
         f"bytes)")
     # timing 2: the target's verify step, each row's depth-4 window ending
     # at its length
+    lengths_t = torch.linspace(128, 2048, 16).round().int().tolist()
     entries = [(i, n - K1_SPEC_DEPTH + j) for i, n in enumerate(lengths_t)
                for j in range(K1_SPEC_DEPTH)]
     q_v, pool_v, tables_v, len_v, seq_row, pos = _k1_seq_batch(
@@ -1207,6 +1257,23 @@ def _visible_pairs(s, window=None):
     return w * (w + 1) // 2 + (s - w) * w
 
 
+def _fa_work(b, s, hq, hkv, d):
+    """(flops, bytes) of each K2 kernel on a causal bf16 (B, S) batch:
+    the operations the function needs on this data, each input read and
+    each output written once."""
+    pairs = _visible_pairs(s)
+    el = 2                                     # bf16 bytes
+    qb = b * s * hq * d * el
+    kvb = b * s * hkv * d * el
+    rowb = b * hq * s * 4                      # one f32 (B, Hq, S) array
+    return {
+        "fwd": (4 * b * hq * d * pairs, qb + 2 * kvb + qb + rowb),
+        "dkdv": (8 * b * hq * d * pairs, 2 * qb + 2 * kvb + 2 * rowb
+                 + 2 * kvb),
+        "dq": (6 * b * hq * d * pairs, 2 * qb + 2 * kvb + 2 * rowb + qb),
+    }
+
+
 def phase_flash(torch, cfg, timer):
     """The K2 kernels (flash-attention forward, dK/dV, dQ) against their
     plain versions at qwen2.5-coder-1.5b attention shapes, bf16, then
@@ -1313,17 +1380,7 @@ def phase_flash(torch, cfg, timer):
     t["sdpa_fwd_bwd"] = timer.ms(lambda: torch.autograd.grad(
         sdpa(), (qt, kt_, vt), gt))
 
-    pairs = _visible_pairs(s)
-    el = 2                                     # bf16 bytes
-    qb = b * s * hq * d * el
-    kvb = b * s * hkv * d * el
-    rowb = b * hq * s * 4                      # one f32 (B, Hq, S) array
-    work = {   # flops the function needs on this run's data, and bytes
-        "fwd": (4 * b * hq * d * pairs, qb + 2 * kvb + qb + rowb),
-        "dkdv": (8 * b * hq * d * pairs, 2 * qb + 2 * kvb + 2 * rowb
-                 + 2 * kvb),
-        "dq": (6 * b * hq * d * pairs, 2 * qb + 2 * kvb + 2 * rowb + qb),
-    }
+    work = _fa_work(b, s, hq, hkv, d)
     res = fa.kernel_resources(d)
     n_kt = -(-s // 64)
     grid = {"fwd": -(-s // 128) * hq * b, "dkdv": n_kt * hq * b,
@@ -4317,6 +4374,703 @@ def phase_slots_logits(torch, cfg, params):
         fail(f"ring decode vs no-cache forward logits differ by {seq_diff}")
 
 
+# Weight-only int8 on the 1.5B (phase_int8): the serving engine's traffic,
+# greedy, once on int8 and once on bf16 weights; one profiled window a run
+INT8_REQUESTS, INT8_PROMPT_LENS, INT8_NEW = 16, (128, 1024), 64
+PROFILE_STEPS = 4
+# Qwen3-30B-A3B (phase_moe): the serving engine's shape, 32 new tokens
+MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS = 16, 2048, 16
+MOE_PROMPT_LENS, MOE_NEW = (128, 1024), 32
+# One routed layer of a fused step against the per-expert loop: the same
+# bf16 expert matmuls at other shapes round differently (2**-9 relative at
+# each bf16 output), the gates and the combine are fp32 on both sides
+MOE_LAYER_ATOL = MOE_LAYER_RTOL = 1e-2
+# K2 at Qwen3-30B-A3B's heads on the QLoRA step's shape: microbatch 2 x 511
+K2_REP8_B, K2_REP8_S = 2, 511
+# The QLoRA GRPO step on the int8 base: 2 prompts x 4 sampled completions,
+# attention targets, flash, remat, accum 4
+QLORA_PROMPTS, QLORA_GROUP, QLORA_NEW = 2, 4, 64
+QLORA_PROMPT_LENS, QLORA_RANK, QLORA_ACCUM, QLORA_LR = (384, 448), 16, 4, 1e-3
+
+
+def _step_logit_diffs(torch, cfg, params, seed):
+    """One fused step (3 decode rows, a 32-token prefill chunk, a dropped
+    write) on a pool prefilled through K1: (max |kernel - plain path|,
+    max |kernel path - the no-cache forward over each entry's sequence|,
+    entries)."""
+    from senweaver_ide_tpu_torch.models import forward, forward_paged
+    from senweaver_ide_tpu_torch.rollout import init_paged_pool
+    bs, mb = 16, 128
+    lens = [300, 700, 1500, 40]
+    pool = init_paged_pool(cfg, len(lens) * mb, bs, device="cuda")
+    tables = torch.arange(len(lens) * mb, dtype=torch.int32).view(-1, mb)
+    g = torch.Generator().manual_seed(seed + 7)
+    seqs = [torch.randint(0, cfg.vocab_size, (n + 32,), generator=g)
+            for n in lens]
+
+    def batch(entries):
+        cols = list(zip(*entries))
+        return dict(tokens=torch.tensor(cols[0]), seq_row=torch.tensor(
+            cols[1]), positions=torch.tensor(cols[2]),
+            write_block=torch.tensor(cols[3]),
+            write_off=torch.tensor(cols[4]))
+
+    def entry(row, pos, drop=False):
+        wb = pool.num_blocks if drop else int(tables[row, pos // bs])
+        return (int(seqs[row][pos]), row, pos, wb, pos % bs)
+
+    flat = [entry(r, p) for r, n in enumerate(lens) for p in range(n)]
+    with torch.no_grad():
+        for i in range(0, len(flat), 256):
+            forward_paged(params, cfg, pool=pool, tables=tables,
+                          use_kernel=True, **batch(flat[i:i + 256]))
+        step = ([entry(r, lens[r]) for r in range(3)]
+                + [entry(3, p) for p in range(lens[3], lens[3] + 32)]
+                + [entry(0, 10, drop=True)])
+        pools = [type(pool)(*(None if a is None else a.clone()
+                              for a in pool)) for _ in range(2)]
+        logits = [forward_paged(params, cfg, pool=p, tables=tables,
+                                use_kernel=k, **batch(step))[0].float()
+                  for p, k in zip(pools, (True, False))]
+        plain = float((logits[0] - logits[1]).abs().max())
+        ref = 0.0
+        for i, (_, row, pos, _, _) in enumerate(step[:-1]):
+            want = forward(params, cfg, seqs[row][None, :pos + 1].cuda())[
+                0, -1].float()
+            ref = max(ref, float((logits[0][i] - want).abs().max()))
+    return plain, ref, len(step)
+
+
+def _profiled_step_ms(torch, engine, steps):
+    """Device ms a fused step over ``steps`` steps under torch.profiler,
+    the window's idle share and its step count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(evt):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(evt, name):
+                return float(getattr(evt, name))
+        return 0.0
+
+    torch.cuda.synchronize()
+    # device activity only: a host-op trace of an MoE step (thousands of
+    # ops) took longer to summarise than the steps took to run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = 0
+        while n < steps and engine.has_work:
+            engine.step()
+            n += 1
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(device_us(e) for e in prof.key_averages()
+               if e.device_type.name == "CUDA")
+    return busy / 1e3 / max(n, 1), 1 - busy / wall_us, n
+
+
+def _serve_traffic(torch, engine, prompts, new, layers, label, reset,
+                   profile_after=None):
+    """Submit ``prompts`` (``new`` tokens each), zero K1's count, drive the
+    engine to the end and read the count: it must be layers x fused
+    steps. With ``profile_after``, PROFILE_STEPS steps after that many run
+    under the profiler (they count). Returns a dict of the run's
+    figures."""
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    st0 = engine.stats()
+    if reset:
+        paged_flash_decode.launches = 0
+    k0 = paged_flash_decode.launches
+    torch.cuda.synchronize()
+    step_ms, prof = [], None
+    prof_s, prof_tokens = 0.0, 0
+    t0 = time.perf_counter()
+    while engine.has_work:
+        if profile_after is not None and prof is None \
+                and len(step_ms) == profile_after:
+            # the window's steps run slower under the profiler: they are
+            # left out of the step times and the rate
+            e0, s = engine.stats()["tokens_emitted"], time.perf_counter()
+            prof = _profiled_step_ms(torch, engine, PROFILE_STEPS)
+            prof_s = time.perf_counter() - s
+            prof_tokens = engine.stats()["tokens_emitted"] - e0
+            continue
+        s = time.perf_counter()
+        engine.step()
+        step_ms.append((time.perf_counter() - s) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - prof_s
+    k1 = paged_flash_decode.launches - k0
+    st = engine.stats()
+    steps = st["decode_steps"] - st0["decode_steps"]
+    if k1 != layers * steps or k1 == 0:
+        fail(f"{label}: K1 launches {k1} != {layers} x {steps} fused steps")
+    streams = [engine.result(r) for r in rids]
+    for rid, toks in zip(rids, streams):
+        lp = engine.result_logps(rid)
+        if len(toks) != new or not all(x == x and x <= 0 for x in lp):
+            fail(f"{label}: request {rid} gave {len(toks)} tokens or a "
+                 f"non-finite / positive log-prob")
+    engine._alloc.check_leaks()
+    gen = st["tokens_emitted"] - st0["tokens_emitted"] - prof_tokens
+    return dict(wall=wall, steps=steps, k1=k1, tok_s=gen / wall,
+                p50=statistics.median(step_ms),
+                p90=statistics.quantiles(step_ms, n=10)[-1],
+                streams=streams, prof=prof)
+
+
+def _run_text(r):
+    text = (f"{r['steps']} fused steps, {r['wall']:.2f} s outside the "
+            f"profiled window = "
+            f"{r['tok_s']:.1f} tok/s, p50 step {r['p50']:.2f} ms, p90 step "
+            f"{r['p90']:.2f} ms, K1 {r['k1']}")
+    if r["prof"] is not None:
+        dev_ms, idle, n = r["prof"]
+        text += (f"; profiled window of {n} steps: {dev_ms:.2f} device ms a "
+                 f"step, idle share {idle:.3f}")
+    return text
+
+
+def _token_agreement(a, b):
+    pairs = [(x, y) for sa, sb in zip(a, b) for x, y in zip(sa, sb)]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
+def phase_int8(torch, cfg, params, seed, smi, tie_atol):
+    """Weight-only int8 on the qwen2.5-coder-1.5b weights: quantize_weights
+    _int8 (bytes computed and measured), one fused step's logits K1 vs the
+    plain path within the tie tolerance, the serving traffic on int8 and on
+    bf16 weights side by side with a profiled window each, then a bf16
+    publish into the int8 engine (re-quantized). K1 = 28 x fused steps.
+    Returns {"k1": launches} over the int8 engine's runs."""
+    import numpy as np
+    from senweaver_ide_tpu_torch.models import (is_quantized,
+                                                quantize_weights_int8,
+                                                quantized_bytes)
+    from senweaver_ide_tpu_torch.rollout import RolloutEngine, SampleParams
+    layers = cfg.num_layers
+    other0 = (_k2_count(), _k3_count())
+    before = quantized_bytes(params)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    qparams = quantize_weights_int8(params)
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    added = torch.cuda.memory_allocated() - alloc0
+    after = quantized_bytes(qparams)
+    new_bytes = sum(t.numel() * t.element_size() for t in _leaves(qparams)
+                    if not any(t is u for u in _leaves(params)))
+    log(f"[int8] {cfg.name}: quantize_weights_int8 in {q_s:.3f} s; param "
+        f"bytes {before} (bf16) -> {after} (int8 dense matrices, fp32 "
+        f"scales, the bf16 embed kept for the gather, the int8 tied-head "
+        f"shadow); new tensors {new_bytes} bytes computed, "
+        f"{added} bytes measured (memory_allocated)")
+    if not is_quantized(qparams) or qparams["tied_head_q8"].dtype != \
+            torch.int8:
+        fail("int8: quantize_weights_int8 left the weights full width")
+    plain, ref, n = _step_logit_diffs(torch, cfg, qparams, seed)
+    log(f"[int8] one fused step on int8 weights ({n} entries): K1 vs the "
+        f"plain path max |dlogit| {plain:.4g}, vs the no-cache forward "
+        f"{ref:.4g} (tie tolerance {tie_atol:.4f})")
+    if not (plain <= tie_atol and ref <= tie_atol):
+        fail(f"int8 fused step: logit paths differ by {max(plain, ref)} > "
+             f"{tie_atol}")
+
+    rng = np.random.default_rng(seed + 12)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(k)).tolist()
+               for k in rng.integers(INT8_PROMPT_LENS[0],
+                                     INT8_PROMPT_LENS[1] + 1,
+                                     size=INT8_REQUESTS)]
+    greedy = SampleParams(0.0, 0, 1.0)
+    runs = {}
+    k1 = 0          # every engine of the phase: 28 x its fused steps
+    for name, p in (("int8", qparams), ("bf16", params)):
+        eng = RolloutEngine(p, cfg, num_slots=16, max_len=2048,
+                            sample=greedy, seed=seed, device="cuda")
+        if eng.stats()["weight_quant"] != int(name == "int8"):
+            fail(f"int8: the {name} engine reports weight_quant "
+                 f"{eng.stats()['weight_quant']}")
+        runs[name] = _serve_traffic(torch, eng, prompts, INT8_NEW, layers,
+                                    f"int8 phase, {name} weights",
+                                    reset=name == "int8", profile_after=40)
+        k1 += runs[name]["k1"]
+        if name == "int8":
+            # the trainer publishes full-precision weights: re-quantized
+            eng.update_params(params)
+            if eng.stats()["weight_quant"] != 1 or \
+                    eng.params["layers"]["wq"].dtype != torch.int8:
+                fail("int8: a bf16 publish was not quantized again")
+            steps0, k0 = eng.stats()["decode_steps"], _k1_count()
+            rid = eng.submit(prompts[0], max_new_tokens=8)
+            eng.run()
+            n = _k1_count() - k0
+            if n != layers * (eng.stats()["decode_steps"] - steps0):
+                fail(f"int8 publish: K1 {n} != {layers} x fused steps")
+            k1 += n
+            if len(eng.result(rid)) != 8:
+                fail("int8: the engine did not serve after the publish")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    agree = _token_agreement(runs["int8"]["streams"], runs["bf16"]["streams"])
+    lens = [len(p) for p in prompts]
+    for name in ("int8", "bf16"):
+        log(f"[int8] {name} weights, {INT8_REQUESTS} greedy requests "
+            f"(prompts {min(lens)}..{max(lens)}, {INT8_NEW} new), {smi}: "
+            + _run_text(runs[name]))
+    q, b = runs["int8"], runs["bf16"]
+    log(f"[int8] int8 / bf16: tok/s {q['tok_s'] / b['tok_s']:.3f}x, "
+        f"p50 step {q['p50'] / b['p50']:.3f}x; greedy "
+        f"token agreement int8 vs bf16 {agree:.3f} (a figure, not a "
+        f"check); publish of bf16 weights re-quantized (weight_quant 1), "
+        f"served 8 more tokens; K1 {k1} = {layers} x fused steps")
+    del qparams
+    return {"k1": k1, **_other_launches(other0, "int8")}
+
+
+def _k3_count():
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    return flash_decode.launches
+
+
+def _other_launches(before, label):
+    """K2's and K3's launches since ``before`` (their counts then): a
+    serving phase on the paged pool launches neither."""
+    k2 = {k: v - before[0][k] for k, v in _k2_count().items()}
+    k3 = _k3_count() - before[1]
+    if any(k2.values()) or k3:
+        fail(f"{label}: K2 {k2} and K3 {k3} launched on the paged path")
+    return {"k2": k2, "k3": k3}
+
+
+def _k1_count():
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    return paged_flash_decode.launches
+
+
+def _k2_count():
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    return {"fwd": fa.flash_attention_fwd.launches,
+            "dkdv": fa.flash_attention_bwd_dkdv.launches,
+            "dq": fa.flash_attention_bwd_dq.launches}
+
+
+def _k2_reset():
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    for w in (fa.flash_attention_fwd, fa.flash_attention_bwd_dkdv,
+              fa.flash_attention_bwd_dq):
+        w.launches = 0
+
+
+def phase_kernel_rep8(torch, mcfg, timer):
+    """K1 and K2 at Qwen3-30B-A3B's heads (32/4, D 128, rep 8): K1's
+    checks (two-entry tiles) and its decode-step time; K2's forward, dK/dV
+    and dQ against their plain versions at the QLoRA step's shape
+    (2 x 511), each timed beside its bound and its plain version."""
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {"k1_err": _k1_head_checks(torch, g, mcfg, "rep 8")}
+    ms, plain_ms, bound, nbytes = _k1_decode_time(torch, g, mcfg, timer)
+    out["k1"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bytes=nbytes)
+    log(f"[kernel] rep 8 decode step, heads {mcfg.num_heads}/"
+        f"{mcfg.num_kv_heads} D {mcfg.head_dim}, T=16 lengths 128..2048: "
+        f"kernel {ms:.4f} ms = {bound / ms:.3f} of the bound, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} bytes)")
+    hq, hkv, d = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
+    b, s = K2_REP8_B, K2_REP8_S
+    names = ("out", "lse", "dq", "dk", "dv")
+    args = _fa_case(torch, fa, g, b, s, hq, hkv, d)
+    got, again = _fa_run(fa, *args), _fa_run(fa, *args)
+    torch.cuda.synchronize()
+    ref = _fa_plain(fa, *args)
+    errs = {}
+    for name, a, a2, r in zip(names, got, again, ref):
+        if not torch.equal(a, a2):
+            fail(f"flash rep 8: {name} differs between two launches")
+        e, ok = _fa_err(a, r, *FA_TOL[name])
+        if not ok:
+            fail(f"flash rep 8 B={b} S={s}: {name} kernel vs plain max err "
+                 f"{e} (tol {_fa_tol_text(FA_TOL[name])})")
+        errs[name] = e
+    q, k, v, gout, bias, kw = args
+    o, lse = fa.flash_attention_fwd(q, k, v, bias, **kw)
+    delta = fa._delta(gout, o)
+    t = {"fwd": timer.ms(lambda: fa.flash_attention_fwd(q, k, v, **kw)),
+         "dkdv": timer.ms(lambda: fa.flash_attention_bwd_dkdv(
+             q, k, v, None, gout, lse, delta, **kw)),
+         "dq": timer.ms(lambda: fa.flash_attention_bwd_dq(
+             q, k, v, None, gout, lse, delta, **kw)),
+         "plain_fwd": timer.ms(lambda: fa.flash_attention_fwd_plain(
+             q, k, v, **kw), iters=10),
+         "plain_bwd": timer.ms(lambda: fa._bwd_plain(
+             q, k, v, None, gout, lse, delta, **kw), iters=5)}
+    for kname, (flops, nb) in _fa_work(b, s, hq, hkv, d).items():
+        bound = max(flops / BF16_FLOPS, nb / HBM_BYTES_PER_S) * 1e3
+        plain = t["plain_fwd" if kname == "fwd" else "plain_bwd"]
+        out[kname] = dict(ms=t[kname], plain_ms=plain, bound_ms=bound,
+                          max_abs_err=max(errs[n] for n in FA_ERR_OF[kname]))
+        log(f"[flash] rep 8 {kname} at B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+            f"bf16 causal: kernel {t[kname]:.4f} ms = {bound / t[kname]:.3f} "
+            f"of the bound, plain {plain:.4f} ms, bound {bound:.4f} ms; max "
+            f"|kernel - plain| " + ", ".join(
+                f"{n} {errs[n]:.3g}" for n in FA_ERR_OF[kname])
+            + "; two launches bit-identical")
+    return out
+
+
+def _capture_moe_layer(layer):
+    """Patch the transformer's moe_ffn so that its ``layer``-th call of the
+    first flat batch of the step budget records its params, config, input
+    and output. Returns (record dict, restore function)."""
+    from senweaver_ide_tpu_torch.models import transformer as tf
+    real = tf.moe_ffn
+    rec, calls = {}, [0]
+
+    def spy(p, mcfg, h):
+        out = real(p, mcfg, h)
+        if not rec:
+            calls[0] += 1
+            if calls[0] == layer + 1:
+                rec.update(p=p, cfg=mcfg, h=h.detach().clone(),
+                           out=out[0].detach().clone())
+        return out
+
+    tf.moe_ffn = spy
+
+    def restore():
+        tf.moe_ffn = real
+    return rec, restore
+
+
+def _moe_loop_reference(torch, p, mcfg, h):
+    """The routed FFN written out: softmax router, top-k, renormalised
+    gates, capacity slots counted token by token on the host, then one
+    expert at a time over the tokens it kept. Returns (out, dropped share
+    of the assignments, per-expert kept counts, capacity)."""
+    import math
+    x = h.reshape(-1, h.shape[-1])
+    t, e_n, k = x.shape[0], mcfg.num_experts, mcfg.top_k
+    cap = max(1, math.ceil(t / e_n * mcfg.capacity_factor * k))
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    count = [0] * e_n
+    per_expert = [[] for _ in range(e_n)]
+    for ti, row in enumerate(idx.tolist()):
+        for j, e in enumerate(row):
+            if count[e] < cap:
+                per_expert[e].append((ti, j))
+                count[e] += 1
+    y = torch.zeros(t, x.shape[1], dtype=torch.float32, device=x.device)
+    for e, kept in enumerate(per_expert):
+        if not kept:
+            continue
+        rows = torch.tensor([ti for ti, _ in kept], device=x.device)
+        cols = torch.tensor([j for _, j in kept], device=x.device)
+        xe = x[rows]
+        gate = xe @ p["w_gate"][e]
+        up = xe @ p["w_up"][e]
+        act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+        ye = act @ p["w_down"][e]
+        y.index_add_(0, rows, ye.float() * gates[rows, cols, None])
+    dropped = 1 - sum(count) / (t * k)
+    return y.to(x.dtype).view(h.shape), dropped, count, cap
+
+
+def _base_sums(torch, params):
+    """Per tensor, the sum of its raw bytes (int8) or 16-bit words and
+    every 7th of them (the rest): equal trees give equal sums."""
+    out = []
+    for t in _leaves(params):
+        if t.dtype == torch.int8:
+            flat = t.view(torch.uint8).reshape(-1)
+            step = 1 << 27          # int64 partial sums, 1 GB at a time
+            out.append(sum(int(flat[i:i + step].sum(dtype=torch.int64))
+                           for i in range(0, flat.numel(), step)))
+        else:
+            out.extend(_checksum(torch, {"t": t}))
+    return out
+
+
+def _quantize_in_place(torch, params):
+    """quantize_weights_int8 one stacked tensor at a time, each bf16
+    tensor released as soon as its int8 copy exists: the peak is the bf16
+    tree plus the largest int8 tensor and one layer's fp32 transient."""
+    from senweaver_ide_tpu_torch.models import quantize_weights_int8
+    from senweaver_ide_tpu_torch.models.quantize import (QUANTIZABLE,
+                                                         _quantize_matrix)
+    layers = params["layers"]
+    for name in QUANTIZABLE:
+        q, sc = _quantize_matrix(layers[name])
+        layers[name], layers[name + "_scale"] = q, sc
+        del q, sc
+        torch.cuda.empty_cache()
+    head = params.pop("lm_head", None)
+    if head is not None:
+        params["lm_head"], params["lm_head_scale"] = _quantize_matrix(head)
+        del head
+        torch.cuda.empty_cache()
+    return quantize_weights_int8(params)      # nothing left: a no-op
+
+
+def phase_moe(torch, mcfg, seed, smi, timer):
+    """Qwen3-30B-A3B at full width and depth on one card: K1 and K2 at
+    its heads; random bf16 weights; the serving engine on 16 greedy
+    requests (K1 = 48 x fused steps) with one fused step's routed layer
+    held against the per-expert loop; the same traffic under a dropless
+    copy of the config, every token teacher-forced against the plain
+    forward; int8 in place, the traffic again on int8 weights; a QLoRA
+    GRPO step on the int8 base (K2) under the dropless copy: at capacity
+    factor 1.25 the engine's batches and the trainer's microbatches drop
+    different assignments, so the first step's ratio would read that
+    batch dependence and not the serving and training paths' agreement;
+    materialize_lora, update_params and one more request."""
+    import dataclasses
+
+    import numpy as np
+    from senweaver_ide_tpu_torch.models import init_params
+    from senweaver_ide_tpu_torch.models.quantize import quantized_bytes
+    from senweaver_ide_tpu_torch.rollout import RolloutEngine, SampleParams
+    from senweaver_ide_tpu_torch.training import (Trajectory, make_batch,
+                                                  make_batch_logps,
+                                                  make_lora_train_state,
+                                                  materialize_lora,
+                                                  train_step)
+    t_phase = time.perf_counter()
+
+    def stamp():
+        return f"[moe +{time.perf_counter() - t_phase:.1f} s]"
+
+    layers = mcfg.num_layers
+    out = {"k1": {}, "k2": {}}
+    out["rep8"] = phase_kernel_rep8(torch, mcfg, timer)
+    other0 = (_k2_count(), _k3_count())
+
+    # 2. random bf16 weights from the seed
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(mcfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    torch.cuda.synchronize()
+    total = quantized_bytes(params)
+    banks = sum(quantized_bytes(params["layers"][n])
+                for n in ("w_gate", "w_up", "w_down"))
+    log(f"{stamp()} {mcfg.name}: {layers} layers, {mcfg.num_experts} experts, "
+        f"top-{mcfg.num_experts_per_tok}, hidden {mcfg.hidden_size}, expert "
+        f"FFN {mcfg.intermediate_size}, heads {mcfg.num_heads}/"
+        f"{mcfg.num_kv_heads} D {mcfg.head_dim}, QK-norm, capacity factor "
+        f"{mcfg.expert_capacity_factor}, bf16 random weights (seed {seed}) "
+        f"in {time.perf_counter() - t0:.2f} s: {total} bytes computed = "
+        f"{total / 1e9:.2f} GB ({banks / 1e9:.2f} GB expert banks), "
+        f"memory_allocated {torch.cuda.memory_allocated()}")
+
+    rng = np.random.default_rng(seed + 30)
+    prompts = [rng.integers(0, mcfg.vocab_size, size=int(k)).tolist()
+               for k in rng.integers(MOE_PROMPT_LENS[0],
+                                     MOE_PROMPT_LENS[1] + 1,
+                                     size=MOE_REQUESTS)]
+    lens = [len(p) for p in prompts]
+    greedy = SampleParams(0.0, 0, 1.0)
+
+    # 3. the serving engine, bf16; 4. one fused step's routed layer
+    eng = RolloutEngine(params, mcfg, num_slots=MOE_SLOTS,
+                        max_len=MOE_MAX_LEN, sample=greedy, seed=seed,
+                        device="cuda")
+    rec, restore = _capture_moe_layer(layers - 1)
+    try:
+        bf16 = _serve_traffic(torch, eng, prompts, MOE_NEW, layers,
+                              "moe bf16", reset=True, profile_after=20)
+    finally:
+        restore()
+    out["k1"]["bf16"] = bf16["k1"]
+    log(f"{stamp()} bf16 weights, {MOE_REQUESTS} greedy requests (prompts "
+        f"{min(lens)}..{max(lens)}, {MOE_NEW} new), {MOE_SLOTS} slots, "
+        f"block 16, step budget 64, {smi}: " + _run_text(bf16)
+        + f"; max_memory_allocated {torch.cuda.max_memory_allocated()}")
+    with torch.no_grad():
+        ref, dropped, load, cap = _moe_loop_reference(torch, rec["p"],
+                                                      rec["cfg"], rec["h"])
+    got = rec["out"].float()
+    diff = (got - ref.float()).abs()
+    ok = bool((diff <= MOE_LAYER_ATOL + MOE_LAYER_RTOL
+               * ref.float().abs()).all())
+    log(f"{stamp()} layer {layers - 1} of the first fused step (T = "
+        f"{rec['h'].shape[0]}, capacity {cap}): moe_ffn vs the per-expert "
+        f"loop max |diff| {float(diff.max()):.4g} (tol {MOE_LAYER_ATOL} + "
+        f"{MOE_LAYER_RTOL} * |loop|); dropped share of the assignments "
+        f"{dropped:.4f}; kept per expert min {min(load)} / mean "
+        f"{sum(load) / len(load):.2f} / max {max(load)}; experts with none "
+        f"{sum(1 for x in load if x == 0)}")
+    if not ok:
+        fail(f"moe: the routed layer differs from the per-expert loop by "
+             f"{float(diff.max())}")
+    del eng, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. the streams under a dropless copy (C = T: no batch dependence),
+    # teacher-forced against the plain forward
+    dcfg = dataclasses.replace(
+        mcfg, expert_capacity_factor=float(mcfg.num_experts
+                                           // mcfg.num_experts_per_tok))
+    plain, ref_d, n = _step_logit_diffs(torch, dcfg, params, seed)
+    tie = TIE_FACTOR * min(max(plain, ref_d), TIE_DIFF_MAX)
+    eng = RolloutEngine(params, dcfg, num_slots=MOE_SLOTS,
+                        max_len=MOE_MAX_LEN, sample=greedy, seed=seed,
+                        device="cuda")
+    dropless = _serve_traffic(torch, eng, prompts, MOE_NEW, layers,
+                              "moe dropless", reset=False)
+    out["k1"]["bf16"] += dropless["k1"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaves, widest, off = _teacher_forced(
+        torch, params, dcfg, prompts, dropless["streams"], tie,
+        "moe dropless streams", ref=bf16["streams"])
+    log(f"{stamp()} dropless copy (capacity factor "
+        f"{dcfg.expert_capacity_factor}): one fused step's logits K1 vs "
+        f"plain {plain:.4g}, vs the no-cache forward {ref_d:.4g} ({n} "
+        f"entries), tie tolerance {tie:.4f}; " + _run_text(dropless)
+        + f"; every token within the tie tolerance of the plain forward's "
+        f"argmax (widest gap {widest:.4f}, {off} off the argmax); first "
+        f"index off the capacity-1.25 streams {leaves}")
+
+    # 6. int8 in place, one stacked tensor at a time
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _quantize_in_place(torch, params)
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    qbytes = quantized_bytes(params)
+    log(f"{stamp()} int8 in place in {q_s:.2f} s: {total} -> {qbytes} bytes "
+        f"computed, memory_allocated {torch.cuda.memory_allocated()}, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
+
+    # 7. the same traffic on the int8 weights
+    eng = RolloutEngine(params, mcfg, num_slots=MOE_SLOTS,
+                        max_len=MOE_MAX_LEN, sample=greedy, seed=seed,
+                        device="cuda")
+    if eng.stats()["weight_quant"] != 1:
+        fail("moe: the int8 engine does not report weight_quant 1")
+    q8 = _serve_traffic(torch, eng, prompts, MOE_NEW, layers, "moe int8",
+                        reset=False, profile_after=20)
+    out["k1"]["int8_weights"] = q8["k1"]
+    agree = _token_agreement(q8["streams"], bf16["streams"])
+    log(f"{stamp()} int8 weights, the same traffic: " + _run_text(q8)
+        + f"; against bf16: tok/s {q8['tok_s'] / bf16['tok_s']:.3f}x, p50 "
+        f"{q8['p50'] / bf16['p50']:.3f}x; greedy token agreement "
+        f"{agree:.3f} (a figure, not a check)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. one QLoRA GRPO step on the int8 base, dropless (see above)
+    tcfg = dataclasses.replace(dcfg, attn_impl="flash", remat=True)
+    eng = RolloutEngine(params, tcfg, num_slots=MOE_SLOTS,
+                        max_len=MOE_MAX_LEN, seed=seed, device="cuda")
+    qp = [rng.integers(0, mcfg.vocab_size, size=int(k)).tolist()
+          for k in rng.integers(QLORA_PROMPT_LENS[0],
+                                QLORA_PROMPT_LENS[1] + 1,
+                                size=QLORA_PROMPTS)]
+    # one prefill a group (submit_group): the followers graft its spine
+    subs = [(gi, rid) for gi, p in enumerate(qp)
+            for rid in eng.submit_group(p, QLORA_GROUP,
+                                        max_new_tokens=QLORA_NEW)]
+    k1_0 = _k1_count()
+    eng.run()
+    roll_k1 = _k1_count() - k1_0
+    trajs = []
+    for gi, rid in subs:
+        toks, logps = eng.result(rid), eng.result_logps(rid)
+        if len(toks) != QLORA_NEW or not np.all(np.isfinite(logps)):
+            fail(f"qlora rollout {rid}: {len(toks)} tokens")
+        trajs.append(Trajectory(prompt_ids=qp[gi], completion_ids=toks,
+                                reward=_stand_in_reward(toks), group_id=gi,
+                                behavior_logp=logps))
+    tokens, mask, rewards, gids = make_batch(trajs, pad_id=0)
+    old_logp = make_batch_logps(trajs, tokens, mask)
+    served = _other_launches(other0, "moe serving")
+    out["k3"], out["k2_serving"] = served["k3"], served["k2"]
+    k3_qlora = _k3_count()
+    state = make_lora_train_state(
+        tcfg, params, torch.Generator(device="cuda").manual_seed(seed + 3),
+        rank=QLORA_RANK, learning_rate=QLORA_LR)
+    base_sum = _base_sums(torch, params)
+    b_before = {k: v.clone() for k, v in state.params["layers"].items()}
+    _k2_reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = train_step(state, tcfg, None, tokens, mask, rewards,
+                                gids, old_logp=old_logp,
+                                num_groups=QLORA_PROMPTS,
+                                accum_steps=QLORA_ACCUM, lora_base=params)
+    m = {k: float(v) for k, v in metrics.items()}
+    step_s = time.perf_counter() - t0
+    k2 = _k2_count()
+    out["k2"] = k2
+    per = layers * QLORA_ACCUM
+    want = {"fwd": 2 * per, "dkdv": per, "dq": per}
+    if k2 != want:
+        fail(f"qlora: K2 launches {k2} != {want}")
+    bad = [k for k, v in m.items() if not np.isfinite(v)]
+    if bad:
+        fail(f"qlora: non-finite metrics {bad}")
+    ratio_err = abs(m["ratio_mean"] - 1.0)
+    if not ratio_err < RATIO_TOL:
+        fail(f"qlora: first step |ratio_mean - 1| = {ratio_err} >= "
+             f"{RATIO_TOL}")
+    moved = max(float((state.params["layers"][k].float()
+                       - v.float()).abs().max())
+                for k, v in b_before.items() if k.endswith("_lora_b"))
+    if not moved > 0:
+        fail("qlora: the adapters did not move")
+    if _base_sums(torch, params) != base_sum:
+        fail("qlora: the int8 base changed")
+    b, s = tokens.shape
+    log(f"{stamp()} QLoRA GRPO step on the int8 base: {QLORA_PROMPTS} prompts "
+        f"x {QLORA_GROUP} sampled completions of {QLORA_NEW} (rollout K1 "
+        f"{roll_k1}), batch {b} x {s}, rank {QLORA_RANK} on wq/wk/wv/wo, "
+        f"flash, remat, accum {QLORA_ACCUM}, lr {QLORA_LR}: {step_s:.3f} s, "
+        f"peak max_memory_allocated {torch.cuda.max_memory_allocated()}; "
+        f"|ratio_mean - 1| {ratio_err:.3g} (tol {RATIO_TOL}); max |dB| "
+        f"{moved:.4g}, base bit for bit; K2 {k2} = expected; "
+        + ", ".join(f"{k} {v:.6g}" for k, v in sorted(m.items())))
+
+    # 9. fold, publish into the int8 engine, serve one more request
+    folded = materialize_lora(params, state.params, tcfg)
+    if folded["layers"]["wq"].dtype != torch.int8:
+        fail("qlora: materialize_lora did not re-quantize the int8 base")
+    eng.update_params(folded)
+    if eng.stats()["weight_quant"] != 1:
+        fail("qlora: the engine left int8 after the publish")
+    k1_0 = _k1_count()
+    rid = eng.submit(qp[0], max_new_tokens=16)
+    eng.run()
+    roll_k1 += _k1_count() - k1_0
+    lp = eng.result_logps(rid)
+    if len(lp) != 16 or not np.all(np.isfinite(lp)):
+        fail("qlora: the request after the publish did not finish cleanly")
+    steps = eng.stats()["decode_steps"]
+    if roll_k1 != layers * steps:
+        fail(f"qlora engine: K1 {roll_k1} != {layers} x {steps} fused steps")
+    eng._alloc.check_leaks()
+    out["k1"]["qlora"] = roll_k1
+    out["k3_qlora"] = _k3_count() - k3_qlora
+    log(f"{stamp()} materialize_lora re-quantized wq/wk/wv/wo, update_params "
+        f"into the int8 engine, one more request of 16 tokens; the QLoRA "
+        f"engine's K1 {roll_k1} = {layers} x {steps}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del eng, folded, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4341,6 +5095,7 @@ def main(argv=None) -> int:
     from senweaver_ide_tpu_torch.models import (init_params, mistral_7b,
                                                 qwen2_5_coder_0_5b,
                                                 qwen2_5_coder_1_5b)
+    from senweaver_ide_tpu_torch.models.config import qwen3_30b_a3b
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build()
@@ -4376,6 +5131,8 @@ def main(argv=None) -> int:
                                     spec_launches["tie_atol"])
     migrate_launches = phase_migrate(torch, cfg, loaded, args.seed, smi,
                                      spec_launches["tie_atol"])
+    int8_w_launches = phase_int8(torch, cfg, loaded, args.seed, smi,
+                                 spec_launches["tie_atol"])
     # the 1.5B weights (trained in place) make way for mistral-7b
     del params, loaded
     gc.collect()
@@ -4390,6 +5147,10 @@ def main(argv=None) -> int:
     slot_launches = phase_slots_serve(torch, mcfg, params, args.seed, smi)
     phase_slots_logits(torch, mcfg, params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe(torch, qwen3_30b_a3b(), args.seed, smi, timer)
+    rep8 = moe["rep8"]
     kernels = []
     for variant, r in kern.items():
         kernels.append({
@@ -4416,8 +5177,15 @@ def main(argv=None) -> int:
             "launches_migrate": {"bf16": migrate_launches["k1"],
                                  "int8": migrate_launches["k1_int8"]}.get(
                                      variant),
+            "launches_int8": (int8_w_launches["k1"] if variant == "bf16"
+                              else None),
+            "launches_moe": ({"bf16_weights": moe["k1"]["bf16"],
+                              "int8_weights": moe["k1"]["int8_weights"]}
+                             if variant == "bf16" else None),
+            "launches_qlora": (moe["k1"]["qlora"] if variant == "bf16"
+                               else None),
             "max_abs_err": (max(r["max_abs_err"], kspec["max_abs_err_d64"],
-                                kspec["max_abs_err_verify"])
+                                kspec["max_abs_err_verify"], rep8["k1_err"])
                             if variant == "bf16" else r["max_abs_err"]),
             "tolerance": f"{KERNEL_ATOL} + {KERNEL_RTOL} * |plain|",
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
@@ -4443,6 +5211,11 @@ def main(argv=None) -> int:
                            "verify_untiled_ms", "verify_plain_ms",
                            "verify_bound_ms", "verify_tiles",
                            "max_abs_err_verify")},
+            **{f"rep8_{key}": (rep8["k1"][key] if variant == "bf16"
+                               else None)
+               for key in ("ms", "plain_ms", "bound_ms", "bytes")},
+            "max_abs_err_rep8": (rep8["k1_err"] if variant == "bf16"
+                                 else None),
             "resources": r["resources"]})
     replaces = {"fwd": "senweaver_ide_tpu/ops/flash_attention.py:48",
                 "dkdv": "senweaver_ide_tpu/ops/flash_attention.py:177",
@@ -4464,7 +5237,11 @@ def main(argv=None) -> int:
             "launches_group": group_launches[kname],
             "launches_tenants": tenant_launches[kname],
             "launches_migrate": migrate_launches[kname],
-            "max_abs_err": r["max_abs_err"],
+            "launches_int8": int8_w_launches["k2"][kname],
+            "launches_moe": moe["k2_serving"][kname],
+            "launches_qlora": moe["k2"][kname],
+            "max_abs_err": max(r["max_abs_err"],
+                               rep8[kname]["max_abs_err"]),
             "tolerance": _fa_tol_text(FA_TOL[FA_ERR_OF[kname][0]]),
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4473,7 +5250,10 @@ def main(argv=None) -> int:
             "library_note": ("torch.nn.functional.scaled_dot_product_"
                              "attention(is_causal=True) " +
                              ("forward" if kname == "fwd" else
-                              "backward (all three gradients)"))})
+                              "backward (all three gradients)")),
+            **{f"rep8_{key}": rep8[kname][key]
+               for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+            "rep8_shape": f"B={K2_REP8_B} S={K2_REP8_S} heads 32/4 D 128"})
     kernels.append({
         "name": "flash_decode", "route": "cuda",
         "source": "senweaver_ide_tpu_torch/csrc/flash_decode.cu",
@@ -4486,6 +5266,8 @@ def main(argv=None) -> int:
         "launches_group": group_launches["k3"],
         "launches_tenants": tenant_launches["k3"],
         "launches_migrate": migrate_launches["k3"],
+        "launches_int8": int8_w_launches["k3"],
+        "launches_moe": moe["k3"], "launches_qlora": moe["k3_qlora"],
         "max_abs_err": fd["max_abs_err"],
         "max_abs_err_f32": fd["max_abs_err_f32"],
         "tolerance": f"{FD_TOL['bf16'][0]} + {FD_TOL['bf16'][1]} * |plain|",

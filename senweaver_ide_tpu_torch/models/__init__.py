@@ -7,4 +7,7 @@ from .transformer import (KVCache, Params, count_params, forward,
                           ring_capacity)
 from .load import (available_hf_keys, export_hf_params, load_hf_params,
                    params_from_numpy)
+from .quantize import is_quantized, quantize_weights_int8, quantized_bytes
 from .tokenizer import ByteTokenizer, HFTokenizer, load_tokenizer
+from .capabilities import (ModelCapabilities, get_model_capabilities,
+                           get_reserved_output_token_space)

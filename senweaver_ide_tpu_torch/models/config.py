@@ -3,9 +3,9 @@
 A copy of the JAX package's ``models/config.py`` presets with torch
 dtypes. Both families are decoder-only pre-norm transformers with RoPE +
 SwiGLU; Qwen2 uses GQA + QKV biases, DeepSeek-Coder is
-LLaMA-architecture. Every preset is kept; the paged serving path of this
-port serves the dense, full-attention ones (MoE and sliding-window
-presets raise where the path would need them).
+LLaMA-architecture. Every preset is kept and served: sliding-window
+presets from the slot layout's ring cache, mixture-of-experts presets on
+both layouts through ``parallel/expert.py``.
 """
 
 from __future__ import annotations
@@ -51,9 +51,10 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     # Sliding-window attention width (None = full causal).
     sliding_window: Optional[int] = None
-    # No-cache attention implementation. The port implements "einsum"
-    # (ops/attention.py); "flash" (kernel K2) and "ring"/"ulysses"
-    # (parallel layouts) arrive with later slices and raise until then.
+    # No-cache attention implementation: "einsum" (ops/attention.py) or
+    # "flash" (the flash-attention kernels, ops/flash_attention.py);
+    # "ring"/"ulysses" shard over a mesh and raise until the
+    # parallel-layout slice.
     attn_impl: str = "einsum"
     # Contiguous-cache (slot layout) decode attention: "flash" runs the
     # flash-decode kernel (ops/flash_decode.py) on single-token steps that
@@ -65,7 +66,7 @@ class ModelConfig:
     # Kept for parity. fp32 matmuls on the card run in full fp32 as long
     # as torch.backends.cuda.matmul.allow_tf32 stays False (the default).
     matmul_precision: Optional[str] = None
-    # Mixture-of-experts FFN: 0 = dense (MoE is a later slice).
+    # Mixture-of-experts FFN (parallel/expert.py): 0 = dense.
     num_experts: int = 0
     num_experts_per_tok: int = 2
     expert_capacity_factor: float = 1.25

@@ -17,8 +17,7 @@ layer-stacked param dict ``models/transformer.py`` consumes, and
 Families: Qwen2/Qwen2.5 (GQA + QKV bias, tied or untied head), Qwen3
 (QK-norm), LLaMA-architecture DeepSeek-Coder, Llama-3.x (rope scaling),
 Mistral, and both MoE layouts (Mixtral ``block_sparse_moe`` and
-Qwen3-MoE ``mlp.experts``; the port's forward has no MoE yet, so those
-trees are for storage). Files go through the port's own codec
+Qwen3-MoE ``mlp.experts``). Files go through the port's own codec
 (``models/safetensors_io.py``).
 
 :func:`params_from_numpy` takes the JAX ``init_params`` tree as host
@@ -40,6 +39,7 @@ import torch
 
 from ..device import resolve_device
 from .config import ModelConfig
+from .quantize import is_quantized
 from .safetensors_io import SafetensorsReader, safetensor_files, save_file
 from .transformer import Params
 
@@ -225,18 +225,13 @@ def load_hf_params(model_dir: str, config: ModelConfig, *,
     return params
 
 
-def _is_quantized(params: Params) -> bool:
-    w = params.get("layers", {}).get("wq")
-    return w is not None and w.dtype == torch.int8
-
-
 def export_hf_params(params: Params, config: ModelConfig,
                      out_dir: str) -> str:
     """Write the stacked dict back as one HF-layout ``model.safetensors``:
     the round-trip partner of :func:`load_hf_params` (a GRPO-tuned policy
     served by any HF-ecosystem runtime). Each tensor is copied to the
     host on its own while the file is written."""
-    if _is_quantized(params):
+    if is_quantized(params):
         # transposing the +/-127 codes without their scales would write a
         # garbage checkpoint that loads cleanly elsewhere
         raise TypeError("export_hf_params received int8-quantized params "

@@ -26,9 +26,15 @@ adapter pool's banks (``rollout/adapter_pool.py``) each entry of the flat
 batch adds its own adapter's delta to the q/k/v/o projections
 (:func:`_adapter_plan`).
 
+Weight-only int8 params (``models/quantize.py``) run through the same
+code: ``_dense`` upcasts an int8 matrix to the activation dtype and
+scales the output per channel, and a tied model's head reads the int8
+shadow ``tied_head_q8``. Mixture-of-experts configs route each layer's
+FFN through ``parallel/expert.py::moe_ffn``; the no-cache forward returns
+the summed load-balance loss with ``with_aux=True``.
+
 Out of the port so far, and raising ``NotImplementedError`` where
-reached: mixture-of-experts FFNs, int8 weights (later slices) and the
-ring/ulysses attention (the parallel-layout slice).
+reached: the ring/ulysses attention (the parallel-layout slice).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..ops.norms import rms_norm
 from ..ops.paged_attention import (paged_flash_decode,
                                    paged_flash_decode_plain, query_tiles)
 from ..ops.rotary import apply_rope, rope_cos_sin
+from ..parallel.expert import MoEConfig, moe_ffn
 from .config import ModelConfig
 
 Params = Dict[str, object]
@@ -180,10 +187,6 @@ def init_params(config: ModelConfig, generator: torch.Generator, *,
         return normal(shape, 1.0 / float(fan_in) ** 0.5)
 
     L, D, F = c.num_layers, c.hidden_size, c.intermediate_size
-    if c.num_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts layers arrive with the parallel-layout "
-            "slice of the PyTorch port")
 
     def ones(*shape):
         return torch.ones(shape, dtype=c.dtype, device=dev)
@@ -196,10 +199,17 @@ def init_params(config: ModelConfig, generator: torch.Generator, *,
         "wv": dense((L, D, c.kv_dim), D),
         "wo": dense((L, c.q_dim, D), c.q_dim),
         "mlp_norm": ones(L, D),
-        "w_gate": dense((L, D, F), D),
-        "w_up": dense((L, D, F), D),
-        "w_down": dense((L, F, D), F),
     }
+    if c.num_experts > 0:
+        E = c.num_experts
+        layers["router"] = dense((L, D, E), D)
+        layers["w_gate"] = dense((L, E, D, F), D)
+        layers["w_up"] = dense((L, E, D, F), D)
+        layers["w_down"] = dense((L, E, F, D), F)
+    else:
+        layers["w_gate"] = dense((L, D, F), D)
+        layers["w_up"] = dense((L, D, F), D)
+        layers["w_down"] = dense((L, F, D), F)
     if c.qkv_bias:
         layers["bq"] = torch.zeros((L, c.q_dim), dtype=c.dtype, device=dev)
         layers["bk"] = torch.zeros((L, c.kv_dim), dtype=c.dtype, device=dev)
@@ -224,13 +234,18 @@ def _dense(h: torch.Tensor, lp: Dict[str, torch.Tensor],
     """``h @ lp[name]`` for an ``(in, out)`` weight, plus ``(h @ A) @ B``
     when a merged LoRA adapter (``name + "_lora_a"``/``"_lora_b"``) is
     present: the factored order never materialises the (in, out) delta,
-    and the alpha/rank scale is already baked into A."""
+    and the alpha/rank scale is already baked into A.
+
+    An int8 weight (``models/quantize.py``) is upcast to ``h``'s dtype
+    for the matmul and its per-output-channel scale (``name +
+    "_scale"``) multiplies the fp32 output; the adapter term rides over
+    the int8 base (QLoRA)."""
     w = lp[name]
     if w.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 weights (models/quantize.py) arrive with a later slice "
-            "of the PyTorch port")
-    out = h @ w
+        out = h @ w.to(h.dtype)
+        out = (out.float() * lp[name + "_scale"]).to(h.dtype)
+    else:
+        out = h @ w
     la = lp.get(name + "_lora_a")
     if la is not None:
         out = out + (h @ la) @ lp[name + "_lora_b"]
@@ -342,31 +357,46 @@ def _qkv(c: ModelConfig, lp: Dict[str, torch.Tensor], h: torch.Tensor,
     return q, k, v
 
 
+_MOE_KEYS = ("router", "w_gate", "w_up", "w_down", "w_gate_scale",
+             "w_up_scale", "w_down_scale")
+
+
 def _mlp(c: ModelConfig, lp: Dict[str, torch.Tensor],
-         x: torch.Tensor) -> torch.Tensor:
-    """x + silu-gated FFN(norm(x)); SiLU in fp32, then cast."""
-    if c.num_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts FFNs arrive with the parallel-layout "
-            "slice of the PyTorch port")
+         x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + FFN(norm(x)), the layer's MoE load-balance loss). The FFN is
+    silu-gated with SiLU in fp32, dense or routed over experts (the loss
+    is a zero scalar for a dense layer)."""
     h = rms_norm(x, lp["mlp_norm"], c.rms_norm_eps)
+    if c.num_experts > 0:
+        moe_cfg = MoEConfig(hidden_size=c.hidden_size,
+                            intermediate_size=c.intermediate_size,
+                            num_experts=c.num_experts,
+                            top_k=c.num_experts_per_tok,
+                            capacity_factor=c.expert_capacity_factor,
+                            dtype=c.dtype)
+        out, aux = moe_ffn({n: lp[n] for n in _MOE_KEYS if n in lp},
+                           moe_cfg, h)
+        return x + out, aux
     gate = _dense(h, lp, "w_gate")
     up = _dense(h, lp, "w_up")
     act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return x + _dense(act, lp, "w_down")
+    return (x + _dense(act, lp, "w_down"),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _logits(params: Params, c: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
-    if "tied_head_q8" in params:
-        raise NotImplementedError(
-            "the int8 tied head arrives with a later slice of the "
-            "PyTorch port")
     head = params.get("lm_head")
-    if head is None:  # tied embeddings
+    if head is not None:
+        logits = _dense(x, params, "lm_head")
+    elif "tied_head_q8" in params:
+        # int8 shadow of the tied embed table (models/quantize.py), one
+        # scale per vocab row: the head's output channel
+        w = params["tied_head_q8"]
+        logits = ((x @ w.to(x.dtype).T).float()
+                  * params["tied_head_q8_scale"]).to(x.dtype)
+    else:  # tied embeddings
         logits = x @ params["embed"].T
-    else:
-        logits = x @ head
     return logits.float()
 
 
@@ -391,8 +421,9 @@ def _self_attention(c: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 def _layer(c: ModelConfig, lp: Dict[str, torch.Tensor], x: torch.Tensor,
            cos: torch.Tensor, sin: torch.Tensor,
-           attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """One no-cache transformer block. x: (B, S, D)."""
+           attn_mask: Optional[torch.Tensor]
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One no-cache transformer block. x: (B, S, D) → (x', MoE aux)."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], c.rms_norm_eps)
     q, k, v = _qkv(c, lp, h, cos, sin)
@@ -474,8 +505,9 @@ def _cache_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
                  x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                  kv: Tuple[torch.Tensor, ...], length: torch.Tensor,
                  kv_mask: torch.Tensor, flash_decode_ok: bool
-                 ) -> torch.Tensor:
-    """One transformer block over one layer of the contiguous cache.
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One transformer block over one layer of the contiguous cache →
+    (x', MoE aux).
 
     ``kv`` is ``(k_cache, v_cache)`` or, for the int8 cache, ``(k_cache,
     v_cache, k_scale, v_scale)``; the block's new k/v (quantized, for the
@@ -609,12 +641,12 @@ def forward(params: Params, config: ModelConfig, tokens: torch.Tensor, *,
     returns the logits alone). ``positions`` (B, S) are the absolute RoPE
     positions (default ``0..S-1``); ``attn_mask`` (B, S) marks valid keys.
     ``with_aux=True`` returns ``(logits, None, aux)`` as JAX does, ``aux``
-    being the MoE load-balance loss, a zero scalar for dense models. A
-    truthy ``config.remat`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant) instead of holding its
-    activations; ``"dots"`` behaves as ``True`` (the port keeps no per-op
-    save policy). The recompute runs the layer's attention forward a
-    second time.
+    being the MoE load-balance loss summed over layers, a zero scalar for
+    dense models. A truthy ``config.remat`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``, non-reentrant) instead of
+    holding its activations; ``"dots"`` behaves as ``True`` (the port
+    keeps no per-op save policy). The recompute runs the layer's
+    attention forward a second time.
 
     With ``cache`` (a :class:`KVCache`): the tokens are appended at
     ``cache.length`` (positions default to ``length + 0..S-1``) and attend
@@ -643,30 +675,35 @@ def forward(params: Params, config: ModelConfig, tokens: torch.Tensor, *,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None:
         valid, flash_ok = _cache_mask(c, cache, b, s, attn_mask, fresh_cache)
+        aux = zero
         for i in range(c.num_layers):
             kv = (cache.k[i], cache.v[i])
             if cache.quantized:
                 kv += (cache.k_scale[i], cache.v_scale[i])
-            x = _cache_layer(c, _layer_params(params, i), x, cos, sin, kv,
-                             cache.length, valid, flash_ok)
+            x, layer_aux = _cache_layer(c, _layer_params(params, i), x, cos,
+                                        sin, kv, cache.length, valid,
+                                        flash_ok)
+            aux = aux + layer_aux
         new_cache = cache._replace(length=cache.length + s)
         logits = _logits(params, c, x)
-        return (logits, new_cache, zero) if with_aux else (logits, new_cache)
+        return (logits, new_cache, aux) if with_aux else (logits, new_cache)
     remat = bool(c.remat) and torch.is_grad_enabled()
     # One unbind per stacked tensor: its backward stacks the L per-layer
     # gradients once, where a view per layer (v[i]) would have autograd
     # build and add a full (L, ...) zero-padded gradient for every layer.
     layers = {k: torch.unbind(v) for k, v in params["layers"].items()}
+    aux = zero
     for i in range(c.num_layers):
         lp = {k: v[i] for k, v in layers.items()}
         if remat:
-            x = checkpoint(_layer, c, lp, x, cos, sin, attn_mask,
-                           use_reentrant=False)
+            x, layer_aux = checkpoint(_layer, c, lp, x, cos, sin, attn_mask,
+                                      use_reentrant=False)
         else:
-            x = _layer(c, lp, x, cos, sin, attn_mask)
+            x, layer_aux = _layer(c, lp, x, cos, sin, attn_mask)
+        aux = aux + layer_aux
     logits = _logits(params, c, x)
     if with_aux:
-        return logits, None, zero
+        return logits, None, aux
     return logits
 
 
@@ -699,7 +736,9 @@ def _paged_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
     table row ``(T, MB)`` int32 and ``lengths`` its valid count
     ``positions + 1``; ``q_tiles`` the kernel's query tiles
     (``ops.paged_attention.query_tiles``), or None; ``ad`` the entries'
-    adapter deltas (:func:`_with_adapter`), or None."""
+    adapter deltas (:func:`_with_adapter`), or None. An MoE layer routes
+    the whole flat batch, padding entries included, and its aux loss is
+    dropped, as the JAX paged forward drops it."""
     t = x.shape[0]
     h = rms_norm(x, lp["attn_norm"], c.rms_norm_eps)
     q, k, v = _qkv(c, lp, h, cos, sin, ad)   # q (T,1,Hq,Dh), k/v (T,1,Hkv,Dh)
@@ -721,7 +760,7 @@ def _paged_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
                  k_scale_pool, v_scale_pool, q_tiles=q_tiles)
     attn_in = out.reshape(t, 1, c.q_dim)
     x = x + _with_adapter(_dense(attn_in, lp, "wo"), attn_in, ad, "wo")
-    return _mlp(c, lp, x)
+    return _mlp(c, lp, x)[0]
 
 
 def forward_paged(

@@ -39,6 +39,12 @@ next turn (``continue_from=``) prefills only its new tokens.
 ``update_params`` drops every prefix and every hold: their KV belongs to
 the old policy.
 
+**Weights.** The engine serves int8 weights (``models/quantize.py``) as
+it serves full-precision ones, and quantizes a full-precision publish
+again. Mixture-of-experts models serve on both layouts; since an MoE
+layer's capacity counts the whole batch, their fused steps and batched
+prefills are padded to the JAX engine's widths (:meth:`_pad_moe_batch`).
+
 **Speculation** (:meth:`RolloutEngine.enable_speculation`, paged and
 greedy only): a draft model with its own block pool proposes up to
 ``depth`` tokens per decoding row (``k`` draft forwards whose argmax
@@ -90,6 +96,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
+from ..models.quantize import is_quantized, quantize_weights_int8
 from ..models.transformer import (KVCache, Params, _is_ring,
                                   dequantize_pool_kv, forward,
                                   forward_paged, init_kv_cache,
@@ -749,11 +756,17 @@ class RolloutEngine:
         are dropped for the same reason; their next turn re-prefills. With
         speculation on, the draft is stamped stale and the acceptance EMA
         restarts (unless a fleet publisher already stamped this publish
-        through :meth:`spec_note_publish_begin`)."""
+        through :meth:`spec_note_publish_begin`). An engine serving int8
+        weights (``models/quantize.py``) quantizes a full-precision
+        publish again."""
         embed = params["embed"]
         if embed.device.type != self.device.type:
             raise ValueError(f"params live on {embed.device}, engine on "
                              f"{self.device}")
+        if is_quantized(self.params) and not is_quantized(params):
+            # an int8 engine keeps its serving representation across a
+            # trainer's full-precision publish
+            params = quantize_weights_int8(params)
         with self._lock:
             self.params = params
             # release_prefix, not .clear(): paged prefixes hand their
@@ -1285,8 +1298,7 @@ class RolloutEngine:
         pool occupancy and preemptions."""
         with self._lock:
             out = dict(self._stats)
-            # int8 weight serving (models/quantize.py) is not ported
-            out["weight_quant"] = 0
+            out["weight_quant"] = int(is_quantized(self.params))
             out["queue_depth"] = len(self._queue)
             out["slots_active"] = sum(r is not None for r in self._slot_req)
             out["kv_paged"] = int(self.kv_layout == "paged")
@@ -2512,6 +2524,30 @@ class RolloutEngine:
         return (toks_l, rows_l, pos_l, wb_l, wo_l, decode_rows, spec_rows,
                 job_rows)
 
+    def _pad_moe_batch(self, toks_l, rows_l, pos_l, wb_l, wo_l,
+                       depth: int, spec: bool, prefill: bool) -> None:
+        # guarded-by: caller
+        """Pad an MoE model's flat batch IN PLACE to the JAX engine's
+        width ladder: ``num_slots``, ``step_tokens`` with a prefill
+        segment, ``num_slots * depth`` with verify windows. An MoE layer's
+        capacity counts every entry and earlier entries win its slots, so
+        the streams equal the JAX engine's only at the same width. The
+        padding entries (token 0 of row 0 at position 0) write nothing and
+        come last, so they change the capacity and nothing else."""
+        if spec:
+            t = self.num_slots * max(1, depth)
+            if prefill:
+                t = max(t, self._step_tokens)
+        else:
+            t = self._step_tokens if prefill else self.num_slots
+        nb = self._alloc.num_blocks
+        for _ in range(t - len(toks_l)):
+            toks_l.append(0)
+            rows_l.append(0)
+            pos_l.append(0)
+            wb_l.append(nb)
+            wo_l.append(0)
+
     def _fused_step(self, toks_l, rows_l, pos_l, wb_l, wo_l):
         # guarded-by: caller
         """The fused step over the flat batch; returns host (tokens,
@@ -2550,12 +2586,15 @@ class RolloutEngine:
         # first tokens sampled at scheduling (a zero-suffix prefix graft)
         emitted = self._pending_emits
         self._pending_emits = {}
-        _depth, spec_plan = self._spec_begin_step()
+        depth, spec_plan = self._spec_begin_step()
         plan = self._assemble_paged_plan(spec_plan)
         if plan is None:
             return emitted
         (toks_l, rows_l, pos_l, wb_l, wo_l, decode_rows, spec_rows,
          job_rows) = plan
+        if self.config.num_experts > 0:
+            self._pad_moe_batch(toks_l, rows_l, pos_l, wb_l, wo_l, depth,
+                                bool(spec_rows), bool(job_rows))
         tracer = get_tracer()
         n_active = len(decode_rows) + len(spec_rows) + len(job_rows)
         with tracer.span("engine.decode_step", active=n_active):
@@ -2867,20 +2906,30 @@ class RolloutEngine:
     def _schedule_batch_impl(self, group: List[_Request], slots: List[int],
                              bucket: int) -> None:
         # guarded-by: caller
-        rows = []
+        rows, lens, slot_ids = [], [], list(slots[:len(group)])
         for req, slot in zip(group, slots):
             req.slot = slot
             self._slot_req[slot] = req
             rows.append(req.prompt + [0] * (bucket - len(req.prompt)))
+            lens.append(len(req.prompt))
             self._stats["prefills"] += 1
             self._stats["prefill_tokens"] += len(req.prompt)
+        if self.config.num_experts > 0:
+            # An MoE layer's capacity counts every row of the batch, so
+            # the group routes like the JAX engine's only at its width: a
+            # power of two, padded by repeating row 0 (same slot, same
+            # data: a benign duplicate write)
+            n_pad = 1 << (len(group) - 1).bit_length()
+            for _ in range(n_pad - len(group)):
+                rows.append(rows[0])
+                lens.append(lens[0])
+                slot_ids.append(slot_ids[0])
         dev = self.device
         last, self.cache = _prefill_slots_batched(
             self.params, self.config,
             torch.tensor(rows, dtype=torch.long, device=dev),
-            torch.tensor([len(r.prompt) for r in group], dtype=torch.int32,
-                         device=dev), self.cache,
-            torch.tensor(slots, dtype=torch.long, device=dev))
+            torch.tensor(lens, dtype=torch.int32, device=dev), self.cache,
+            torch.tensor(slot_ids, dtype=torch.long, device=dev))
         self._stats["batched_prefills"] += 1
         self._stats["batched_prefill_slots"] += len(group)
         for i, (req, slot) in enumerate(zip(group, slots)):

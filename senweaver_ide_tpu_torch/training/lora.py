@@ -11,8 +11,10 @@ scale is baked into A. ``merge_lora`` is a dict union that
 the HF-PEFT layout (``adapter_model.safetensors`` + ``adapter_config.json``)
 through the port's safetensors codec.
 
-bf16 and fp32 bases only: an int8 base (QLoRA) arrives with a later slice
-of the port.
+The base may be int8 (``models/quantize.py``): the adapters then train
+over the quantized base (QLoRA), and ``materialize_lora`` dequantizes,
+folds and re-quantizes each int8 target so the publish keeps the
+serving representation.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
+from ..models.quantize import _quantize_matrix
 from ..models.safetensors_io import SafetensorsReader, save_file
 
 # (in_dim, out_dim) per supported target matrix
@@ -39,13 +42,6 @@ _TARGET_DIMS = {
 }
 
 DEFAULT_TARGETS: Tuple[str, ...] = ("wq", "wk", "wv", "wo")
-
-
-def _refuse_int8(params: Dict, what: str) -> None:
-    if any(t.dtype == torch.int8 for t in params["layers"].values()):
-        raise NotImplementedError(
-            f"{what} over an int8 base (QLoRA) arrives with the quantized-"
-            f"weights slice of the PyTorch port; pass a bf16 or fp32 base")
 
 
 def init_lora(config: ModelConfig, generator: torch.Generator, *,
@@ -100,8 +96,9 @@ def split_lora(params: Dict) -> Tuple[Dict, Dict]:
 def materialize_lora(base_params: Dict, lora: Dict,
                      config: ModelConfig) -> Dict:
     """Fold A·B into the dense weights (fp32 product, cast back) → a
-    plain param dict for publishing to an engine."""
-    _refuse_int8(base_params, "materialize_lora")
+    plain param dict for publishing to an engine. An int8 target is
+    dequantized, folded in ``config.dtype`` and re-quantized, so a QLoRA
+    base keeps its representation."""
     out = dict(base_params)
     layers = dict(base_params["layers"])
     for name in list(lora["layers"]):
@@ -111,7 +108,13 @@ def materialize_lora(base_params: Dict, lora: Dict,
         a = lora["layers"][name].float()
         b = lora["layers"][target + "_lora_b"].float()
         w = layers[target]
-        layers[target] = (w.float() + torch.bmm(a, b)).to(w.dtype)
+        if w.dtype == torch.int8:
+            scale = layers[target + "_scale"]               # (L, out)
+            wf = w.float() * scale[:, None, :] + torch.bmm(a, b)
+            layers[target], layers[target + "_scale"] = _quantize_matrix(
+                wf.to(config.dtype))
+        else:
+            layers[target] = (w.float() + torch.bmm(a, b)).to(w.dtype)
     out["layers"] = layers
     return out
 

@@ -42,7 +42,7 @@ from ..models.transformer import Params, forward, init_params
 from ..obs.runtime_profile import ProfiledFunction
 from .grpo import (GRPOConfig, group_relative_advantages, grpo_objective,
                    token_logprobs)
-from .lora import _refuse_int8, merge_lora
+from .lora import merge_lora
 
 # the adamw constants of the JAX trainer's chain (make_optimizer)
 _B1, _B2, _EPS = 0.9, 0.95, 1e-8
@@ -238,7 +238,6 @@ def make_lora_train_state(config: ModelConfig, base_params: Params,
     lora_base=base_params)``. Adapters live on the base's device."""
     from .lora import DEFAULT_TARGETS, init_lora
     _refuse_mesh(mesh)
-    _refuse_int8(base_params, "LoRA training")
     wq = base_params["layers"]["wq"]
     expect = (config.num_layers, config.hidden_size, config.q_dim)
     if tuple(wq.shape) != expect:
@@ -269,7 +268,9 @@ def grpo_gradients(params: Params, config: ModelConfig,
                    ) -> Tuple[Params, Dict[str, torch.Tensor]]:
     """The GRPO gradient of ``params`` (the adapters when ``lora_base`` is
     given) over the batch, in the param dtype, and the metrics: the
-    objective's (token-share weighted over microbatches), ``loss``,
+    objective's and, for an MoE config, ``moe_aux`` (the load-balance
+    loss, ``moe_aux_coef`` times which is in the loss), each token-share
+    weighted over microbatches, ``loss``,
     ``grad_norm`` (of the returned gradients) and ``adv_mean``. Writes
     nothing."""
     pairs = list(flatten_params(params))
@@ -300,8 +301,10 @@ def grpo_gradients(params: Params, config: ModelConfig,
     branch = (None if branch_mask is None
               else _as_tensor(branch_mask, dev, torch.float32)[:, 1:])
     total_denom = torch.clamp_min(tgt_mask.sum().float(), 1.0)
-    keys = _METRIC_KEYS + (("branch_token_frac",) if branch is not None
-                           else ())
+    moe = config.num_experts > 0
+    keys = (_METRIC_KEYS
+            + (("branch_token_frac",) if branch is not None else ())
+            + (("moe_aux",) if moe else ()))
 
     # 3. per microbatch: forward, log-probs, objective, fp32 accumulation
     grads_acc = [torch.zeros(t.shape, dtype=torch.float32, device=dev)
@@ -316,14 +319,17 @@ def grpo_gradients(params: Params, config: ModelConfig,
         trainable = unflatten_params(zip(names, live))
         model_params = (trainable if lora_base is None
                         else merge_lora(lora_base, trainable))
-        logits, _, _ = forward(model_params, config, inputs[sl],
-                               with_aux=True)
+        logits, _, moe_aux = forward(model_params, config, inputs[sl],
+                                     with_aux=True)
         logp = token_logprobs(logits, targets[sl])
         olp = old_logp[sl] if old_logp is not None else logp.detach()
         loss, metrics = grpo_objective(
             logp, olp, adv[sl], tgt_mask[sl], grpo_config,
             ref_logp=ref_logp[sl] if ref_logp is not None else None,
             branch_mask=branch[sl] if branch is not None else None)
+        if moe:
+            loss = loss + grpo_config.moe_aux_coef * moe_aux
+            metrics["moe_aux"] = moe_aux
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         del logits, logp
         w = torch.clamp_min(tgt_mask[sl].sum().float(), 0.0) / total_denom
@@ -404,8 +410,8 @@ def _run_step(state: TrainState, config: ModelConfig, mesh, tokens,
             "train_step received int8-quantized params — quantization is a "
             "SERVING transform; train on the full-precision state and "
             "publish quantized")
-    if lora_base is not None:
-        _refuse_int8(lora_base, "train_step")
+    # an int8 lora_base is allowed: the adapters differentiate through
+    # the dequantizing matmuls with respect to activations only (QLoRA)
     from ..obs import get_tracer
     with get_tracer().span("trainer.grpo_step",
                            batch=int(tokens.shape[0]),

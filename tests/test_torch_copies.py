@@ -20,7 +20,10 @@ COPIES = (
     "obs/alerts", "obs/federation", "obs/slo", "obs/timeline",
     "obs/training_health", "obs/telemetry", "obs/__init__",
     "resilience/faults", "resilience/retry", "resilience/guard",
-    "context/token_config",
+    "context/token_config", "context/cache", "context/estimator",
+    "context/manager_types", "context/compressor", "context/tracker",
+    "context/rate_limiter", "context/manager", "context/__init__",
+    "models/capabilities", "editor/autocomplete",
     "tools/types", "tools/registry", "tools/sandbox", "tools/search_replace",
     "tools/terminal", "tools/service", "tools/sidecars", "tools/documents",
     "tools/__init__",

@@ -332,8 +332,8 @@ def test_hf_checkpoint_parity(tmp_path, family):
 
 def test_hf_qwen3_moe_checkpoint_tree(tmp_path):
     """Qwen3-MoE's ``mlp.experts`` layout from a transformers checkpoint:
-    the port's tree equals the JAX loader's (the port's forward has no
-    MoE yet, so the tree is the check)."""
+    the port's tree equals the JAX loader's (its logits against
+    transformers: tests/test_torch_moe.py)."""
     transformers = pytest.importorskip("transformers")
     hf = transformers.Qwen3MoeConfig(
         vocab_size=512, hidden_size=64, intermediate_size=128,

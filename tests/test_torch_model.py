@@ -243,8 +243,9 @@ def test_forward_paged_matches_jax(weights, rng, rung, use_kernel):
 
 def test_out_of_slice_paths_raise(weights):
     """The contiguous-cache forward is ported (it returns (logits, cache)
-    as JAX does, with JAX's logits); the parallel layouts, MoE and int8
-    weights still raise, naming their slices."""
+    as JAX does, with JAX's logits), and so are MoE layers and int8
+    weights (tests/test_torch_moe.py, tests/test_torch_quantize.py); the
+    parallel layouts still raise, naming their slice."""
     jparams, jcfg, tparams, tcfg = weights
     toks = np.array([[3, 1, 4, 1, 5]], np.int32)
     jl, jc = jax_tf.forward(jparams, jcfg, jnp.asarray(toks),
@@ -257,9 +258,15 @@ def test_out_of_slice_paths_raise(weights):
     with pytest.raises(NotImplementedError, match="parallel-layout slice"):
         t_tf.forward(tparams, dataclasses.replace(tcfg, attn_impl="ring"),
                      torch.zeros(1, 2, dtype=torch.long))
+    from senweaver_ide_tpu_torch.parallel import (MoEConfig,
+                                                  moe_ffn_sharded)
     with pytest.raises(NotImplementedError, match="parallel-layout slice"):
-        t_tf.init_params(t_config.tiny_moe_test(), torch.Generator(),
-                         device="cpu")
-    lp = {"w": torch.zeros(2, 2, dtype=torch.int8)}
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t_tf._dense(torch.zeros(1, 2), lp, "w")
+        moe_ffn_sharded({}, MoEConfig(8, 16), torch.zeros(1, 2, 8),
+                        mesh=object())
+    moe = t_tf.init_params(t_config.tiny_moe_test(), torch.Generator(),
+                           device="cpu")
+    assert tuple(moe["layers"]["w_gate"].shape) == (2, 4, 64, 128)
+    lp = {"w": torch.tensor([[1, -2], [3, 4]], dtype=torch.int8),
+          "w_scale": torch.tensor([0.5, 2.0])}
+    out = t_tf._dense(torch.ones(1, 2), lp, "w")
+    torch.testing.assert_close(out, torch.tensor([[2.0, 4.0]]))

@@ -104,7 +104,10 @@ PORTED_MODULES = ("rollout/speculative", "rollout/spec_controller",
                   "rollout/group_tree", "rollout/paged_kv",
                   "rollout/engine", "training/draft_distill",
                   "training/rl_loop", "rollout/adapter_pool",
-                  "rollout/migration", "models/transformer")
+                  "rollout/migration", "models/transformer",
+                  "models/quantize", "parallel/expert", "parallel/__init__",
+                  "models/capabilities", "context/manager",
+                  "editor/autocomplete")
 
 
 @pytest.mark.parametrize("module", PORTED_MODULES)
@@ -155,6 +158,15 @@ def test_adapter_pool_refuses_without_a_card(no_cuda):
     # a CPU pool on a CPU engine; the engine refuses a pool elsewhere
     params = init_params(cfg, torch.Generator(), device="cpu")
     RolloutEngine(params, cfg, adapter_pool=pool, device="cpu")
+
+
+def test_init_moe_params_refuses_without_a_card(no_cuda):
+    from senweaver_ide_tpu_torch.parallel import MoEConfig, init_moe_params
+    cfg = MoEConfig(hidden_size=8, intermediate_size=16, num_experts=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_moe_params(cfg, torch.Generator())
+    p = init_moe_params(cfg, torch.Generator(), device="cpu")
+    assert p["w_gate"].device.type == "cpu"
 
 
 def test_migration_module_imports_under_the_blocker():
