@@ -145,7 +145,7 @@ Phases, each fatal on failure:
     batched, a chunked prefill, the plain forward), capped at
     TIE_DIFF_MAX; TIE_FACTOR times that is SPEC_TIE_ATOL. Then the
     serving engine (16 slots, greedy) on 16 requests of 128-1024 tokens,
-    128 new, without speculation (the reference) and at FixedDepth 4 (the
+    64 new, without speculation (the reference) and at FixedDepth 4 (the
     distiller's harvest); on the first 4 of them at FixedDepth 2 and 8,
     under the default SpecController and with a self-draft at depths 2, 4
     and 8 (acceptance at 4 >= SPEC_SELF_ACCEPT_MIN, fewer rounds at 8
@@ -203,7 +203,47 @@ Phases, each fatal on failure:
     teacher forcing; K1 = 28 x the fused steps of every engine, K2 and K3
     0. Prints checkpoint bytes, gather and install ms and GB/s, and the
     recompute restore's ms.
-21. Weight-only int8 (``phase_int8``) on the 1.5B weights of phases
+21. The serving fleet (``phase_fleet``, on the 1.5B weights of phases
+    12-20): one engine at phase_serve's settings (16 slots, max_len 2048,
+    block 16, step budget 64, greedy) on 32 requests of 128-1024 tokens,
+    64 new (half INTERACTIVE, 8 on a 512-token prefix, a group of 4) for
+    tok/s and TTFT; then a ServingFleet of two local engines sharing one
+    params tree and a third behind serve_engine_http on 127.0.0.1 in this
+    process, whose weights cross the socket first (its own bit-equal
+    copy): the same traffic with the prefix broadcast to every replica
+    (over HTTP to the remote), a local replica killed mid-decode, a
+    dropped response on the remote's first submit replayed from its
+    idempotency cache, the other local replica's pool squeezed by a
+    MemoryPressurePlan until a decode migrates to the remote, then a
+    rolling publish of a perturbed copy (drain, swap, resume; the remote's
+    weights over the socket). Fails on a ticket without a terminal
+    outcome, a Completed whose weight version moved, a stream off its
+    version's plain forward's argmax by more than SPEC_TIE_ATOL, K1 !=
+    layers x the fused steps of the three engines (K2 and K3 0), a
+    captured fused step's logits K1 vs plain past SPEC_TIE_ATOL, no
+    migration, no replay, a replica not bit-equal to the published tree,
+    a missing senweaver_serve_* name, or a leak after release. Prints the
+    fleet's and the engine's tok/s and TTFT p50 / p90, the frames' bytes
+    and GB/s, the roll's seconds, the prefix install over HTTP, the
+    migrations, peak memory and K1.
+22. The disaggregated learner (``phase_learner``): a
+    StreamingLearnerService over a StreamingTrainerAdapter (flash, remat,
+    accum 4, lr 1e-5), two GRPO steps a streamed batch, behind
+    serve_fleet_http (FleetRpcHandler, a LeaseStore) and
+    serve_experience_http; its fleet is one local sampling engine and
+    phase_fleet's HTTP replica. A round (2 prompts x 4 completions of 64
+    from that fleet, phase_async's stand-in reward) streams over HTTP;
+    the learner trains (the first step's |ratio_mean - 1| within
+    RATIO_TOL: the streamed log-probs are the served weights' own) and
+    publishes with its (epoch, version) fence;
+    both replicas must hold the learner's snapshot bit for bit, and
+    still after its next in-place step; a second holder steals the lease,
+    and the first holder's next step must raise LeaseLost and its publish
+    at its own fence StalePublishError. K1 = layers x fused steps, K2 =
+    672 / 336 / 336 (three steps), K3 0. Prints the steps' loss and
+    ratio, the publish's staging and roll seconds and frame bytes, the
+    lease epochs and peak memory.
+23. Weight-only int8 (``phase_int8``) on the 1.5B weights of phases
     12-20: ``quantize_weights_int8`` (bytes computed and measured), one
     fused step's logits on int8 weights, K1 vs the plain path and vs the
     no-cache forward, within the tie tolerance; 16 greedy requests of
@@ -211,10 +251,11 @@ Phases, each fatal on failure:
     p90 step ms, device ms a step from a profiled window each); a bf16
     publish into the int8 engine is quantized again (weight_quant 1) and
     serves. K1 = 28 x fused steps of every engine, K2 and K3 0.
-22. Mixture-of-experts (``phase_moe``) at full Qwen3-30B-A3B width and
+24. Mixture-of-experts (``phase_moe``) at full Qwen3-30B-A3B width and
     depth (48 layers, 128 experts, top-8) after the Mistral weights are
     freed: K1 (two-entry tiles at rep 8) and K2 (2 x 511) at its 32/4
-    heads against their plain versions, timed beside their bounds;
+    heads against their plain versions, timed beside their bounds and
+    (K2) beside SDPA with enable_gqa=True;
     random bf16 weights (61.06 GB); the serving engine (16 slots,
     max_len 2048, block 16, budget 64) on 16 greedy requests of
     128-1024 tokens, 32 new, K1 = 48 x fused steps, and the last routed
@@ -230,10 +271,11 @@ Phases, each fatal on failure:
     move, finite metrics, first-step |ratio_mean - 1|, K2 = 384 / 192 /
     192; materialize_lora re-quantizes, update_params into the int8
     engine and one more request.
-23. A JSON line with every kernel's numbers (``launches_round``,
+25. A JSON line with every kernel's numbers (``launches_round``,
     ``launches_online``, ``launches_reuse``, ``launches_async``,
     ``launches_spec``, ``launches_group``, ``launches_tenants``,
-    ``launches_migrate``, ``launches_int8``, ``launches_moe`` and
+    ``launches_migrate``, ``launches_fleet``, ``launches_learner``,
+    ``launches_int8``, ``launches_moe`` and
     ``launches_qlora``: the counts of those phases' runs; K1's entry
     also its times at the draft's heads, ``d64_*``, at the verify step,
     ``verify_*``, and at Qwen3-30B-A3B's heads, ``rep8_*``; K2's at
@@ -370,8 +412,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One progress line, stamped with the seconds since the script
+    started (a phase's cost is the difference of two stamps)."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def phase_device(torch):
@@ -1274,11 +1321,41 @@ def _fa_work(b, s, hq, hkv, d):
     }
 
 
+def _sdpa_times(torch, timer, q, k, v, gout, t):
+    """Yardstick only, never called by the port: causal SDPA on (B, H, S,
+    D) copies of q, k, v; its forward, backward (all three gradients, from
+    a saved output) and forward + backward times go into ``t``. Returns
+    how the heads were grouped."""
+    import torch.nn.functional as F
+    hq, hkv = q.shape[2], k.shape[2]
+    qt, kt_, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                   for x in (q, k, v))
+    try:
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt_, vt, is_causal=True, enable_gqa=True)
+        sdpa()
+        gqa_note = "enable_gqa=True"
+    except TypeError:
+        kt_, vt = (x.detach().repeat_interleave(hq // hkv, 1)
+                   .requires_grad_() for x in (kt_, vt))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt_, vt, is_causal=True)
+        gqa_note = "K/V expanded to Hq heads"
+    with torch.no_grad():
+        t["sdpa_fwd"] = timer.ms(sdpa)
+    o_lib = sdpa()
+    gt = gout.transpose(1, 2).contiguous()
+    t["sdpa_bwd"] = timer.ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt_, vt), gt, retain_graph=True))
+    t["sdpa_fwd_bwd"] = timer.ms(lambda: torch.autograd.grad(
+        sdpa(), (qt, kt_, vt), gt))
+    return gqa_note
+
+
 def phase_flash(torch, cfg, timer):
     """The K2 kernels (flash-attention forward, dK/dV, dQ) against their
     plain versions at qwen2.5-coder-1.5b attention shapes, bf16, then
     their times at the training path's shape beside the bounds and SDPA."""
-    import torch.nn.functional as F
     from senweaver_ide_tpu_torch.ops import flash_attention as fa
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -1357,28 +1434,7 @@ def phase_flash(torch, cfg, timer):
         "plain_bwd": timer.ms(lambda: fa._bwd_plain(
             q, k, v, None, gout, lse, delta, **kw), iters=5),
     }
-    # yardstick only, never called by the port: SDPA on (B, H, S, D)
-    qt, kt_, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                   for x in (q, k, v))
-    try:
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt_, vt, is_causal=True, enable_gqa=True)
-        sdpa()
-        gqa_note = "enable_gqa=True"
-    except TypeError:
-        kt_, vt = (x.detach().repeat_interleave(hq // hkv, 1)
-                   .requires_grad_() for x in (kt_, vt))
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt_, vt, is_causal=True)
-        gqa_note = "K/V expanded to Hq heads"
-    with torch.no_grad():
-        t["sdpa_fwd"] = timer.ms(sdpa)
-    o_lib = sdpa()
-    gt = gout.transpose(1, 2).contiguous()
-    t["sdpa_bwd"] = timer.ms(lambda: torch.autograd.grad(
-        o_lib, (qt, kt_, vt), gt, retain_graph=True))
-    t["sdpa_fwd_bwd"] = timer.ms(lambda: torch.autograd.grad(
-        sdpa(), (qt, kt_, vt), gt))
+    gqa_note = _sdpa_times(torch, timer, q, k, v, gout, t)
 
     work = _fa_work(b, s, hq, hkv, d)
     res = fa.kernel_resources(d)
@@ -3063,7 +3119,7 @@ def phase_async(torch, cfg, params, seed, smi):
 # draft (random weights from --seed + 1); SPEC_REQUESTS prompts of
 # SPEC_PROMPT_LENS tokens, SPEC_NEW_TOKENS new each.
 SPEC_SLOTS, SPEC_MAX_LEN, SPEC_REQUESTS = 16, 2048, 16
-SPEC_PROMPT_LENS, SPEC_NEW_TOKENS = (128, 1024), 128
+SPEC_PROMPT_LENS, SPEC_NEW_TOKENS = (128, 1024), 64
 SPEC_DEPTHS = (2, 4, 8)
 SPEC_SELF_REQUESTS = 4
 # The self-draft (draft = target) at depth 4 must accept at least this
@@ -4195,6 +4251,731 @@ def phase_migrate(torch, cfg, params, seed, smi, tie_atol):
             "k3": flash_decode.launches}
 
 
+# The serving fleet (phase_fleet) and the disaggregated learner
+# (phase_learner): qwen2.5-coder-1.5b at full width and depth, engines at
+# phase_serve's settings with phase_tenants' step budget (16 slots,
+# max_len 2048, block 16, 64 tokens a step), greedy. FLEET_REQUESTS
+# requests of FLEET_PROMPT_LENS tokens, FLEET_NEW new, half INTERACTIVE:
+# FLEET_PREFIX_USERS of them start with one FLEET_PREFIX-token prefix
+# shared through the fleet's prefix store, FLEET_GROUP are one
+# submit_group. A local replica dies at tick FLEET_KILL_AT; the other
+# local replica's pool is squeezed (every free block squatted) once
+# FLEET_SQUEEZE_DECODING of its rows decode and the admission queue is
+# empty (a MemoryPressurePlan wrapped around its engine then), until a
+# decode has migrated off it (at most FLEET_SQUEEZE_MAX ticks); the rolling
+# publish (FLEET_PERTURB x N(0, 1) added to every weight) begins once the
+# squeezed decode has moved, or at tick FLEET_PUBLISH_BY.
+FLEET_REQUESTS, FLEET_PROMPT_LENS, FLEET_NEW = 32, (128, 1024), 64
+FLEET_PREFIX, FLEET_PREFIX_USERS, FLEET_GROUP = 512, 8, 4
+FLEET_KILL_AT, FLEET_SQUEEZE_DECODING, FLEET_SQUEEZE_MAX = 4, 4, 64
+FLEET_PUBLISH_BY, FLEET_PERTURB, FLEET_MAX_TICKS = 400, 1e-3, 4000
+# A full-width weight frame is ~4.1 GB of JSON through urllib and
+# http.server (tens of seconds): the transports of the weight moves wait
+# this long.
+FRAME_TIMEOUT_S = 900.0
+# The learner (phase_learner): a round of episodes, LEARNER_TASKS prompts
+# of LEARNER_PROMPT_LENS tokens x ROUND_GROUP completions of
+# ROUND_NEW_TOKENS sampled from the learner's fleet, phase_async's
+# stand-in reward; two GRPO steps at phase_async's trainer settings, then
+# one publish.
+LEARNER_TASKS, LEARNER_PROMPT_LENS = 2, (256, 768)
+
+
+class _FrameTap:
+    """The size of every JSON frame ``serve/rpc.py`` builds (its module
+    ``json`` is swapped for this shim while a phase runs)."""
+
+    def __init__(self, rpc):
+        self.rpc, self.real, self.sizes = rpc, rpc.json, []
+
+    def dumps(self, obj, **kw):
+        s = self.real.dumps(obj, **kw)
+        self.sizes.append(len(s))
+        return s
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def __enter__(self):
+        self.rpc.json = self
+        return self
+
+    def __exit__(self, *exc):
+        self.rpc.json = self.real
+
+
+class _FaultyHttp:
+    """An HttpTransport that consults a NetworkFaultPlan on every call, as
+    LoopbackTransport does: a ``drop_response`` fault sends the call over
+    the socket, lets the server execute it, and loses the answer
+    (RpcTimeout), so the client's retry must be replayed from the
+    server's idempotency cache."""
+
+    def __init__(self, inner, plan):
+        self.inner, self.plan, self.target = inner, plan, inner.target
+
+    def call(self, method, params=None, *, request_id=None, timeout_s=None):
+        from senweaver_ide_tpu_torch.serve import RpcTimeout
+        fault = self.plan.take(self.target, method)
+        if fault is not None and fault.kind != "drop_response":
+            fail(f"fleet: fault kind {fault.kind} is not wired over HTTP")
+        out = self.inner.call(method, params, request_id=request_id,
+                              timeout_s=timeout_s)
+        if fault is not None:
+            raise RpcTimeout(f"{method}: executed but response lost")
+        return out
+
+
+def _perturbed(torch, params, seed, scale):
+    """A new tree: every floating weight plus scale x N(0, 1), in its own
+    dtype (a publish that changes every tensor)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if not t.is_floating_point():
+            return t.clone()
+        n = torch.randn(t.shape, generator=g, device=t.device,
+                        dtype=torch.float32)
+        return (t.float() + scale * n).to(t.dtype)
+    return walk(params)
+
+
+def _ttft_run(torch, engine, reqs, label, layers):
+    """Drive ``engine`` over ``reqs`` ((prompt, kwargs) or (prompt,
+    group size)) submitted at once; returns (wall s, tokens emitted,
+    TTFT ms per request: the wall time from submit to the step that
+    emitted its first token)."""
+    t0 = time.perf_counter()
+    rids = []
+    for prompt, kw in reqs:
+        if isinstance(kw, int):
+            rids += engine.submit_group(prompt, kw, max_new_tokens=FLEET_NEW)
+        else:
+            rids.append(engine.submit(prompt, max_new_tokens=FLEET_NEW, **kw))
+    first = {}
+    st0 = engine.stats()
+    torch.cuda.synchronize()
+    while engine.has_work:
+        for rid in engine.step():
+            first.setdefault(rid, time.perf_counter())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = engine.stats()["tokens_emitted"] - st0["tokens_emitted"]
+    missing = [r for r in rids if r not in first]
+    if missing:
+        fail(f"{label}: requests {missing} emitted no token")
+    return wall, toks, [(first[r] - t0) * 1e3 for r in rids]
+
+
+def _pct_text(xs):
+    return (f"p50 {statistics.median(xs):.1f} ms, p90 "
+            f"{statistics.quantiles(xs, n=10)[-1]:.1f} ms")
+
+
+def phase_fleet(torch, cfg, params, seed, smi, tie_atol):
+    """The serving fleet at full width: two local replicas sharing one
+    params tree and a third behind serve_engine_http on 127.0.0.1 (its own
+    weights, received over the socket) under one ServingFleet; 32 mixed
+    requests with a shared prefix and a group, a replica killed
+    mid-decode, a dropped response replayed from the remote's idempotency
+    cache, a squeezed pool whose decode migrates across HTTP, and a
+    rolling publish that carries the new weights over the wire. Every
+    completed stream is teacher-forced on the weights of its version.
+    Returns K1's launches and the pieces phase_learner reuses."""
+    import numpy as np
+    from senweaver_ide_tpu_torch import obs
+    from senweaver_ide_tpu_torch.models import forward_paged
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    from senweaver_ide_tpu_torch.resilience import (MemoryPressureFault,
+                                                    MemoryPressurePlan,
+                                                    NetworkFault,
+                                                    NetworkFaultPlan,
+                                                    RetryPolicy)
+    from senweaver_ide_tpu_torch.rollout import (EngineConfig,
+                                                 RolloutEngine,
+                                                 SampleParams)
+    from senweaver_ide_tpu_torch.serve import (INTERACTIVE, TRAIN_ROLLOUT,
+                                               Completed, EngineRpcHandler,
+                                               HttpTransport, Rejected,
+                                               RemoteReplica, ServingFleet,
+                                               rpc, serve_engine_http)
+    t_phase = time.perf_counter()
+    layers = cfg.num_layers
+    rng = np.random.default_rng(seed + 50)
+    greedy = SampleParams(0.0, 0, 1.0)
+
+    def engine(p, **ec):
+        return RolloutEngine(p, cfg, num_slots=16, max_len=2048,
+                             sample=greedy, device="cuda",
+                             engine_config=EngineConfig(
+                                 block_size=16, step_tokens=64, **ec))
+
+    # -- the traffic ---------------------------------------------------------
+    lo, hi = FLEET_PROMPT_LENS
+    vocab = cfg.vocab_size
+    prefix = rng.integers(0, vocab, size=FLEET_PREFIX).tolist()
+    singles = []
+    for i in range(FLEET_REQUESTS - FLEET_GROUP):
+        n = int(rng.integers(lo, hi + 1))
+        body = rng.integers(0, vocab, size=n).tolist()
+        uses = i < FLEET_PREFIX_USERS
+        singles.append(((prefix + body[:max(16, n - FLEET_PREFIX)])
+                        if uses else body, uses,
+                        INTERACTIVE if i % 7 < 4 else TRAIN_ROLLOUT))
+    group_prompt = rng.integers(0, vocab, size=int(rng.integers(
+        lo, hi + 1))).tolist()
+    n_inter = sum(p == INTERACTIVE for _, _, p in singles)
+
+    # -- one engine on the same 32 requests ----------------------------------
+    one = engine(params)
+    pid1 = one.register_prefix(prefix)
+    one_wall, one_toks, one_ttft = _ttft_run(
+        torch, one, [(p, dict(prefix_id=pid1) if u else {})
+                     for p, u, _ in singles] + [(group_prompt, FLEET_GROUP)],
+        "fleet single engine", layers)
+    del one
+    torch.cuda.empty_cache()
+
+    # -- the fleet -------------------------------------------------------------
+    e0 = engine(params, max_preempts=0)     # a squeezed row migrates at once
+    e1 = engine(params)
+    remote_engine = engine(params)          # its weights come over HTTP
+    handler = EngineRpcHandler(remote_engine)
+    server, port = serve_engine_http(handler)
+    net = NetworkFaultPlan([NetworkFault(kind="drop_response",
+                                         target="remote", method="submit",
+                                         call_idx=0)])
+    transport = _FaultyHttp(HttpTransport(
+        f"http://127.0.0.1:{port}", timeout_s=FRAME_TIMEOUT_S,
+        target="remote"), net)
+    remote = RemoteReplica("remote", transport,
+                           policy=RetryPolicy(max_retries=2,
+                                              base_delay_s=0.01))
+    tap = _FrameTap(rpc)
+    try:
+        with tap:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            remote.client.update_params(params, version=0, epoch=0)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            init_frame = tap.sizes[-1]
+        if (remote_engine.params["embed"].data_ptr()
+                == params["embed"].data_ptr()
+                or not _bits_equal(torch, remote_engine.params, params)):
+            fail("fleet: the remote engine does not hold its own bit-equal "
+                 "copy of the weights after the publish over HTTP")
+        squeeze = MemoryPressurePlan([MemoryPressureFault(
+            at_step=0, hold_blocks=1 << 30)])
+        fleet = ServingFleet([e0, e1, remote], retry_base_delay_s=0.0)
+        mig = fleet.attach_migration()
+        installs = []
+        import_prefix = remote.client.import_prefix
+
+        def timed_import(*a, **kw):
+            n0 = len(tap.sizes)
+            t = time.perf_counter()
+            out = import_prefix(*a, **kw)
+            installs.append((time.perf_counter() - t, tap.sizes[n0]))
+            return out
+        remote.client.import_prefix = timed_import
+        # one real fused step of the squeezed replica, captured for K1 vs
+        # the plain path after the run
+        captured = {}
+        fused = e0._fused_step
+
+        def spy(toks, rows, pos, wb, wo):
+            if not captured and len(toks) > len(set(rows)):
+                captured.update(
+                    batch=[list(x) for x in (toks, rows, pos, wb, wo)],
+                    params=e0.params, tables=e0._tables_device().clone(),
+                    pool=type(e0.pool)(*(None if a is None else a.clone()
+                                         for a in e0.pool)))
+            return fused(toks, rows, pos, wb, wo)
+        e0._fused_step = spy
+        new_params = _perturbed(torch, params, seed + 51, FLEET_PERTURB)
+        engines = {"replica-0": e0, "replica-1": e1, "remote": remote_engine}
+        st0 = {k: e.stats()["decode_steps"] for k, e in engines.items()}
+        k2 = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkdv,
+              fa.flash_attention_bwd_dq)
+        for w in k2 + (flash_decode, paged_flash_decode):
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        with tap:
+            pid = fleet.register_prefix(prefix)
+            tickets = [fleet.submit(p, max_new_tokens=FLEET_NEW, priority=pr,
+                                    prefix_id=pid if u else None)
+                       for p, u, pr in singles]
+            tickets += fleet.submit_group(group_prompt, FLEET_GROUP,
+                                          max_new_tokens=FLEET_NEW)
+            ticks, killed, roll, squeezed = 0, None, None, None
+            while fleet.pending() or fleet.publisher.in_progress:
+                fleet.step()
+                ticks += 1
+                if ticks == FLEET_KILL_AT:
+                    victim = fleet._replica_by_id("replica-1")
+                    if victim.outstanding == 0:
+                        fail("fleet: replica-1 idle at the kill")
+                    killed = victim.outstanding
+                    fleet.kill_replica("replica-1")
+                rep0 = fleet.replicas[0]
+                if rep0.engine is e0 and ticks > FLEET_KILL_AT and \
+                        fleet.admission.depth() == 0 and sum(
+                            bool(r.tokens) and not r.done
+                            for r in e0._requests.values()) \
+                        >= FLEET_SQUEEZE_DECODING:
+                    # nothing left to dispatch: the squeeze lands on decodes
+                    rep0.engine = squeeze.wrap_engine(e0)
+                    squeezed = ticks
+                    log(f"[fleet] replica-0's pool squeezed from tick "
+                        f"{ticks} ({e0._alloc.free_blocks} free blocks)")
+                elif squeezed and squeeze.holding_blocks and (
+                        _moved(obs, "kv_pressure")
+                        or ticks - squeezed > FLEET_SQUEEZE_MAX):
+                    log(f"[fleet] squeeze of {squeeze.holding_blocks} "
+                        f"blocks released at tick {ticks}")
+                    squeeze.release_all(e0)
+                if roll is None and (ticks >= FLEET_PUBLISH_BY or _moved(
+                        obs, "kv_pressure")):
+                    n0 = len(tap.sizes)
+                    roll = [time.perf_counter(), None, n0]
+                    fleet.begin_publish(new_params)
+                elif roll and roll[1] is None and \
+                        not fleet.publisher.in_progress:
+                    roll[1] = time.perf_counter()
+                if ticks > FLEET_MAX_TICKS:
+                    fail(f"fleet: {fleet.pending()} requests pending after "
+                         f"{ticks} ticks")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        peak = torch.cuda.max_memory_allocated()
+        launches = paged_flash_decode.launches
+        others = {n: w.launches for n, w in zip(("fwd", "dkdv", "dq", "k3"),
+                                                k2 + (flash_decode,))}
+        if any(others.values()):
+            fail(f"fleet: K2 / K3 launched off the serving path: {others}")
+        steps = {k: e.stats()["decode_steps"] - st0[k]
+                 for k, e in engines.items()}
+        if launches != layers * sum(steps.values()):
+            fail(f"fleet: K1 launches {launches} != {layers} x the fused "
+                 f"steps {steps}")
+        outs = {t: fleet.outcome(t) for t in tickets}
+        bad = [t for t, o in outs.items()
+               if not isinstance(o, (Completed, Rejected))]
+        if bad:
+            fail(f"fleet: tickets {bad} hold no terminal outcome")
+        done = {t: o for t, o in outs.items() if isinstance(o, Completed)}
+        mixed = [t for t, o in done.items()
+                 if o.weight_version != o.weight_version_at_finish]
+        if mixed or not done:
+            fail(f"fleet: tickets {mixed} mix weight versions "
+                 f"({len(done)} completed)")
+        versions = {r.replica_id: r.weight_version for r in fleet.replicas
+                    if r.state != "dead"}
+        if set(versions.values()) != {1} or roll is None or roll[1] is None:
+            fail(f"fleet: the publish did not land everywhere: {versions}")
+        if remote_engine.params["embed"].data_ptr() == \
+                new_params["embed"].data_ptr() or not _bits_equal(
+                    torch, remote_engine.params, new_params):
+            fail("fleet: the remote replica does not hold the published "
+                 "weights bit for bit")
+        if not _bits_equal(torch, e0.params, new_params):
+            fail("fleet: replica-0 does not hold the published weights")
+        if not _moved(obs, "kv_pressure"):
+            fail(f"fleet: the squeezed decode never migrated "
+                 f"({_migration_counts(obs)})")
+        if handler.replays < 1:
+            fail(f"fleet: the dropped response was not replayed "
+                 f"({handler.executed}, replays {handler.replays})")
+        names = {n for n in obs.get_registry().snapshot()
+                 if n.startswith("senweaver_serve_")}
+        want_names = {"senweaver_serve_ttft_ms",
+                      "senweaver_serve_weight_version_skew",
+                      "senweaver_serve_replica_deaths_total",
+                      "senweaver_serve_publishes_total",
+                      "senweaver_serve_replicas_rolled_total",
+                      "senweaver_serve_migrations_total",
+                      "senweaver_serve_prefix_broadcasts_total",
+                      "senweaver_serve_remote_rpcs_total",
+                      "senweaver_serve_remote_rpc_retries_total",
+                      "senweaver_serve_queue_depth",
+                      "senweaver_serve_group_submits_total"}
+        if not want_names <= names:
+            fail(f"fleet: metric names missing {sorted(want_names - names)}")
+        # every completed stream, teacher-forced on its version's weights
+        held = {}
+        for v, p_v in ((0, params), (1, new_params)):
+            ts = [t for t, o in done.items() if o.weight_version == v]
+            if ts:
+                held[f"version {v}"] = _teacher_forced(
+                    torch, p_v, cfg, [fleet._requests[t].prompt for t in ts],
+                    [done[t].tokens for t in ts], tie_atol,
+                    f"fleet version {v}")
+        # K1 against its plain version on the captured fleet step
+        if not captured:
+            fail("fleet: no mixed fused step was captured")
+        b = captured["batch"]
+        with torch.no_grad():
+            logits = [forward_paged(
+                captured["params"], cfg, torch.tensor(b[0]),
+                pool=type(captured["pool"])(*(
+                    None if a is None else a.clone()
+                    for a in captured["pool"])),
+                tables=captured["tables"], seq_row=torch.tensor(b[1]),
+                positions=torch.tensor(b[2]),
+                write_block=torch.tensor(b[3]),
+                write_off=torch.tensor(b[4]), use_kernel=k)[0].float()
+                for k in (True, False)]
+        k1_diff = float((logits[0] - logits[1]).abs().max())
+        if not k1_diff <= tie_atol:
+            fail(f"fleet: K1 vs plain on a fleet step {k1_diff} > "
+                 f"{tie_atol}")
+        # teardown: the squat given back, the dead replica's stranded rows
+        # released by its janitor (here), prefixes released, no leak
+        squeeze.release_all(e0)
+        for name, eng in engines.items():
+            for rid, req in list(eng._requests.items()):
+                if not req.done:
+                    eng.release_request(rid)
+            for p_id in list(eng._prefixes):
+                eng.release_prefix(p_id)
+            eng._alloc.check_leaks()
+    except BaseException:
+        server.shutdown()
+        raise
+    st = fleet.stats()
+    n_rej = sum(isinstance(o, Rejected) for o in outs.values())
+    toks = sum(len(o.tokens) for o in done.values())
+    ttft = [o.ttft_ms for o in done.values() if o.ttft_ms is not None]
+    roll_s = roll[1] - roll[0]
+    roll_frame = max(tap.sizes[roll[2]:])
+    mig_ms = _hist_mean(obs, "senweaver_serve_migration_ms")
+    log(f"[fleet] {smi}: 3 replicas on one card (2 local sharing one params "
+        f"tree, 1 behind serve_engine_http on 127.0.0.1), engines of 16 "
+        f"slots, max_len 2048, block 16, step budget 64, greedy; "
+        f"{FLEET_REQUESTS} requests of {lo}..{hi} tokens, {FLEET_NEW} new "
+        f"({n_inter} INTERACTIVE), {FLEET_PREFIX_USERS} on a {FLEET_PREFIX}"
+        f"-token shared prefix, one group of {FLEET_GROUP}: "
+        f"{len(done)} completed, {n_rej} rejected "
+        f"({sorted({o.reason for o in outs.values() if isinstance(o, Rejected)})}); "
+        f"wall {wall:.2f} s, {ticks} ticks, {toks / wall:.1f} tok/s, TTFT "
+        f"{_pct_text(ttft)}; one engine on the same requests: wall "
+        f"{one_wall:.2f} s, {one_toks / one_wall:.1f} tok/s, TTFT "
+        f"{_pct_text(one_ttft)} (the replicas share the card's default "
+        f"stream and the GIL: one fleet tick steps them in turn)")
+    log(f"[fleet] weights over HTTP: the remote's own copy {init_frame} "
+        f"frame bytes in {init_s:.2f} s = {init_frame / init_s / 1e9:.3f} "
+        f"GB/s; the rolling publish {roll_s:.2f} s (drain, swap and resume "
+        f"replica by replica; {killed} requests on the killed replica), its "
+        f"remote frame {roll_frame} bytes; prefix installs over HTTP "
+        f"{', '.join(f'{n} bytes in {s * 1e3:.1f} ms = {n / s / 1e9:.3f} GB/s' for s, n in installs)} "
+        f"({FLEET_PREFIX} tokens = {FLEET_PREFIX * 2 * layers * cfg.num_kv_heads * cfg.head_dim * 2} "
+        f"bytes of KV in a max_len buffer); migrations "
+        f"{_migration_counts(obs)}, mean {mig_ms:.1f} ms; remote submits "
+        f"executed {handler.executed.get('submit', 0)}, replays "
+        f"{handler.replays}; peak max_memory_allocated {peak} bytes; K1 "
+        f"{launches} = {layers} x fused steps {steps}; K1 vs plain on a "
+        f"fleet step {k1_diff:.4f} (tie {tie_atol:.4f}); stats "
+        f"{ {k: st[k] for k in ('completed', 'rejected', 'weight_version', 'replicas_live', 'shared_prefixes', 'kv_prefix_grafts', 'kv_install_copies') if k in st} }; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    _log_held("fleet", held, tie_atol)
+    if len(mig.pending):
+        fail(f"fleet: {len(mig.pending)} migrations never acked")
+    del e1, fleet
+    return {"k1": launches, **others, "server": server, "port": port,
+            "remote_engine": remote_engine, "params": new_params}
+
+
+def _moved(obs, reason):
+    m = obs.get_registry().get("senweaver_serve_migrations_total")
+    return m is not None and m.value(reason=reason, outcome="completed") > 0
+
+
+def _migration_counts(obs):
+    m = obs.get_registry().get("senweaver_serve_migrations_total")
+    return {} if m is None else {",".join(k): v
+                                 for k, v in m.samples().items()}
+
+
+def _hist_mean(obs, name):
+    m = obs.get_registry().get(name)
+    if m is None:
+        return float("nan")
+    cells = list(m.samples().values())
+    n = sum(c[-1] for c in cells)
+    return sum(c[-2] for c in cells) / n if n else float("nan")
+
+
+class _TwoSteps:
+    """The streaming service's trainer for phase_learner: each streamed
+    batch is two GRPO steps (its first and second half of groups), then
+    the service publishes once."""
+
+    def __init__(self, adapter):
+        self.adapter, self.state, self.metrics = adapter, adapter.state, []
+
+    def train_on_batch(self, episodes):
+        keys = list(dict.fromkeys(ep.group_key for ep in episodes))
+        half = set(keys[:len(keys) // 2])
+        for part in ([ep for ep in episodes if ep.group_key in half],
+                     [ep for ep in episodes if ep.group_key not in half]):
+            self.metrics.append(self.adapter.train_on_batch(part))
+        return self.metrics[-1]
+
+    def note_published(self, version):
+        self.adapter.note_published(version)
+
+
+def phase_learner(torch, cfg, fleet_out, seed, smi):
+    """The disaggregated learner at full width: a StreamingLearnerService
+    over a StreamingTrainerAdapter at phase_async's trainer settings,
+    behind serve_fleet_http (FleetRpcHandler with a LeaseStore) and
+    serve_experience_http (ExperienceRpcHandler); its fleet is one local
+    replica and phase_fleet's replica behind serve_engine_http. An
+    EpisodeStreamer streams a round's episodes over HTTP; the learner takes
+    two steps and publishes with its (epoch, version) fence; every replica
+    then holds the learner's snapshot bit for bit, and still does after
+    the learner's next in-place step. A second holder takes the lease: the
+    first holder's next step is refused (LeaseLost) and its publish at its
+    own fence (StalePublishError)."""
+    import dataclasses
+
+    import numpy as np
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    from senweaver_ide_tpu_torch.resilience import (LeaseLost, LeaseStore,
+                                                    RetryPolicy)
+    from senweaver_ide_tpu_torch.rollout import (EngineConfig,
+                                                 RolloutEngine,
+                                                 SampleParams)
+    from senweaver_ide_tpu_torch.serve import (EpisodeStreamer,
+                                               ExperienceClient,
+                                               FleetPublishClient,
+                                               FleetRpcHandler,
+                                               HttpTransport, LearnerConfig,
+                                               RemoteReplica, ServingFleet,
+                                               StalePublishError,
+                                               StreamingLearnerConfig,
+                                               StreamingLearnerService, rpc,
+                                               serve_experience_http,
+                                               serve_fleet_http)
+    from senweaver_ide_tpu_torch.training import (StreamedEpisode,
+                                                  StreamingTrainerAdapter,
+                                                  make_optimizer,
+                                                  make_train_state)
+    from senweaver_ide_tpu_torch.training.trainer import clone_params
+    t_phase = time.perf_counter()
+    layers = cfg.num_layers
+    rng = np.random.default_rng(seed + 60)
+    base = fleet_out["params"]
+    remote_engine = fleet_out["remote_engine"]
+    servers = [fleet_out["server"]]
+    policy = RetryPolicy(max_retries=2, base_delay_s=0.05)
+
+    def http(port):
+        return HttpTransport(f"http://127.0.0.1:{port}",
+                             timeout_s=FRAME_TIMEOUT_S)
+
+    try:
+        local = RolloutEngine(base, cfg, num_slots=16, max_len=2048,
+                              sample=SampleParams(), seed=seed,
+                              device="cuda", engine_config=EngineConfig(
+                                  block_size=16, step_tokens=64))
+        remote = RemoteReplica("remote", http(fleet_out["port"]),
+                               policy=policy)
+        fleet = ServingFleet([local, remote], retry_base_delay_s=0.0)
+        gateway = FleetRpcHandler(fleet, lease_store=LeaseStore(
+            ttl_s=FRAME_TIMEOUT_S * 4))
+        gw_server, gw_port = serve_fleet_http(gateway)
+        servers.append(gw_server)
+        tcfg = dataclasses.replace(cfg, attn_impl="flash",
+                                   remat=TRAIN_REMAT)
+        state = make_train_state(tcfg, params=clone_params(base),
+                                 optimizer=make_optimizer(TRAIN_LR))
+        adapter = StreamingTrainerAdapter(state, tcfg, None, pad_id=0,
+                                          max_len=2048,
+                                          accum_steps=ROUND_ACCUM)
+        trainer = _TwoSteps(adapter)
+        client = FleetPublishClient(http(gw_port), name="learner-0",
+                                    policy=policy)
+        stage = []
+        publish = client.publish
+
+        def timed_publish(*a, **kw):
+            t = time.perf_counter()
+            out = publish(*a, **kw)
+            stage.append(time.perf_counter() - t)
+            return out
+        client.publish = timed_publish
+        svc = StreamingLearnerService(
+            trainer, client,
+            stream_config=StreamingLearnerConfig(group_size=ROUND_GROUP,
+                                                 min_groups=LEARNER_TASKS),
+            config=LearnerConfig(holder="learner-0",
+                                 publish_timeout_s=FRAME_TIMEOUT_S))
+        epochs = [svc.start()]
+        exp_server, exp_port = serve_experience_http(svc)
+        servers.append(exp_server)
+        streamer = EpisodeStreamer(ExperienceClient(
+            http(exp_port), name="collector-0", policy=policy))
+
+        # -- a round of episodes from the learner's fleet ------------------
+        lo, hi = LEARNER_PROMPT_LENS
+        prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+                   for n in rng.integers(lo, hi + 1, size=LEARNER_TASKS)]
+        paged_flash_decode.launches = 0
+        flash_decode.launches = 0
+        st0 = (local.stats()["decode_steps"],
+               remote_engine.stats()["decode_steps"])
+        tickets = [(ti, g, fleet.submit(prompts[ti],
+                                        max_new_tokens=ROUND_NEW_TOKENS))
+                   for ti in range(LEARNER_TASKS)
+                   for g in range(ROUND_GROUP)]
+        fleet.run()
+        steps = (local.stats()["decode_steps"] - st0[0]
+                 + remote_engine.stats()["decode_steps"] - st0[1])
+        k1 = paged_flash_decode.launches
+        if k1 != layers * steps:
+            fail(f"learner: K1 launches {k1} != {layers} x {steps} fused "
+                 f"steps")
+
+        def episodes(tag):
+            return [StreamedEpisode(
+                episode_id=f"collector-0/{tag}/t{ti}g{g}",
+                group_key=f"collector-0/{tag}/t{ti}", prompt_ids=prompts[ti],
+                completion_ids=list(fleet.result(t)),
+                reward=_spread_reward(ti, g, None), epoch=svc.epoch,
+                version=fleet.publisher.version,
+                behavior_logp=list(fleet.result_logps(t)))
+                for ti, g, t in tickets]
+
+        batch = episodes("r0")
+        streamer.offer(batch)
+        flushed = streamer.flush()
+        if flushed != {"retired": len(batch), "pending": 0}:
+            fail(f"learner: the streamer's flush over HTTP {flushed}")
+
+        # -- two steps, one fenced publish ----------------------------------
+        k2 = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkdv,
+              fa.flash_attention_bwd_dq)
+        for w in k2:
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        before = clone_params(adapter.state.params)
+        tap = _FrameTap(rpc)
+        with tap:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = svc.run_step()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0 - sum(stage)
+            snapshot = clone_params(adapter.state.params)
+            t1 = time.perf_counter()
+            while not svc.pump_publish():
+                pass
+            roll_s = time.perf_counter() - t1
+        if res is None or res["version"] != 1 or len(trainer.metrics) != 2:
+            fail(f"learner: the streaming step {res}")
+        if _bits_equal(torch, snapshot, before):
+            fail("learner: two GRPO steps left the params unchanged")
+        for m in trainer.metrics:
+            if not all(np.isfinite(v) for v in m.values()):
+                fail(f"learner: non-finite metrics {m}")
+        # the first step trains on the served weights: its importance
+        # ratio says the streamed log-probs are those weights' own
+        if not abs(trainer.metrics[0]["ratio_mean"] - 1) < RATIO_TOL:
+            fail(f"learner: first step's ratio_mean "
+                 f"{trainer.metrics[0]['ratio_mean']} (tol {RATIO_TOL})")
+        if (fleet.publisher.version, fleet.publisher.epoch) != (1, 1):
+            fail(f"learner: the fleet is at (version, epoch) "
+                 f"{(fleet.publisher.version, fleet.publisher.epoch)}")
+        held = {"local": local.params, "remote": remote_engine.params}
+        for name, p in held.items():
+            if not _bits_equal(torch, p, snapshot):
+                fail(f"learner: the {name} replica does not hold the "
+                     f"learner's snapshot bit for bit")
+        # the learner's next step, in place: the replicas keep the snapshot
+        adapter.train_on_batch(batch)
+        torch.cuda.synchronize()
+        if _bits_equal(torch, adapter.state.params, snapshot):
+            fail("learner: the next in-place step left the params unchanged")
+        for name, p in held.items():
+            if not _bits_equal(torch, p, snapshot):
+                fail(f"learner: the learner's in-place step changed the "
+                     f"{name} replica's weights")
+        k2n = {n: w.launches for n, w in zip(("fwd", "dkdv", "dq"), k2)}
+        want = {"fwd": 3 * layers * ROUND_ACCUM * (2 if TRAIN_REMAT else 1),
+                "dkdv": 3 * layers * ROUND_ACCUM,
+                "dq": 3 * layers * ROUND_ACCUM}
+        if k2n != want:
+            fail(f"learner: K2 launches {k2n} != {want} (three steps)")
+        peak = torch.cuda.max_memory_allocated()
+
+        # -- a second holder takes the lease ---------------------------------
+        other = FleetPublishClient(http(gw_port), name="learner-1",
+                                   policy=policy)
+        epochs.append(other.acquire_lease("learner-1", steal=True)["epoch"])
+        streamer.offer(episodes("r1"))
+        streamer.flush()
+        try:
+            svc.run_step()
+            fail("learner: the superseded holder's step was not fenced")
+        except LeaseLost:
+            pass
+        try:
+            fleet.begin_publish(adapter.state.params, epoch=epochs[0],
+                                version=svc.version)
+            fail("learner: the superseded holder's publish was accepted")
+        except StalePublishError:
+            pass
+        if epochs != sorted(set(epochs)) or len(epochs) != 2:
+            fail(f"learner: lease epochs {epochs} not strictly increasing")
+        if fleet.publisher.version != 1:
+            fail(f"learner: the fleet's version {fleet.publisher.version} "
+                 f"!= the 1 accepted publish")
+        for name, p in held.items():
+            if not _bits_equal(torch, p, snapshot):
+                fail(f"learner: the refused publish moved the {name} "
+                     f"replica's weights")
+        if flash_decode.launches:
+            fail(f"learner: K3 launched {flash_decode.launches} times")
+        for eng in (local, remote_engine):
+            eng._alloc.check_leaks()
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+    frames = [n for n in tap.sizes if n > 1 << 30]
+    m = trainer.metrics
+    log(f"[learner] {smi}: StreamingLearnerService over a "
+        f"StreamingTrainerAdapter (flash, remat, accum {ROUND_ACCUM}, lr "
+        f"{TRAIN_LR}), the learner gateway and the episode intake on "
+        f"127.0.0.1, a fleet of one local replica and the HTTP replica; "
+        f"{len(batch)} episodes ({LEARNER_TASKS} prompts of {lo}..{hi} "
+        f"tokens x {ROUND_GROUP}, {ROUND_NEW_TOKENS} new) streamed over "
+        f"HTTP; two GRPO steps (loss {m[0]['loss']:.6g}, {m[1]['loss']:.6g}; "
+        f"ratio_mean {m[0]['ratio_mean']:.6f}, {m[1]['ratio_mean']:.6f}) in "
+        f"{step_s:.2f} s, then the publish: staged in {sum(stage):.2f} s, "
+        f"rolled in {roll_s:.2f} s, {sum(stage) + roll_s:.2f} s end to end "
+        f"(frames over 1 GiB: {frames}); lease epochs {epochs}; fleet "
+        f"(version, epoch) {(fleet.publisher.version, fleet.publisher.epoch)}; "
+        f"both replicas hold the snapshot bit for bit, unchanged by the next "
+        f"in-place step; the superseded holder's step LeaseLost and its "
+        f"publish StalePublishError; K1 {k1} = {layers} x {steps}; K2 "
+        f"{k2n}; peak max_memory_allocated {peak} bytes; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"k1": k1, **k2n, "k3": 0}
+
+
 def _spread_reward(task_idx, g, session):
     """Rewards that spread within a group (random weights tie every group
     on the trace reward, which would make every update zero)."""
@@ -4707,15 +5488,21 @@ def phase_kernel_rep8(torch, mcfg, timer):
              q, k, v, **kw), iters=10),
          "plain_bwd": timer.ms(lambda: fa._bwd_plain(
              q, k, v, None, gout, lse, delta, **kw), iters=5)}
+    gqa_note = _sdpa_times(torch, timer, q, k, v, gout, t)
     for kname, (flops, nb) in _fa_work(b, s, hq, hkv, d).items():
         bound = max(flops / BF16_FLOPS, nb / HBM_BYTES_PER_S) * 1e3
         plain = t["plain_fwd" if kname == "fwd" else "plain_bwd"]
+        lib = t["sdpa_fwd" if kname == "fwd" else "sdpa_bwd"]
         out[kname] = dict(ms=t[kname], plain_ms=plain, bound_ms=bound,
+                          library_ms=lib,
                           max_abs_err=max(errs[n] for n in FA_ERR_OF[kname]))
         log(f"[flash] rep 8 {kname} at B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
             f"bf16 causal: kernel {t[kname]:.4f} ms = {bound / t[kname]:.3f} "
-            f"of the bound, plain {plain:.4f} ms, bound {bound:.4f} ms; max "
-            f"|kernel - plain| " + ", ".join(
+            f"of the bound, plain {plain:.4f} ms, bound {bound:.4f} ms, SDPA "
+            f"({gqa_note}) {lib:.4f} ms"
+            + (f" (forward + backward {t['sdpa_fwd_bwd']:.4f} ms)"
+               if kname != "fwd" else "") + "; max |kernel - plain| "
+            + ", ".join(
                 f"{n} {errs[n]:.3g}" for n in FA_ERR_OF[kname])
             + "; two launches bit-identical")
     return out
@@ -5131,6 +5918,14 @@ def main(argv=None) -> int:
                                     spec_launches["tie_atol"])
     migrate_launches = phase_migrate(torch, cfg, loaded, args.seed, smi,
                                      spec_launches["tie_atol"])
+    fleet_out = phase_fleet(torch, cfg, loaded, args.seed, smi,
+                            spec_launches["tie_atol"])
+    learner_launches = phase_learner(torch, cfg, fleet_out, args.seed, smi)
+    fleet_launches = {k: fleet_out[k] for k in ("k1", "fwd", "dkdv", "dq",
+                                                "k3")}
+    del fleet_out
+    gc.collect()
+    torch.cuda.empty_cache()
     int8_w_launches = phase_int8(torch, cfg, loaded, args.seed, smi,
                                  spec_launches["tie_atol"])
     # the 1.5B weights (trained in place) make way for mistral-7b
@@ -5177,6 +5972,10 @@ def main(argv=None) -> int:
             "launches_migrate": {"bf16": migrate_launches["k1"],
                                  "int8": migrate_launches["k1_int8"]}.get(
                                      variant),
+            "launches_fleet": (fleet_launches["k1"] if variant == "bf16"
+                               else None),
+            "launches_learner": (learner_launches["k1"] if variant == "bf16"
+                                 else None),
             "launches_int8": (int8_w_launches["k1"] if variant == "bf16"
                               else None),
             "launches_moe": ({"bf16_weights": moe["k1"]["bf16"],
@@ -5237,6 +6036,8 @@ def main(argv=None) -> int:
             "launches_group": group_launches[kname],
             "launches_tenants": tenant_launches[kname],
             "launches_migrate": migrate_launches[kname],
+            "launches_fleet": fleet_launches[kname],
+            "launches_learner": learner_launches[kname],
             "launches_int8": int8_w_launches["k2"][kname],
             "launches_moe": moe["k2_serving"][kname],
             "launches_qlora": moe["k2"][kname],
@@ -5252,7 +6053,8 @@ def main(argv=None) -> int:
                              ("forward" if kname == "fwd" else
                               "backward (all three gradients)")),
             **{f"rep8_{key}": rep8[kname][key]
-               for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                           "max_abs_err")},
             "rep8_shape": f"B={K2_REP8_B} S={K2_REP8_S} heads 32/4 D 128"})
     kernels.append({
         "name": "flash_decode", "route": "cuda",
@@ -5266,6 +6068,8 @@ def main(argv=None) -> int:
         "launches_group": group_launches["k3"],
         "launches_tenants": tenant_launches["k3"],
         "launches_migrate": migrate_launches["k3"],
+        "launches_fleet": fleet_launches["k3"],
+        "launches_learner": learner_launches["k3"],
         "launches_int8": int8_w_launches["k3"],
         "launches_moe": moe["k3"], "launches_qlora": moe["k3_qlora"],
         "max_abs_err": fd["max_abs_err"],

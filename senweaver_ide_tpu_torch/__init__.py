@@ -9,7 +9,7 @@ of JAX or of the JAX package.
 Ported so far: the paged serving path, the GRPO trainer, the slot
 layout, and the online GRPO round on them (agent sessions on one shared
 engine, traces, the trace reward head, ``grpo_round``) with its
-observability plane.
+observability plane, and the serving fleet around the engine.
 
 - ``models``   — presets, the no-cache (training), contiguous-cache and
                  paged forwards, the numpy weight bridge.
@@ -25,6 +25,11 @@ observability plane.
 - ``training`` — GRPO, batching, LoRA, the trainer (with the guarded
                  step), the round-health diagnostics and ``rl_loop``
                  (``collect_group_trajectories``, ``grpo_round``).
+- ``serve``    — the serving fleet: admission, routing, rolling and fenced
+                 weight publication, the shared prefix store, migration,
+                 remote replicas over HTTP, the disaggregated learner
+                 (copies of the JAX package's, apart from the wire codec
+                 for tensors and the device placement of what it decodes).
 - ``rewards``  — the 9-dimension trace reward head (torch, on the card).
 - ``obs``      — tracing, metrics, telemetry, the fleet plane, and the
                  torch runtime profiler (``runtime_profile``).

@@ -189,7 +189,15 @@ def _wire_array(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
 def _pool_tensor(a, dtype: torch.dtype, what: str) -> torch.Tensor:
     """A wire array as a host tensor of the pool's ``dtype``: raw bits,
     or a float array whose dtype has the pool dtype's name, reinterpreted
-    by view; arrays of numpy's own dtypes must match exactly."""
+    by view; arrays of numpy's own dtypes must match exactly. A tensor
+    (the wire codec decodes a bfloat16 or float8 frame to one) must have
+    the pool's dtype."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype != dtype:
+            raise MigrationError(
+                f"checkpoint {what} dtype {a.dtype} != target pool dtype "
+                f"{dtype}")
+        return a.contiguous()
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
         a = a.copy()            # torch tensors cannot wrap read-only arrays

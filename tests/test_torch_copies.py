@@ -7,6 +7,7 @@ This stands in for re-running the JAX package's host-plane suites
 has to differ otherwise goes on ``ALLOWED_TO_DIFFER`` with the
 reason."""
 
+import difflib
 import os
 import re
 
@@ -41,13 +42,44 @@ COPIES = (
     "apo/types", "apo/patterns", "apo/report", "apo/rollouts",
     "apo/gradient", "apo/segments", "apo/synthetic", "apo/service",
     "apo/__init__",
+    "resilience/lease", "resilience/chaos", "resilience/__init__",
+    "serve/admission", "serve/router",
+    "serve/prefix_store", "serve/frontend", "serve/scheduler",
+    "serve/autoscale", "serve/learner",
+    "serve/learner_server", "serve/__init__",
 )
+
+# Copies with a few hunks of their own, each named with its reason; the
+# rest of the file must match the JAX original line for line, so the
+# number of differing hunks (difflib opcodes) is part of the contract.
+PATCHED = {
+    # the roll holds its own copy of the params (torch tensors are
+    # mutable; a trainer steps in place mid-roll): an import, the one
+    # changed line in begin(), the _snapshot method
+    "serve/weights": 3,
+    # decoded payloads move to the engine's device before import_prefix
+    # and update_params: an import, two handler bodies
+    "serve/remote_server": 3,
+    # a submit whose cached prefix id the engine already dropped
+    # re-registers the prefix instead of faulting the replica to death
+    "serve/replica": 1,
+    # wire request ids carry a per-client nonce, so a new fleet's
+    # idempotency keys never replay an earlier client's cached response:
+    # an import, the nonce, _request_id, its use in _call
+    "serve/remote": 4,
+}
 
 # 1-based lines of the JAX files whose comment dates a feature by the
 # numbered change that brought it; the copies reword those lines to say
 # what the feature is, and every other line must match.
 REWORDED_LINES = {
     "resilience/guard": (24,),
+    # the lines below name a numbered change, a TPU transfer, jit or
+    # jax.device_put; the copies say what is meant without them
+    "resilience/lease": (4,),
+    "serve/prefix_store": (18,),
+    "serve/learner": (3, 564, 840),
+    "serve/learner_server": (210,),
     "obs/propagation": (3,),
     "obs/telemetry": (63, 184, 191),
     "obs/training_health": (3, 45),
@@ -97,3 +129,19 @@ def test_copy_matches_jax_original(module):
 def test_allowlist_and_edits_name_copies():
     assert set(ALLOWED_TO_DIFFER) <= set(COPIES)
     assert set(REWORDED_LINES) <= set(COPIES)
+    assert not set(PATCHED) & set(COPIES)
+
+
+@pytest.mark.parametrize("module", sorted(PATCHED))
+def test_patched_copy_differs_only_in_its_hunks(module):
+    with open(os.path.join(ROOT, "senweaver_ide_tpu", module + ".py")) as f:
+        want = _NAME.sub("senweaver_ide_tpu_torch", f.read()).splitlines()
+    with open(os.path.join(ROOT, "senweaver_ide_tpu_torch",
+                           module + ".py")) as f:
+        got = f.read().splitlines()
+    hunks = [op for op in difflib.SequenceMatcher(
+        None, want, got, autojunk=False).get_opcodes() if op[0] != "equal"]
+    assert len(hunks) == PATCHED[module], [
+        (tag, want[i1:i2], got[j1:j2]) for tag, i1, i2, j1, j2 in hunks]
+    # the port's hunks add or replace; they never drop JAX lines outright
+    assert all(tag != "delete" for tag, *_ in hunks)

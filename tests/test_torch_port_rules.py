@@ -107,7 +107,14 @@ PORTED_MODULES = ("rollout/speculative", "rollout/spec_controller",
                   "rollout/migration", "models/transformer",
                   "models/quantize", "parallel/expert", "parallel/__init__",
                   "models/capabilities", "context/manager",
-                  "editor/autocomplete")
+                  "editor/autocomplete",
+                  "resilience/lease", "resilience/chaos",
+                  "resilience/__init__", "serve/__init__",
+                  "serve/admission", "serve/autoscale", "serve/frontend",
+                  "serve/learner", "serve/learner_server",
+                  "serve/placement", "serve/prefix_store", "serve/remote",
+                  "serve/remote_server", "serve/replica", "serve/router",
+                  "serve/rpc", "serve/scheduler", "serve/weights")
 
 
 @pytest.mark.parametrize("module", PORTED_MODULES)
@@ -180,6 +187,41 @@ def test_migration_module_imports_under_the_blocker():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
+
+
+_SERVE_UNDER_BLOCKER = r"""
+import json
+import numpy as np
+import torch
+import senweaver_ide_tpu_torch.serve as serve
+import senweaver_ide_tpu_torch.resilience as res
+from senweaver_ide_tpu_torch.serve import rpc
+# a frame that names the JAX package's KVCache decodes into the port's
+# own class with the JAX package blocked
+frame = {"__nt__": "senweaver_ide_tpu.models.transformer:KVCache",
+         "f": {"k": rpc.encode(torch.zeros(1, dtype=torch.bfloat16)),
+               "v": rpc.encode(np.zeros(1, np.float32)),
+               "length": rpc.encode(np.int32(1))}}
+kv = rpc.decode(json.loads(json.dumps(frame)))
+assert type(kv).__module__ == "senweaver_ide_tpu_torch.models.transformer"
+assert kv.k.dtype == torch.bfloat16
+assert len(serve.__all__) >= 60 and "ChaosEngine" in res.__all__
+assert not [k for k in sys.modules if k.split(".")[0] in BANNED]
+print("serve ok")
+"""
+
+
+def test_serve_and_chaos_import_with_jax_blocked():
+    """The serving plane, leases and chaos harness import with the JAX
+    package blocked, and the codec's namedtuple rebuild maps a JAX frame
+    onto the port's module instead of importing the JAX package."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    code = _BLOCKED_IMPORT.format(banned=BANNED) + _SERVE_UNDER_BLOCKER
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split()[-1] == "ok"
 
 
 def test_generator_must_match_device(monkeypatch):
