@@ -243,7 +243,31 @@ Phases, each fatal on failure:
     672 / 336 / 336 (three steps), K3 0. Prints the steps' loss and
     ratio, the publish's staging and roll seconds and frame bytes, the
     lease epochs and peak memory.
-23. Weight-only int8 (``phase_int8``) on the 1.5B weights of phases
+23. The control plane (``phase_control``, on the same weights): the
+    package's native library and senweaver-ctl built with g++ from
+    ``senweaver_ide_tpu_torch/native/`` into its ``_build/`` (no fallback
+    taken); a ControlServer on a unix socket in a temp dir and a JobRunner
+    over a TrainState of the weights (flash, remat, accum 2, lr 1e-5,
+    spread rewards), its sessions on one paged engine as in phase 12, every span
+    of their shared TraceCollector sunk into a TraceRing. Through the
+    binary: a grpo job of 2 tasks x 2 sessions (``watch``, then ``call
+    job_result``: done, one round, the step advanced by one, finite
+    metrics, |ratio_mean - 1| within RATIO_TOL, K1 = layers x fused
+    steps, K2 112 / 56 / 56); an eval_rules job (a finite final_reward);
+    a grpo job stopped while it waits behind it (never runs) and a
+    malformed job (failed, its error filled in). The ring must read back
+    every span the collector holds. DashboardService on 127.0.0.1:0:
+    ``/api/state`` lists the four jobs with their statuses, its runtime
+    tile the engine's fused steps, ``/api/action`` reads the same over the
+    socket, ``/metrics`` serves the round (senweaver_rounds_total one up).
+    OnboardingService's probe (a subprocess round-tripping a CUDA tensor)
+    passes and the accelerator step takes 'gpu'. SCMService writes a
+    commit message for a staged change in a temp git repository through
+    the same engine, greedy, 64 new tokens (a message, or the error for a
+    reply without ``<output>``). K3 0. Prints the job, round and eval
+    seconds, launches, spans in the ring, the dashboard's latency and
+    peak memory.
+24. Weight-only int8 (``phase_int8``) on the 1.5B weights of phases
     12-20: ``quantize_weights_int8`` (bytes computed and measured), one
     fused step's logits on int8 weights, K1 vs the plain path and vs the
     no-cache forward, within the tie tolerance; 16 greedy requests of
@@ -251,7 +275,7 @@ Phases, each fatal on failure:
     p90 step ms, device ms a step from a profiled window each); a bf16
     publish into the int8 engine is quantized again (weight_quant 1) and
     serves. K1 = 28 x fused steps of every engine, K2 and K3 0.
-24. Mixture-of-experts (``phase_moe``) at full Qwen3-30B-A3B width and
+25. Mixture-of-experts (``phase_moe``) at full Qwen3-30B-A3B width and
     depth (48 layers, 128 experts, top-8) after the Mistral weights are
     freed: K1 (two-entry tiles at rep 8) and K2 (2 x 511) at its 32/4
     heads against their plain versions, timed beside their bounds and
@@ -271,10 +295,11 @@ Phases, each fatal on failure:
     move, finite metrics, first-step |ratio_mean - 1|, K2 = 384 / 192 /
     192; materialize_lora re-quantizes, update_params into the int8
     engine and one more request.
-25. A JSON line with every kernel's numbers (``launches_round``,
+26. A JSON line with every kernel's numbers (``launches_round``,
     ``launches_online``, ``launches_reuse``, ``launches_async``,
     ``launches_spec``, ``launches_group``, ``launches_tenants``,
     ``launches_migrate``, ``launches_fleet``, ``launches_learner``,
+    ``launches_control``,
     ``launches_int8``, ``launches_moe`` and
     ``launches_qlora``: the counts of those phases' runs; K1's entry
     also its times at the draft's heads, ``d64_*``, at the verify step,
@@ -4976,6 +5001,366 @@ def phase_learner(torch, cfg, fleet_out, seed, smi):
     return {"k1": k1, **k2n, "k3": 0}
 
 
+# The control plane (phase_control): rules for the eval_rules job (any
+# list renders into the sessions' system message) and the ctl binary's
+# per-call limit
+CONTROL_RULES = ("Read a file before you edit it.",
+                 "Run the tests after every change.")
+CTL_TIMEOUT_S = 300
+# the grpo job's microbatches: its 4 trajectories of ~2,100 tokens in one
+# microbatch peaked at 68.4 GB on an H100 80GB, the phase run alone (fp32
+# logits over the 151,936-token vocabulary), too close to the card's 80 GB
+# beside the script's other live weights; two halve that part
+CONTROL_ACCUM = 2
+
+
+def _ctl_ok(binary, sock, *args):
+    """One senweaver-ctl call that must succeed: the result of the last
+    JSON line it printed."""
+    res = subprocess.run([binary, "--socket", sock, "--interval", "1",
+                          *args], capture_output=True, text=True,
+                         timeout=CTL_TIMEOUT_S)
+    lines = [ln for ln in res.stdout.strip().split("\n") if ln]
+    resp = json.loads(lines[-1]) if lines else {}
+    if res.returncode != 0 or "result" not in resp:
+        fail(f"control: senweaver-ctl {' '.join(args)} exited "
+             f"{res.returncode}: {resp} {res.stderr.strip()}")
+    return resp["result"]
+
+
+def _http_get(url):
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=60) as r:
+        body = r.read()
+    return body, time.perf_counter() - t0
+
+
+def _scm_repo(root):
+    """A git repository with one commit and a staged change."""
+    def git(*args):
+        res = subprocess.run(["git", "-c", "user.name=chip-smoke",
+                              "-c", "user.email=chip-smoke@localhost",
+                              *args], cwd=root, capture_output=True,
+                             text=True, timeout=60)
+        if res.returncode != 0:
+            fail(f"control: git {' '.join(args)}: {res.stderr.strip()}")
+    os.makedirs(root)
+    git("init", "-q")
+    with open(os.path.join(root, "utils.py"), "w") as f:
+        f.write("def add(a, b):\n    return a - b\n")
+    git("add", "utils.py")
+    git("commit", "-q", "-m", "Add utils.add")
+    with open(os.path.join(root, "utils.py"), "w") as f:
+        f.write("def add(a, b):\n    return a + b\n\n\n"
+                "def sub(a, b):\n    return a - b\n")
+    git("add", "utils.py")
+
+
+def phase_control(torch, cfg, params, seed, smi):
+    """The control plane at full width: the port's native library and
+    senweaver-ctl built from the package's native/ sources; a ControlServer
+    and a JobRunner whose TrainState trains the loaded weights; through the
+    binary a grpo job (its sessions on one paged engine: K1; its update:
+    K2), an eval_rules job, a job stopped while queued and a malformed one;
+    the sessions' spans in a TraceRing; the operator dashboard over the
+    same registry, tracer and socket; the onboarding probe; an SCM commit
+    message from the same engine."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    from senweaver_ide_tpu_torch import obs
+    from senweaver_ide_tpu_torch.models import ByteTokenizer
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    from senweaver_ide_tpu_torch.ops.paged_attention import \
+        paged_flash_decode
+    from senweaver_ide_tpu_torch.rollout import (EnginePolicyClient,
+                                                 RolloutEngine,
+                                                 RolloutSession,
+                                                 SampleParams)
+    from senweaver_ide_tpu_torch.runtime import (ControlServer, JobRunner,
+                                                 TraceRing, native)
+    from senweaver_ide_tpu_torch.services import (DashboardService,
+                                                  OnboardingService,
+                                                  RuntimeConfig, SCMService)
+    from senweaver_ide_tpu_torch.traces import TraceCollector
+    from senweaver_ide_tpu_torch.training import (make_optimizer,
+                                                  make_train_state)
+    t_phase = time.perf_counter()
+    tcfg = dataclasses.replace(cfg, attn_impl="flash", remat=TRAIN_REMAT)
+    layers = tcfg.num_layers
+    tok = ByteTokenizer()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. the native library and the CLI, from this checkout's sources
+    t0 = time.time()
+    if not native.build_native(force=True):
+        fail("control: the native library did not build (g++)")
+    build_s = time.time() - t0
+    lib_path, ctl = native._LIB_PATH, native.ctl_binary_path()
+    for path in (lib_path, ctl):
+        if path is None or os.path.getmtime(path) < t0 - 1:
+            fail(f"control: {path} was not built by this run")
+    if not native.native_available():
+        fail("control: the native library does not load")
+    log(f"[control] {smi}: built {lib_path} and {ctl} with g++ in "
+        f"{build_s:.2f} s")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    obs.set_profiler(obs.RuntimeProfiler())
+    tracer = obs.enable()
+    tracer.clear()
+    registry = obs.get_registry()
+    ring = TraceRing(os.path.join(work, "spans.ring"), slot_size=16384,
+                     n_slots=1024)
+    collector = TraceCollector(span_sink=ring.append)
+    engine = RolloutEngine(params, tcfg, num_slots=ROUND_SLOTS,
+                           max_len=ROUND_MAX_LEN, sample=SampleParams(),
+                           eos_id=tok.eos_id, seed=seed, device="cuda")
+    sessions = []
+
+    def make_session(rules=None):
+        client = EnginePolicyClient(
+            engine, tok, model_name=tcfg.name,
+            default_max_new_tokens=ROUND_NEW_TOKENS, record_calls=True)
+        n = len(sessions)
+        sess = RolloutSession(client, os.path.join(work, f"ws{n}"),
+                              thread_id=f"control-{n}", collector=collector,
+                              apo_rules=list(rules or []),
+                              include_tool_definitions=False)
+        sessions.append(sess)
+        return sess
+
+    state = make_train_state(tcfg, params=params,
+                             optimizer=make_optimizer(TRAIN_LR))
+    step0 = int(state.step)
+    sock = os.path.join(work, "ctl.sock")
+    server = ControlServer(sock)
+    runner = JobRunner(server, make_session=make_session, train_state=state,
+                       model_config=tcfg, reward_override=_spread_reward,
+                       pad_id=tok.pad_id, max_len=ROUND_MAX_LEN)
+    dash = DashboardService(collector=collector, engine=engine,
+                            control=server, tracer=tracer,
+                            registry=registry)
+    k2 = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkdv,
+          fa.flash_attention_bwd_dq)
+
+    def reset():
+        paged_flash_decode.launches = 0
+        for w in k2:
+            w.launches = 0
+
+    def counts():
+        return {"k1": paged_flash_decode.launches,
+                "fwd": fa.flash_attention_fwd.launches,
+                "dkdv": fa.flash_attention_bwd_dkdv.launches,
+                "dq": fa.flash_attention_bwd_dq.launches}
+
+    rounds0 = registry.counter("senweaver_rounds_total",
+                               "Completed GRPO rounds.").value()
+    flash_decode.launches = 0
+    server.start()
+    runner.start()
+    try:
+        if _ctl_ok(ctl, sock, "ping") != "pong":
+            fail("control: ping did not answer pong")
+
+        # 2. a GRPO job through the binary
+        steps0 = engine.stats()["decode_steps"]
+        reset()
+        t0 = time.perf_counter()
+        grpo_id = _ctl_ok(ctl, sock, "submit", json.dumps(
+            {"type": "grpo", "tasks": list(ROUND_TASKS), "rounds": 1,
+             "group_size": 2, "accum_steps": CONTROL_ACCUM}))["job_id"]
+        _ctl_ok(ctl, sock, "watch")
+        job_s = time.perf_counter() - t0
+        job_launches = counts()
+        job_steps = engine.stats()["decode_steps"] - steps0
+        got = _ctl_ok(ctl, sock, "call", "job_result",
+                      json.dumps({"job_id": grpo_id}))
+        res = got.get("result") or {}
+        if got.get("status") != "done":
+            fail(f"control: the grpo job ended {got.get('status')}: "
+                 f"{res.get('error')}")
+        if res.get("rounds_done") != 1 or res.get("step") != step0 + 1:
+            fail(f"control: the grpo job did {res.get('rounds_done')} "
+                 f"rounds to step {res.get('step')}, expected 1 and "
+                 f"{step0 + 1}")
+        metrics = res["metrics"][0]
+        bad = [k for k, v in metrics.items()
+               if not (isinstance(v, (int, float)) and math.isfinite(v))]
+        if bad:
+            fail(f"control: non-finite job metrics {bad}: {metrics}")
+        if job_launches["k1"] != layers * job_steps or not job_steps:
+            fail(f"control: K1 launches {job_launches['k1']} != {layers} "
+                 f"x {job_steps} fused steps")
+        per_pass = layers * CONTROL_ACCUM
+        expect = {"fwd": per_pass * (2 if TRAIN_REMAT else 1),
+                  "dkdv": per_pass, "dq": per_pass}
+        if {k: job_launches[k] for k in expect} != expect:
+            fail(f"control: K2 launches {job_launches} != expected {expect}")
+        ratio_err = abs(metrics["ratio_mean"] - 1.0)
+        if not ratio_err < RATIO_TOL:
+            fail(f"control: |ratio_mean - 1| = {ratio_err} >= {RATIO_TOL}")
+        round_s = sum(rec.duration_ms for rec in tracer.spans()
+                      if rec.name == "grpo_round") / 1e3
+
+        # 3. an eval_rules job; 4. a job stopped while it waits behind it,
+        # then a malformed one
+        reset()
+        t0 = time.perf_counter()
+        eval_id = _ctl_ok(ctl, sock, "submit", json.dumps(
+            {"type": "eval_rules", "rules": list(CONTROL_RULES)}))["job_id"]
+        deadline = time.time() + CTL_TIMEOUT_S
+        while server.jobs[eval_id].status == "queued":
+            if time.time() > deadline:
+                fail("control: the eval_rules job never started")
+            time.sleep(0.05)
+        held_id = _ctl_ok(ctl, sock, "submit", json.dumps(
+            {"type": "grpo", "tasks": list(ROUND_TASKS), "rounds": 1,
+             "group_size": 2}))["job_id"]
+        stopped = _ctl_ok(ctl, sock, "stop", held_id)
+        bad_id = _ctl_ok(ctl, sock, "submit", json.dumps(
+            {"type": "no_such_job"}))["job_id"]
+        _ctl_ok(ctl, sock, "watch")
+        eval_s = time.perf_counter() - t0
+        eval_launches = counts()
+        by_id = {j["job_id"]: j["status"]
+                 for j in _ctl_ok(ctl, sock, "status")}
+        want = {grpo_id: "done", eval_id: "done", held_id: "stopped",
+                bad_id: "failed"}
+        if by_id != want or stopped.get("status") != "stopped":
+            fail(f"control: job statuses {by_id} (stop said {stopped}), "
+                 f"expected {want}")
+        final = server.jobs[eval_id].result.get("final_reward")
+        if not (isinstance(final, float) and math.isfinite(final)):
+            fail(f"control: eval_rules final_reward {final}")
+        if server.jobs[held_id].result is not None:
+            fail("control: the stopped job ran")
+        err = (server.jobs[bad_id].result or {}).get("error", "")
+        if "unknown job type" not in err:
+            fail(f"control: the malformed job's error reads {err!r}")
+        if eval_launches["k1"] <= 0 or any(eval_launches[k] for k in expect):
+            fail(f"control: eval_rules launches {eval_launches}")
+
+        # 5. the ring holds every span the collector accepted
+        n_spans = sum(len(t.spans) for t in collector.get_all_traces())
+        first, head = ring.window()
+        back = [ring.read(i) for i in range(first, head)]
+        if (head != n_spans or first != 0 or ring.dropped
+                or any(b is None for b in back)):
+            fail(f"control: ring head {head}, window from {first}, "
+                 f"dropped {ring.dropped}; the collector holds {n_spans}")
+        ids = {json.loads(b)["id"] for b in back}
+        if ids != {s.id for t in collector.get_all_traces()
+                   for s in t.spans}:
+            fail("control: the ring's spans are not the collector's")
+
+        # 6. the dashboard over the same registry, tracer and socket
+        dash.control_socket = sock
+        port = dash.start("127.0.0.1", 0)
+        base = f"http://127.0.0.1:{port}"
+        body, state_s = _http_get(base + "/api/state")
+        st = json.loads(body)
+        tiles = {j["job_id"]: j["status"] for j in st.get("jobs", [])}
+        if tiles != want:
+            fail(f"control: /api/state jobs {tiles}, expected {want}")
+        fused = {f["fn"]: f["calls"] for f in st["runtime"]["functions"]}
+        if not fused.get("engine.fused_step"):
+            fail(f"control: the runtime tile lacks the engine's fused "
+                 f"step: {sorted(fused)}")
+        import urllib.request
+        req = urllib.request.Request(
+            base + "/api/action", data=json.dumps({"method": "status"})
+            .encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            act = json.loads(r.read())
+        if not act.get("ok") or {j["job_id"]: j["status"]
+                                 for j in act["result"]} != want:
+            fail(f"control: /api/action status over the socket: {act}")
+        text, metrics_s = _http_get(base + "/metrics")
+        rounds = [float(ln.split()[-1]) for ln in text.decode().splitlines()
+                  if ln.startswith("senweaver_rounds_total ")]
+        if rounds != [rounds0 + 1] or b"senweaver_train_step_ms" not in text:
+            fail(f"control: /metrics rounds {rounds} (before the job "
+                 f"{rounds0}), or no senweaver_train_step_ms")
+
+        # 7. onboarding: the probe's subprocess reaches the card
+        ob = OnboardingService(
+            RuntimeConfig(settings_path=os.path.join(work, "settings.json")),
+            state_path=os.path.join(work, "onboarding.json"))
+        t0 = time.perf_counter()
+        probed = ob.probe_accelerator()
+        probe_s = time.perf_counter() - t0
+        if not probed:
+            fail("control: the onboarding probe found no card")
+        answered = ob.answer("accelerator", "gpu")
+        if answered["answers"].get("accelerator") != "gpu":
+            fail(f"control: onboarding did not take 'gpu': {answered}")
+
+        # 8. an SCM commit message from the same engine, greedy
+        repo = os.path.join(work, "scm")
+        _scm_repo(repo)
+        engine.sample = SampleParams(0.0, 0, 1.0)
+        reset()
+        steps0 = engine.stats()["decode_steps"]
+        client = EnginePolicyClient(engine, tok, model_name=tcfg.name,
+                                    default_max_new_tokens=ROUND_NEW_TOKENS)
+        t0 = time.perf_counter()
+        try:
+            scm = "message: " + repr(
+                SCMService(client).generate_commit_message(repo))
+        except RuntimeError as e:
+            if "no <output> commit message" not in str(e):
+                raise
+            scm = f"RuntimeError: {e}"
+        scm_s = time.perf_counter() - t0
+        scm_k1 = paged_flash_decode.launches
+        scm_steps = engine.stats()["decode_steps"] - steps0
+        if scm_k1 != layers * scm_steps or not scm_steps:
+            fail(f"control: SCM K1 launches {scm_k1} != {layers} x "
+                 f"{scm_steps} fused steps")
+        if flash_decode.launches:
+            fail(f"control: K3 launched {flash_decode.launches} times")
+        engine._alloc.check_leaks()
+    finally:
+        dash.stop()
+        runner.stop()
+        server.stop()
+        ring.close()
+        obs.disable()
+        shutil.rmtree(work, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[control] {smi}: a ControlServer on a unix socket and a JobRunner "
+        f"over a TrainState of the loaded weights ({tcfg.name}, {layers} "
+        f"layers, flash, remat, accum {CONTROL_ACCUM}, lr {TRAIN_LR}); "
+        f"through senweaver-ctl a "
+        f"grpo job of {len(ROUND_TASKS)} tasks x 2 agent sessions on one "
+        f"paged engine ({ROUND_SLOTS} slots, max_len {ROUND_MAX_LEN}, "
+        f"{ROUND_NEW_TOKENS} new a call, spread rewards, "
+        f"{res['metrics'][0]['episodes']} episodes): done in "
+        f"{job_s:.2f} s (the grpo_round span {round_s:.2f} s), step "
+        f"{step0} -> {res['step']}, loss {metrics['loss']:.6g}, ratio_mean "
+        f"{metrics['ratio_mean']:.6f}; K1 {job_launches['k1']} = {layers} "
+        f"x {job_steps} fused steps, K2 {job_launches['fwd']} / "
+        f"{job_launches['dkdv']} / {job_launches['dq']}")
+    log(f"[control] {smi}: the eval_rules job ({len(CONTROL_RULES)} rules, "
+        f"six pattern tasks) final_reward {final:.6g}, the queued job "
+        f"stopped unrun and the malformed one failed, all in {eval_s:.2f} "
+        f"s; K1 {eval_launches['k1']}; {head} spans in the ring, each the "
+        f"collector's; /api/state in {state_s * 1e3:.1f} ms, /metrics in "
+        f"{metrics_s * 1e3:.1f} ms (senweaver_rounds_total {rounds[0]:g}); "
+        f"the onboarding probe passed in {probe_s:.2f} s; SCM in "
+        f"{scm_s:.2f} s, K1 {scm_k1} = {layers} x {scm_steps}: {scm}; K3 0; "
+        f"peak max_memory_allocated {peak} bytes; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"k1": job_launches["k1"] + eval_launches["k1"] + scm_k1,
+            **{k: job_launches[k] for k in expect}, "k3": 0}
+
+
 def _spread_reward(task_idx, g, session):
     """Rewards that spread within a group (random weights tie every group
     on the trace reward, which would make every update zero)."""
@@ -5926,6 +6311,9 @@ def main(argv=None) -> int:
     del fleet_out
     gc.collect()
     torch.cuda.empty_cache()
+    control_launches = phase_control(torch, cfg, loaded, args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     int8_w_launches = phase_int8(torch, cfg, loaded, args.seed, smi,
                                  spec_launches["tie_atol"])
     # the 1.5B weights (trained in place) make way for mistral-7b
@@ -5975,6 +6363,8 @@ def main(argv=None) -> int:
             "launches_fleet": (fleet_launches["k1"] if variant == "bf16"
                                else None),
             "launches_learner": (learner_launches["k1"] if variant == "bf16"
+                                 else None),
+            "launches_control": (control_launches["k1"] if variant == "bf16"
                                  else None),
             "launches_int8": (int8_w_launches["k1"] if variant == "bf16"
                               else None),
@@ -6038,6 +6428,7 @@ def main(argv=None) -> int:
             "launches_migrate": migrate_launches[kname],
             "launches_fleet": fleet_launches[kname],
             "launches_learner": learner_launches[kname],
+            "launches_control": control_launches[kname],
             "launches_int8": int8_w_launches["k2"][kname],
             "launches_moe": moe["k2_serving"][kname],
             "launches_qlora": moe["k2"][kname],
@@ -6070,6 +6461,7 @@ def main(argv=None) -> int:
         "launches_migrate": migrate_launches["k3"],
         "launches_fleet": fleet_launches["k3"],
         "launches_learner": learner_launches["k3"],
+        "launches_control": control_launches["k3"],
         "launches_int8": int8_w_launches["k3"],
         "launches_moe": moe["k3"], "launches_qlora": moe["k3_qlora"],
         "max_abs_err": fd["max_abs_err"],

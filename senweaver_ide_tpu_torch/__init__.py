@@ -9,7 +9,8 @@ of JAX or of the JAX package.
 Ported so far: the paged serving path, the GRPO trainer, the slot
 layout, and the online GRPO round on them (agent sessions on one shared
 engine, traces, the trace reward head, ``grpo_round``) with its
-observability plane, and the serving fleet around the engine.
+observability plane, the serving fleet around the engine, and the
+control plane that runs training jobs on it.
 
 - ``models``   — presets, the no-cache (training), contiguous-cache and
                  paged forwards, the numpy weight bridge.
@@ -30,12 +31,19 @@ observability plane, and the serving fleet around the engine.
                  remote replicas over HTTP, the disaggregated learner
                  (copies of the JAX package's, apart from the wire codec
                  for tensors and the device placement of what it decodes).
+- ``runtime``  — the control plane: ``ControlServer`` on a unix socket,
+                 the ``JobRunner`` that trains on it, and the native mmap
+                 trace ring, byte tokenizer and ``senweaver-ctl`` CLI
+                 (``native/``, built with g++ at first use into
+                 ``_build/``).
+- ``transport`` — clients for remote LLM providers.
 - ``rewards``  — the 9-dimension trace reward head (torch, on the card).
 - ``obs``      — tracing, metrics, telemetry, the fleet plane, and the
                  torch runtime profiler (``runtime_profile``).
 - ``agents``, ``tools``, ``prompts``, ``traces``, ``resilience``,
   ``context``, ``editor``, ``services`` — the host-pure agent stack
-                 around a session, copied from the JAX package
+                 around a session and the operator services (dashboard,
+                 onboarding, SCM, ...), copied from the JAX package
                  (``tests/test_torch_copies.py`` holds each copy to its
                  original).
 

@@ -491,3 +491,14 @@ class ChaosEngine:
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
+
+    def __setattr__(self, name, value):
+        # a write to an attribute the inner engine has lands on the
+        # engine (ServingFleet.attach_migration arms migrate_on_pressure
+        # through this proxy); the proxy's own fields stay its own
+        inner = self.__dict__.get("_inner")
+        if (inner is not None and name not in ("_inner", "_plan", "_pressure")
+                and hasattr(inner, name)):
+            setattr(inner, name, value)
+        else:
+            object.__setattr__(self, name, value)

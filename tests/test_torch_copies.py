@@ -42,11 +42,23 @@ COPIES = (
     "apo/types", "apo/patterns", "apo/report", "apo/rollouts",
     "apo/gradient", "apo/segments", "apo/synthetic", "apo/service",
     "apo/__init__",
-    "resilience/lease", "resilience/chaos", "resilience/__init__",
+    "resilience/lease", "resilience/__init__",
     "serve/admission", "serve/router",
     "serve/prefix_store", "serve/frontend", "serve/scheduler",
     "serve/autoscale", "serve/learner",
     "serve/learner_server", "serve/__init__",
+    "runtime/msgpack_lite", "runtime/control", "runtime/jobs",
+    "runtime/__init__",
+    "transport/providers", "transport/http_client",
+    "transport/native_clients", "transport/__init__",
+    "services/config", "services/metrics", "services/collaboration",
+    "services/extensions", "services/scm", "services/model_refresh",
+    "services/dashboard", "services/__init__",
+    "editor/diff_zones", "editor/edit_prediction", "editor/__init__",
+    "tools/search_engines", "rewards/reference_impl",
+    # the native sources, held to the repo's native/ (a ``.cpp`` entry
+    # names the file itself)
+    "native/trace_ring.cpp", "native/senweaver_ctl.cpp",
 )
 
 # Copies with a few hunks of their own, each named with its reason; the
@@ -67,6 +79,20 @@ PATCHED = {
     # idempotency keys never replay an earlier client's cached response:
     # an import, the nonce, _request_id, its use in _call
     "serve/remote": 4,
+    # ChaosEngine forwards a write to an attribute its engine has
+    # (attach_migration's migrate_on_pressure): the __setattr__ method
+    "resilience/chaos": 1,
+    # the port builds its own copies of the native sources with g++ into
+    # its own _build/, never through native/Makefile into the JAX
+    # package: the module docstring (two hunks), the build and source
+    # paths with the Makefile's flags (two), build_native's docstring
+    # and body (two), the pipeline the tokenizer feeds (one)
+    "runtime/native": 7,
+    # the accelerator posture is 'gpu' or 'cpu', probed in a killable
+    # subprocess that imports torch and round-trips a CUDA tensor: the
+    # module docstring's posture, the validator, the step's description
+    # and the probe's docstring and code (two hunks)
+    "services/onboarding": 5,
 }
 
 # 1-based lines of the JAX files whose comment dates a feature by the
@@ -83,6 +109,13 @@ REWORDED_LINES = {
     "obs/propagation": (3,),
     "obs/telemetry": (63, 184, 191),
     "obs/training_health": (3, 45),
+    # a TPU step and TPU memory (HBM) in comments, a numbered change and
+    # an earlier round; the metric names stay
+    "runtime/jobs": (8,),
+    "services/dashboard": (192, 626),
+    "transport/native_clients": (6,),
+    # the control server's path named the JAX package
+    "native/senweaver_ctl.cpp": (7,),
 }
 
 # module -> why the port's file differs from the JAX one (none today:
@@ -104,12 +137,22 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
+def _sources(module):
+    """(original, copy): a module of each package, or for a ``.cpp``
+    entry the repo's native/ file and the port's copy of it."""
+    if module.endswith(".cpp"):
+        return (os.path.join(ROOT, module),
+                os.path.join(ROOT, "senweaver_ide_tpu_torch", module))
+    return (os.path.join(ROOT, "senweaver_ide_tpu", module + ".py"),
+            os.path.join(ROOT, "senweaver_ide_tpu_torch", module + ".py"))
+
+
 @pytest.mark.parametrize("module", COPIES)
 def test_copy_matches_jax_original(module):
-    with open(os.path.join(ROOT, "senweaver_ide_tpu", module + ".py")) as f:
+    original, copy = _sources(module)
+    with open(original) as f:
         want = _NAME.sub("senweaver_ide_tpu_torch", f.read())
-    with open(os.path.join(ROOT, "senweaver_ide_tpu_torch",
-                           module + ".py")) as f:
+    with open(copy) as f:
         got = f.read()
     reworded = REWORDED_LINES.get(module, ())
     if reworded:
@@ -134,10 +177,10 @@ def test_allowlist_and_edits_name_copies():
 
 @pytest.mark.parametrize("module", sorted(PATCHED))
 def test_patched_copy_differs_only_in_its_hunks(module):
-    with open(os.path.join(ROOT, "senweaver_ide_tpu", module + ".py")) as f:
+    original, copy = _sources(module)
+    with open(original) as f:
         want = _NAME.sub("senweaver_ide_tpu_torch", f.read()).splitlines()
-    with open(os.path.join(ROOT, "senweaver_ide_tpu_torch",
-                           module + ".py")) as f:
+    with open(copy) as f:
         got = f.read().splitlines()
     hunks = [op for op in difflib.SequenceMatcher(
         None, want, got, autojunk=False).get_opcodes() if op[0] != "equal"]

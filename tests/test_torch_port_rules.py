@@ -114,7 +114,19 @@ PORTED_MODULES = ("rollout/speculative", "rollout/spec_controller",
                   "serve/learner", "serve/learner_server",
                   "serve/placement", "serve/prefix_store", "serve/remote",
                   "serve/remote_server", "serve/replica", "serve/router",
-                  "serve/rpc", "serve/scheduler", "serve/weights")
+                  "serve/rpc", "serve/scheduler", "serve/weights",
+                  "runtime/__init__", "runtime/msgpack_lite",
+                  "runtime/control", "runtime/native", "runtime/jobs",
+                  "transport/__init__", "transport/providers",
+                  "transport/http_client", "transport/native_clients",
+                  "services/__init__", "services/config",
+                  "services/metrics", "services/collaboration",
+                  "services/extensions", "services/scm",
+                  "services/model_refresh", "services/dashboard",
+                  "services/onboarding", "editor/__init__",
+                  "editor/diff_zones", "editor/edit_prediction",
+                  "tools/__init__", "tools/search_engines",
+                  "rewards/reference_impl")
 
 
 @pytest.mark.parametrize("module", PORTED_MODULES)

@@ -1,6 +1,7 @@
 """The port's 9-dimension reward head against the JAX head (jitted,
 ``jax.vmap`` for batches) and the pure-Python oracle
-``senweaver_ide_tpu/rewards/reference_impl.py``: on the boundary
+``rewards/reference_impl.py`` (the port's copy scores the port's traces,
+and on the boundary fixtures equals the JAX package's): on the boundary
 fixtures of ``tests/test_reward_head.py`` and on 512 seeded random
 feature rows in both chat modes. Dims and presence mask must equal the
 JAX head's exactly; final rewards agree within 1e-6 (XLA's CPU code fuses
@@ -19,14 +20,16 @@ import torch
 
 from senweaver_ide_tpu import obs as jobs
 from senweaver_ide_tpu.rewards import head as jhead
-from senweaver_ide_tpu.rewards.reference_impl import compute_reward_signals
+from senweaver_ide_tpu.rewards import reference_impl as jref
 from senweaver_ide_tpu.traces import TraceCollector as JaxCollector
 from senweaver_ide_tpu.traces import features as jfeat
-from senweaver_ide_tpu.traces.schema import SpanType as JaxSpanType
 from senweaver_ide_tpu_torch import obs
 from senweaver_ide_tpu_torch.rewards import (DIM_NAMES, N_DIMS, reward_head,
                                              reward_head_batch, score_trace,
                                              score_traces)
+from senweaver_ide_tpu_torch.rewards.reference_impl import \
+    compute_reward_signals
+from senweaver_ide_tpu_torch.traces.schema import SpanType
 from senweaver_ide_tpu_torch.traces import TraceCollector, batch_features
 from senweaver_ide_tpu_torch.traces import features as tfeat
 from test_reward_head import BOUNDARY_CASES
@@ -115,7 +118,8 @@ def test_boundary_fixtures_match_jax_and_reference(case):
     assert _dims(ttr) == _dims(jtr)
     assert ttr.summary.final_reward == pytest.approx(
         jtr.summary.final_reward, abs=FINAL_TOL)
-    ref_dims, ref_final = compute_reward_signals(jtr)
+    ref_dims, ref_final = compute_reward_signals(ttr)
+    assert (ref_dims, ref_final) == jref.compute_reward_signals(jtr)
     want = {d["name"]: d["value"] for d in ref_dims}
     assert set(_dims(ttr)) == set(want)
     for name, v in want.items():
@@ -157,9 +161,9 @@ def _oracle_trace(row):
         total_tool_duration_ms=float(row[tfeat.F_TOOL_DURATION_MS]),
         total_llm_calls=int(row[tfeat.F_LLM_CALLS]),
         total_tokens=int(row[tfeat.F_TOKENS]))
-    spans = ([types.SimpleNamespace(type=JaxSpanType.USER_MESSAGE)]
+    spans = ([types.SimpleNamespace(type=SpanType.USER_MESSAGE)]
              * int(row[tfeat.F_USER_MSGS])
-             + [types.SimpleNamespace(type=JaxSpanType.ASSISTANT_MESSAGE)]
+             + [types.SimpleNamespace(type=SpanType.ASSISTANT_MESSAGE)]
              * int(row[tfeat.F_ASSISTANT_MSGS]))
     return types.SimpleNamespace(
         summary=summary, spans=spans,

@@ -983,6 +983,55 @@ def test_kv_pressure_migrates_instead_of_truncating(models):
     assert all(o[0] == "Completed" and len(o[1]) == 12 for o in r["outs"])
 
 
+def _squeezed_chaos_engine(S):
+    """The fleet's engine behind a ``MemoryPressurePlan`` proxy:
+    ``attach_migration`` arms ``migrate_on_pressure`` through the proxy,
+    and a squeeze of the wrapped pool then hands its rows to the roomy
+    replica instead of truncating them."""
+    starved = S.engine(num_slots=3, block_size=4, num_blocks=12,
+                       max_preempts=0)
+    plan = S.res.MemoryPressurePlan([
+        S.res.MemoryPressureFault(at_step=3, hold_blocks=8,
+                                  release_step=40)])
+    fleet = S.serve.ServingFleet([plan.wrap_engine(starved),
+                                  S.engine(num_slots=8)],
+                                 clock=FakeClock(), retry_base_delay_s=0.0)
+    fleet.attach_migration()
+    tickets = [fleet.submit([i + 2, 9, 2, 7], max_new_tokens=12)
+               for i in range(6)]
+    fleet.run()
+    plan.release_all(starved)
+    check_leaks_all(fleet, [starved, fleet.replicas[1].engine])
+    return dict(armed=starved.migrate_on_pressure,
+                outs=_outcomes(fleet, tickets),
+                held=plan.injected_counts(),
+                completed=_migrations(S, "kv_pressure", "completed"),
+                out_n=starved.stats()["migrations_out"])
+
+
+def test_attach_migration_reaches_a_chaos_wrapped_engine(models):
+    """Repaired in the port, open in JAX: JAX's ``ChaosEngine`` takes the
+    flag on the proxy and its engine truncates under the squeeze; the
+    port's proxy forwards the write and the squeezed rows migrate."""
+    from torch_fleet_sides import Side
+    got = {}
+    for name in ("jax", "port"):
+        S = Side(name, models)
+        S.obs._reset_for_tests()
+        try:
+            got[name] = _squeezed_chaos_engine(S)
+        finally:
+            S.obs._reset_for_tests()
+    j, t = got["jax"], got["port"]
+    assert j["held"] == t["held"] and sum(t["held"].values()) >= 1
+    assert j["armed"] is False and j["completed"] == 0
+    assert j["out_n"] == 0
+    assert any(o[0] == "Completed" and len(o[1]) < 12 for o in j["outs"])
+    assert t["armed"] is True and t["completed"] >= 1
+    assert t["out_n"] >= 1
+    assert all(o[0] == "Completed" and len(o[1]) == 12 for o in t["outs"])
+
+
 def _scale_down(S):
     ref = S.reference(MIG_PROMPT, 12)
     fleet, clock = _local_fleet(S)
