@@ -145,7 +145,7 @@ Phases, each fatal on failure:
     batched, a chunked prefill, the plain forward), capped at
     TIE_DIFF_MAX; TIE_FACTOR times that is SPEC_TIE_ATOL. Then the
     serving engine (16 slots, greedy) on 16 requests of 128-1024 tokens,
-    64 new, without speculation (the reference) and at FixedDepth 4 (the
+    32 new, without speculation (the reference) and at FixedDepth 4 (the
     distiller's harvest); on the first 4 of them at FixedDepth 2 and 8,
     under the default SpecController and with a self-draft at depths 2, 4
     and 8 (acceptance at 4 >= SPEC_SELF_ACCEPT_MIN, fewer rounds at 8
@@ -203,8 +203,8 @@ Phases, each fatal on failure:
     teacher forcing; K1 = 28 x the fused steps of every engine, K2 and K3
     0. Prints checkpoint bytes, gather and install ms and GB/s, and the
     recompute restore's ms.
-21. The serving fleet (``phase_fleet``, on the 1.5B weights of phases
-    12-20): one engine at phase_serve's settings (16 slots, max_len 2048,
+21. The serving fleet (``phase_fleet``, on the first FLEET_LAYERS (4)
+    layers of the 1.5B weights of phases 12-20, full width): one engine at phase_serve's settings (16 slots, max_len 2048,
     block 16, step budget 64, greedy) on 32 requests of 128-1024 tokens,
     64 new (half INTERACTIVE, 8 on a 512-token prefix, a group of 4) for
     tok/s and TTFT; then a ServingFleet of two local engines sharing one
@@ -226,7 +226,7 @@ Phases, each fatal on failure:
     fleet's and the engine's tok/s and TTFT p50 / p90, the frames' bytes
     and GB/s, the roll's seconds, the prefix install over HTTP, the
     migrations, peak memory and K1.
-22. The disaggregated learner (``phase_learner``): a
+22. The disaggregated learner (``phase_learner``, at phase 21's depth): a
     StreamingLearnerService over a StreamingTrainerAdapter (flash, remat,
     accum 4, lr 1e-5), two GRPO steps a streamed batch, behind
     serve_fleet_http (FleetRpcHandler, a LeaseStore) and
@@ -281,7 +281,7 @@ Phases, each fatal on failure:
     heads against their plain versions, timed beside their bounds and
     (K2) beside SDPA with enable_gqa=True;
     random bf16 weights (61.06 GB); the serving engine (16 slots,
-    max_len 2048, block 16, budget 64) on 16 greedy requests of
+    max_len 2048, block 16, budget 64) on 8 greedy requests of
     128-1024 tokens, 32 new, K1 = 48 x fused steps, and the last routed
     layer of its first fused step against a per-expert loop on that
     step's own flat batch (dropped share, expert load); the same traffic
@@ -295,13 +295,37 @@ Phases, each fatal on failure:
     move, finite metrics, first-step |ratio_mean - 1|, K2 = 384 / 192 /
     192; materialize_lora re-quantizes, update_params into the int8
     engine and one more request.
-26. A JSON line with every kernel's numbers (``launches_round``,
+26. The parallel layouts (``phase_parallel``, after phase 23): two ranks
+    started once (``multiprocessing``'s spawn context) on the one card,
+    on one gloo group over CUDA tensors (named explicitly; a collective
+    gloo lacks for CUDA goes through pinned host memory, and each rank
+    prints which), fresh random 1.5B weights from --seed in each. (a)
+    Rank 0 first joins a one-rank NCCL group: a one-rank mesh's train
+    step (4 layers at full width, 2 x 256, flash, remat) is bit-equal to
+    mesh=None. (b) tp=2 and fsdp=2 steps on 4 x 1024 (flash, remat,
+    accum 2): the ranks' metrics equal, the gathered gradient within
+    PAR_GRAD_TOL relative RMS and the loss within PAR_LOSS_RTOL of rank
+    0's one-rank step, K2 = layers x accum x (2, 1, 1) a rank. (c) K2 and
+    K3 at the local heads 6/1 against their plain versions, timed beside
+    their bounds. (d) A tp=2 slot engine (8 slots, greedy, one KV head a
+    rank) serves 8 requests of 128-1024 tokens, 32 new: the ranks'
+    streams equal, K3 = layers x decode steps, every stream (and a
+    one-rank engine's) teacher-forced within SPEC_TIE_ATOL. (e) Ring and
+    Ulysses attention at sp=2, 2 x 4096, 12/2 heads, bf16, forward and
+    gradients within PAR_SP_RMS_TOL relative RMS of the one-rank flash
+    path. (f) moe_ffn_sharded at ep=2 on one Qwen3-30B-A3B layer (128
+    experts, top-8, hidden 2048, FFN 768; 4 x 512 tokens) against
+    moe_ffn on each rank's rows, at capacity 1.25 and dropless. Prints
+    each rank's peak memory, collective routes and phase seconds.
+27. A JSON line with every kernel's numbers (``launches_round``,
     ``launches_online``, ``launches_reuse``, ``launches_async``,
     ``launches_spec``, ``launches_group``, ``launches_tenants``,
     ``launches_migrate``, ``launches_fleet``, ``launches_learner``,
     ``launches_control``,
-    ``launches_int8``, ``launches_moe`` and
-    ``launches_qlora``: the counts of those phases' runs; K1's entry
+    ``launches_int8``, ``launches_moe``, ``launches_qlora`` and
+    ``launches_parallel``: the counts of those phases' runs (a rank's, in
+    ``phase_parallel``; K2's and K3's ``local_heads`` give their checks
+    and times at the tp=2 heads); K1's entry
     also its times at the draft's heads, ``d64_*``, at the verify step,
     ``verify_*``, and at Qwen3-30B-A3B's heads, ``rep8_*``; K2's at
     those heads, ``rep8_*``), the card line, and last the JSON ok line.
@@ -313,6 +337,7 @@ Exits non-zero, printing no result, without CUDA or without the
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -3144,7 +3169,7 @@ def phase_async(torch, cfg, params, seed, smi):
 # draft (random weights from --seed + 1); SPEC_REQUESTS prompts of
 # SPEC_PROMPT_LENS tokens, SPEC_NEW_TOKENS new each.
 SPEC_SLOTS, SPEC_MAX_LEN, SPEC_REQUESTS = 16, 2048, 16
-SPEC_PROMPT_LENS, SPEC_NEW_TOKENS = (128, 1024), 64
+SPEC_PROMPT_LENS, SPEC_NEW_TOKENS = (128, 1024), 32
 SPEC_DEPTHS = (2, 4, 8)
 SPEC_SELF_REQUESTS = 4
 # The self-draft (draft = target) at depth 4 must accept at least this
@@ -4291,6 +4316,9 @@ def phase_migrate(torch, cfg, params, seed, smi, tie_atol):
 # publish (FLEET_PERTURB x N(0, 1) added to every weight) begins once the
 # squeezed decode has moved, or at tick FLEET_PUBLISH_BY.
 FLEET_REQUESTS, FLEET_PROMPT_LENS, FLEET_NEW = 32, (128, 1024), 64
+# the depth phase_fleet and phase_learner run at (full width): a weight
+# frame over HTTP takes tens of seconds at full depth
+FLEET_LAYERS = 4
 FLEET_PREFIX, FLEET_PREFIX_USERS, FLEET_GROUP = 512, 8, 4
 FLEET_KILL_AT, FLEET_SQUEEZE_DECODING, FLEET_SQUEEZE_MAX = 4, 4, 64
 FLEET_PUBLISH_BY, FLEET_PERTURB, FLEET_MAX_TICKS = 400, 1e-3, 4000
@@ -5545,7 +5573,7 @@ def phase_slots_logits(torch, cfg, params):
 INT8_REQUESTS, INT8_PROMPT_LENS, INT8_NEW = 16, (128, 1024), 64
 PROFILE_STEPS = 4
 # Qwen3-30B-A3B (phase_moe): the serving engine's shape, 32 new tokens
-MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS = 16, 2048, 16
+MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS = 16, 2048, 8
 MOE_PROMPT_LENS, MOE_NEW = (128, 1024), 32
 # One routed layer of a fused step against the per-expert loop: the same
 # bf16 expert matmuls at other shapes round differently (2**-9 relative at
@@ -5901,8 +5929,8 @@ def _capture_moe_layer(layer):
     real = tf.moe_ffn
     rec, calls = {}, [0]
 
-    def spy(p, mcfg, h):
-        out = real(p, mcfg, h)
+    def spy(p, mcfg, h, **kw):
+        out = real(p, mcfg, h, **kw)
         if not rec:
             calls[0] += 1
             if calls[0] == layer + 1:
@@ -5990,8 +6018,8 @@ def _quantize_in_place(torch, params):
 
 def phase_moe(torch, mcfg, seed, smi, timer):
     """Qwen3-30B-A3B at full width and depth on one card: K1 and K2 at
-    its heads; random bf16 weights; the serving engine on 16 greedy
-    requests (K1 = 48 x fused steps) with one fused step's routed layer
+    its heads; random bf16 weights; the serving engine on MOE_REQUESTS
+    greedy requests (K1 = 48 x fused steps) with one fused step's routed layer
     held against the per-expert loop; the same traffic under a dropless
     copy of the config, every token teacher-forced against the plain
     forward; int8 in place, the traffic again on int8 weights; a QLoRA
@@ -6243,6 +6271,672 @@ def phase_moe(torch, mcfg, seed, smi, timer):
     return out
 
 
+# ---- phase_parallel: two ranks on the one card ----------------------------
+
+PAR_RANKS = 2
+# (b) the train step: 4 x 1024, flash, remat, accum 2 (a microbatch of 2)
+PAR_B, PAR_S, PAR_ACCUM = 4, 1024, 2
+PAR_LR = 1e-5
+# A bf16 forward and backward whose matmuls are split over tp (partial
+# sums rounded to bf16 before the all-reduce) or whose rows are split
+# over fsdp differs from the one-rank step by bf16 rounding through 28
+# layers. Each gradient tensor (each layer's slice of a stacked one) is
+# held to a relative RMS of PAR_GRAD_TOL: a reduction missing on one
+# tensor leaves out one rank's part of it and reads about 0.5 or more.
+# The loss is held to PAR_LOSS_RTOL: with the behaviour log-probs the
+# step's own, the first step's ratio is 1 and the loss is the masked
+# mean of the advantages over the global batch, a function of the data
+# alone; its fp32 sum cancels to about 1/40 of its terms' magnitude, so
+# summation order may move it by a few 1e-6 (a mean of per-rank means
+# moves it by percents).
+PAR_GRAD_TOL = 0.1
+PAR_LOSS_RTOL = 1e-5
+# (a) the one-rank NCCL mesh: full width, PAR_NCCL_LAYERS deep, 2 x 256
+PAR_NCCL_LAYERS = 4
+PAR_NCCL_B, PAR_NCCL_S = 2, 256
+# (d) the TP engine: 8 slots, greedy, 8 requests of 128-1024 tokens
+PAR_SLOTS, PAR_MAX_LEN = 8, 2048
+PAR_PROMPT_LENS, PAR_REQUESTS, PAR_NEW = (128, 1024), 8, 32
+# (e) sequence parallel: B x S at the 1.5B's heads; ring / Ulysses (fp32
+# scores) against the one-rank flash path (K2, bf16): relative RMS of
+# the output and of each gradient
+PAR_SP_B, PAR_SP_S = 2, 4096
+PAR_SP_RMS_TOL = 2e-2
+# (f) expert parallel: one Qwen3-30B-A3B MoE layer, B x S tokens
+PAR_MOE_B, PAR_MOE_S = 4, 512
+PAR_COLLECTIVE_TIMEOUT_S = 300
+PAR_TIMEOUT_S = 900
+
+
+class _RankFail(Exception):
+    """A check that failed on a rank (the parent prints it and fails)."""
+
+
+def _rcheck(ok, msg):
+    if not ok:
+        raise _RankFail(msg)
+
+
+def _par_cfg(**over):
+    import dataclasses
+    from senweaver_ide_tpu_torch.models import qwen2_5_coder_1_5b
+    return dataclasses.replace(qwen2_5_coder_1_5b(), **over)
+
+
+def _par_params(torch, cfg, seed):
+    from senweaver_ide_tpu_torch.models import init_params
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
+
+
+def _par_batch(cfg, seed, b, s):
+    """A GRPO batch (host arrays): prompts of s/4..s/2 tokens, the rest
+    completion, rewards spread, groups of two."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 17)
+    tokens = rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int64)
+    mask = np.zeros((b, s), bool)
+    for i in range(b):
+        mask[i, int(rng.integers(s // 4, s // 2)):] = True
+    rewards = np.linspace(-1.0, 1.0, b).astype(np.float32)
+    group_ids = (np.arange(b) // 2).astype(np.int64)
+    return tokens, mask, rewards, group_ids
+
+
+def _par_floats(metrics):
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _rel_rms(torch, got, want, base=None):
+    """(sqrt(sum |got - want|^2) / sqrt(sum |want - base|^2) over two
+    trees of the same paths, {tensor: the same ratio over that tensor})
+    in fp32; a stacked layer tensor counts per layer (``layers/wq[3]``);
+    ``base`` is subtracted from both first (an update)."""
+    from senweaver_ide_tpu_torch.training.trainer import flatten_params
+    num = den = 0.0
+    each = {}
+    bases = (dict(flatten_params(base)) if base is not None else {})
+    for (name, a), (_, b) in zip(flatten_params(got), flatten_params(want)):
+        a, b = a.float(), b.float()
+        if name in bases:
+            a = a - bases[name].float()
+            b = b - bases[name].float()
+        d2, b2 = (a - b).pow(2), b.pow(2)
+        if name.startswith("layers/"):
+            axes = tuple(range(1, a.ndim))
+            for i, (n_i, w_i) in enumerate(zip(d2.sum(axes).tolist(),
+                                               b2.sum(axes).tolist())):
+                each[f"{name}[{i}]"] = (n_i / max(w_i, 1e-30)) ** 0.5
+        else:
+            each[name] = (float(d2.sum()) / max(float(b2.sum()),
+                                                1e-30)) ** 0.5
+        num += float(d2.sum())
+        den += float(b2.sum())
+    return (num / max(den, 1e-30)) ** 0.5, each
+
+
+def _par_nccl_one(torch, seed, port):
+    """(a) A one-rank NCCL process group and a one-rank mesh: its train
+    step (flash, remat) bit-equal to the mesh=None step."""
+    import torch.distributed as dist
+    from senweaver_ide_tpu_torch.parallel import single_device_mesh
+    from senweaver_ide_tpu_torch.parallel.distributed import shutdown
+    from senweaver_ide_tpu_torch.training import (make_train_state,
+                                                  place_batch_for_mesh,
+                                                  train_step)
+    from senweaver_ide_tpu_torch.training.trainer import (clone_params,
+                                                          flatten_params)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    cfg = _par_cfg(num_layers=PAR_NCCL_LAYERS, attn_impl="flash",
+                   remat=True)
+    params = _par_params(torch, cfg, seed)
+    batch = _par_batch(cfg, seed, PAR_NCCL_B, PAR_NCCL_S)
+    runs = []
+    for mesh in (None, single_device_mesh()):
+        st = make_train_state(cfg, mesh=mesh, params=clone_params(params),
+                              learning_rate=PAR_LR)
+        placed = place_batch_for_mesh(mesh, *batch, device="cuda")
+        st, met = train_step(st, cfg, mesh, *placed[:4])
+        runs.append((st, _par_floats(met)))
+    (s0, m0), (s1, m1) = runs
+    _rcheck(m0 == m1, f"(a) one-rank mesh metrics {m1} != mesh=None {m0}")
+    for tree in ("params", "mu", "nu"):
+        pick = ((lambda s: s.params) if tree == "params"
+                else (lambda s, t=tree: getattr(s.opt_state, t)))
+        for (n, a), (_, b) in zip(flatten_params(pick(s0)),
+                                  flatten_params(pick(s1))):
+            _rcheck(torch.equal(a, b),
+                    f"(a) one-rank mesh {tree} {n} differs from mesh=None")
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    backend = dist.get_backend()
+    shutdown()
+    return {"backend": backend, "loss": m0["loss"],
+            "layers": cfg.num_layers, "seconds": time.perf_counter() - t0}
+
+
+def _par_train(torch, rank, seed):
+    """(b) tp=2 and fsdp=2 train steps (flash, remat, accum 2) against the
+    one-rank step on the same weights and batch: the gradient's relative
+    RMS, the loss, the update's relative RMS (a figure), K2's launches."""
+    import torch.distributed as dist
+    from senweaver_ide_tpu_torch.parallel import (MeshConfig, gather_params,
+                                                  make_mesh)
+    from senweaver_ide_tpu_torch.training import (make_train_state,
+                                                  place_batch_for_mesh)
+    from senweaver_ide_tpu_torch.training.trainer import (
+        apply_gradients, clone_params, grpo_gradients, make_optimizer,
+        TrainState)
+    cfg = _par_cfg(attn_impl="flash", remat=True)
+    params = _par_params(torch, cfg, seed)
+    batch = _par_batch(cfg, seed, PAR_B, PAR_S)
+    ref = {}
+    if rank == 0:
+        placed = place_batch_for_mesh(None, *batch, accum_steps=PAR_ACCUM,
+                                      device="cuda")
+        t0 = time.perf_counter()
+        grads, met = grpo_gradients(params, cfg, *placed[:4],
+                                    accum_steps=PAR_ACCUM)
+        opt = make_optimizer(PAR_LR)
+        st = TrainState(params=clone_params(params),
+                        opt_state=opt.init(params), opt=opt)
+        st = apply_gradients(st, grads, met["grad_norm"])
+        torch.cuda.synchronize()
+        ref = {"grads": grads, "new": st.params, "metrics": _par_floats(met),
+               "seconds": time.perf_counter() - t0}
+        del st
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out = {"ref_metrics": ref.get("metrics"),
+           "ref_seconds": ref.get("seconds")}
+    layers = cfg.num_layers
+    want = {"fwd": layers * PAR_ACCUM * 2, "dkdv": layers * PAR_ACCUM,
+            "dq": layers * PAR_ACCUM}
+    for name, mcfg in (("tp2", MeshConfig(tp=2)),
+                       ("fsdp2", MeshConfig(fsdp=2))):
+        mesh = make_mesh(mcfg)
+        state = make_train_state(cfg, mesh=mesh, params=params,
+                                 learning_rate=PAR_LR)
+        placed = place_batch_for_mesh(mesh, *batch, accum_steps=PAR_ACCUM,
+                                      device="cuda")
+        torch.cuda.synchronize()
+        _k2_reset()
+        t0 = time.perf_counter()
+        # the train step: its gradients, then the optimizer (train_step's
+        # two halves, the gradients kept for the comparison)
+        grads, met = grpo_gradients(state.params, cfg, *placed[:4],
+                                    accum_steps=PAR_ACCUM, mesh=mesh)
+        state = apply_gradients(state, grads, met["grad_norm"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        k2 = _k2_count()
+        _rcheck(k2 == want, f"(b) {name}: K2 launches {k2} != {want} "
+                f"(layers x accum x (2 under remat, 1, 1))")
+        full_g = gather_params(grads, mesh)
+        full_p = gather_params(state.params, mesh)
+        row = {"metrics": _par_floats(met), "k2": k2, "step_s": step_s,
+               "local_wq": list(state.params["layers"]["wq"].shape)}
+        if rank == 0:
+            row["grad_rel_rms"], each = _rel_rms(torch, full_g, ref["grads"])
+            row["grad_worst"] = sorted(each.items(), key=lambda kv: -kv[1])[:4]
+            row["update_rel_rms"] = _rel_rms(torch, full_p, ref["new"],
+                                             base=params)[0]
+            row["loss_rel"] = abs(row["metrics"]["loss"]
+                                  - ref["metrics"]["loss"]) / max(
+                abs(ref["metrics"]["loss"]), 1e-12)
+            _rcheck(row["grad_worst"][0][1] <= PAR_GRAD_TOL,
+                    f"(b) {name}: gradient relative RMS per tensor, the "
+                    f"worst {row['grad_worst']} > {PAR_GRAD_TOL} (over "
+                    f"every tensor {row['grad_rel_rms']:.4g})")
+            _rcheck(row["loss_rel"] <= PAR_LOSS_RTOL,
+                    f"(b) {name}: loss {row['metrics']['loss']} vs one rank "
+                    f"{ref['metrics']['loss']}")
+        out[name] = row
+        del state, grads, full_g, full_p
+        torch.cuda.empty_cache()
+    return out
+
+
+def _par_engine(torch, rank, seed, tie_atol):
+    """(d) A tp=2 slot engine serving PAR_REQUESTS greedy requests, K3 at
+    its local heads; rank 0 runs a one-rank slot engine and holds every
+    stream by teacher forcing."""
+    import numpy as np
+    from senweaver_ide_tpu_torch.ops.flash_decode import flash_decode
+    from senweaver_ide_tpu_torch.parallel import make_named_mesh
+    from senweaver_ide_tpu_torch.rollout import (EngineConfig,
+                                                 RolloutEngine,
+                                                 SampleParams)
+    cfg = _par_cfg(decode_attn_impl="flash")
+    params = _par_params(torch, cfg, seed)
+    rng = np.random.default_rng(seed + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).tolist()
+               for n in np.linspace(*PAR_PROMPT_LENS, PAR_REQUESTS)]
+    mesh = make_named_mesh({"tp": 2})
+    greedy = SampleParams(0.0, 0, 1.0)
+    eng = RolloutEngine(params, cfg, num_slots=PAR_SLOTS,
+                        max_len=PAR_MAX_LEN, sample=greedy, mesh=mesh)
+    _rcheck(eng.kv_layout_fallback == "tensor-parallel KV sharding",
+            f"(d) layout {eng.kv_layout} ({eng.kv_layout_fallback})")
+    heads = int(eng.cache.k.shape[3])
+    _rcheck(heads == cfg.num_kv_heads // 2, f"(d) {heads} KV heads a rank")
+    torch.cuda.synchronize()
+    flash_decode.launches = 0
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=PAR_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3 = flash_decode.launches
+    steps = eng.stats()["decode_steps"]
+    _rcheck(k3 == cfg.num_layers * steps,
+            f"(d) K3 launches {k3} != layers x decode steps "
+            f"{cfg.num_layers} x {steps}")
+    streams = [eng.result(r) for r in rids]
+    out = {"streams": streams, "k3": k3, "decode_steps": steps,
+           "wall_s": wall, "tokens": sum(len(s) for s in streams),
+           "cache_heads": heads}
+    del eng
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = RolloutEngine(params, cfg, num_slots=PAR_SLOTS,
+                            max_len=PAR_MAX_LEN, sample=greedy,
+                            engine_config=EngineConfig(kv_layout="slots"))
+        t0 = time.perf_counter()
+        rids = [one.submit(p, max_new_tokens=PAR_NEW) for p in prompts]
+        one.run()
+        torch.cuda.synchronize()
+        out["one_wall_s"] = time.perf_counter() - t0
+        ref = [one.result(r) for r in rids]
+        del one
+        out["held_tp"] = _teacher_forced(torch, params, cfg, prompts,
+                                         streams, tie_atol, "(d) tp engine",
+                                         ref=ref)
+        out["held_one"] = _teacher_forced(torch, params, cfg, prompts, ref,
+                                          tie_atol, "(d) one-rank engine")
+        out["equal_streams"] = sum(a == b for a, b in zip(streams, ref))
+    return out
+
+
+def _par_seq(torch, rank, seed):
+    """(e) Ring and Ulysses attention at sp=2 against the one-rank flash
+    path (rank 0), forward and the gradients of sum(out * dO)."""
+    from senweaver_ide_tpu_torch.ops.flash_attention import flash_attention
+    from senweaver_ide_tpu_torch.parallel import (MeshConfig, make_mesh,
+                                                  ring_attention,
+                                                  ulysses_attention)
+    from senweaver_ide_tpu_torch.parallel.comm import all_gather
+    cfg = _par_cfg()
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b, s = PAR_SP_B, PAR_SP_S
+    g = torch.Generator(device="cuda").manual_seed(seed + 21)
+
+    def rnd(h):
+        return torch.randn(b, s, h, d, generator=g,
+                           device="cuda").bfloat16()
+    q, k, v, dout = rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
+    mesh = make_mesh(MeshConfig(sp=2))
+    c, n = mesh.coord("sp"), s // 2
+    ref = None
+    if rank == 0:
+        qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = flash_attention(qr, kr, vr, causal=True)
+        o.backward(dout)
+        torch.cuda.synchronize()
+        ref = {"out": o.detach(), "dq": qr.grad, "dk": kr.grad,
+               "dv": vr.grad, "ms": (time.perf_counter() - t0) * 1e3}
+    torch.distributed.barrier()       # both ranks start the timers together
+    out = {"flash_ms": ref["ms"] if ref else None}
+    for kind, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        ql, kl, vl = (x[:, c * n:(c + 1) * n].clone().requires_grad_()
+                      for x in (q, k, v))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(ql, kl, vl, mesh=mesh)
+        o.backward(dout[:, c * n:(c + 1) * n])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {name: all_gather(t.detach(), mesh, "sp", 1)
+               for name, t in (("out", o), ("dq", ql.grad), ("dk", kl.grad),
+                               ("dv", vl.grad))}
+        row = {"ms": ms}
+        if rank == 0:
+            for name, t in got.items():
+                r = ref[name].float()
+                e = float((t.float() - r).pow(2).mean().sqrt()
+                          / r.pow(2).mean().sqrt())
+                row[name] = e
+                _rcheck(e <= PAR_SP_RMS_TOL,
+                        f"(e) {kind} {name}: relative RMS {e:.4g} vs the "
+                        f"one-rank flash path > {PAR_SP_RMS_TOL}")
+        out[kind] = row
+    return out
+
+
+def _par_moe(torch, rank, seed):
+    """(f) moe_ffn_sharded at ep=2 on one Qwen3-30B-A3B layer against
+    moe_ffn on this rank's rows, at capacity 1.25 and dropless (E/k)."""
+    import dataclasses
+    from senweaver_ide_tpu_torch.models.config import qwen3_30b_a3b
+    from senweaver_ide_tpu_torch.parallel import (MoEConfig, init_moe_params,
+                                                  make_named_mesh, moe_ffn,
+                                                  moe_ffn_sharded)
+    from senweaver_ide_tpu_torch.parallel.comm import all_reduce
+    mc = qwen3_30b_a3b()
+    base = MoEConfig(hidden_size=mc.hidden_size,
+                     intermediate_size=mc.intermediate_size,
+                     num_experts=mc.num_experts,
+                     top_k=mc.num_experts_per_tok, dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    params = init_moe_params(base, g, device="cuda")
+    x = torch.randn(PAR_MOE_B, PAR_MOE_S, mc.hidden_size, generator=g,
+                    device="cuda").bfloat16()
+    mesh = make_named_mesh({"ep": 2})
+    c, n = mesh.coord("ep"), PAR_MOE_B // 2
+    xl = x[c * n:(c + 1) * n]
+    out = {}
+    for label, cf in (("capacity 1.25", 1.25),
+                      ("dropless", base.num_experts / base.top_k)):
+        cfg = dataclasses.replace(base, capacity_factor=cf)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        y, aux = moe_ffn_sharded(params, cfg, xl, mesh=mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref, ref_aux = moe_ffn(params, cfg, xl)
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+        diff = (y.float() - ref.float()).abs()
+        e = float(diff.max())
+        _rcheck(bool((diff <= MOE_LAYER_ATOL
+                      + MOE_LAYER_RTOL * ref.float().abs()).all()),
+                f"(f) {label}: moe_ffn_sharded vs moe_ffn max err {e}")
+        mean_aux = float(all_reduce(ref_aux.float(), mesh, "ep")) / 2
+        _rcheck(abs(float(aux) - mean_aux) <= 1e-5 * max(1.0, mean_aux),
+                f"(f) {label}: aux {float(aux)} != the mean over ep "
+                f"{mean_aux}")
+        out[label] = {"max_abs_err": e, "ms": ms, "dense_ms": dense_ms,
+                      "aux": float(aux)}
+    return out
+
+
+def _par_rank(rank, port, nccl_port, seed, tie_atol, conn):
+    """One rank of phase_parallel: (a) on rank 0 first, then both ranks on
+    one gloo group over CUDA tensors (named explicitly), (b), (d), (e),
+    (f). Sends ("ok", results) or ("err", traceback) to the parent."""
+    import traceback
+    try:
+        here = os.path.dirname(os.path.abspath(__file__))
+        sys.path.insert(0, here)
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out = {}
+        if rank == 0:
+            out["a"] = _par_nccl_one(torch, seed, nccl_port)
+            conn.send(("part", "a", out["a"]))
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}",
+            world_size=PAR_RANKS, rank=rank,
+            timeout=datetime.timedelta(seconds=PAR_COLLECTIVE_TIMEOUT_S))
+        for key, fn, args in (("b", _par_train, ()),
+                              ("d", _par_engine, (tie_atol,)),
+                              ("e", _par_seq, ()), ("f", _par_moe, ())):
+            t0 = time.perf_counter()
+            out[key] = fn(torch, rank, seed, *args)
+            out[key + "_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            conn.send(("part", key, {k: v for k, v in out[key].items()
+                                     if k not in ("streams",)}))
+        from senweaver_ide_tpu_torch.parallel.comm import ROUTES
+        out["routes"] = dict(ROUTES)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        dist.destroy_process_group()
+        conn.send(("ok", out))
+    except BaseException:           # fail() exits: report, then go on
+        conn.send(("err", traceback.format_exc()))
+        raise
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_kernel_tp(torch, cfg, timer):
+    """(c) K2 (forward, dK/dV, dQ) and K3 at one tp=2 rank's heads of
+    qwen2.5-coder-1.5b (6/1, D 128, bf16) against their plain versions,
+    then timed beside their bounds (and SDPA, a yardstick)."""
+    import dataclasses
+    from senweaver_ide_tpu_torch.models.transformer import tp_local_config
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    from senweaver_ide_tpu_torch.ops.flash_decode import split_plan
+    lc = tp_local_config(cfg, 2)
+    hq, hkv, d = lc.num_heads, lc.num_kv_heads, lc.head_dim
+    g = torch.Generator(device="cuda").manual_seed(9)
+    names = ("out", "lse", "dq", "dk", "dv")
+    worst = dict.fromkeys(names, 0.0)
+    b, s = PAR_B // PAR_ACCUM, PAR_S - 1      # one rank's microbatch
+    for label, spec in ((f"causal B={b} S={s}", dict(b=b, s=s)),
+                        ("ragged B=2 S=1000 kv_mask",
+                         dict(b=2, s=1000, pad_from=[1000, 611]))):
+        args = _fa_case(torch, fa, g, hq=hq, hkv=hkv, d=d, **spec)
+        got = _fa_run(fa, *args)
+        again = _fa_run(fa, *args)
+        torch.cuda.synchronize()
+        for name, a, a2 in zip(names, got, again):
+            if not torch.equal(a, a2):
+                fail(f"flash tp heads {label}: {name} differs between two "
+                     f"launches")
+        ref = _fa_plain(fa, *args)
+        errs = []
+        for name, a, r in zip(names, got, ref):
+            e, ok = _fa_err(a, r, *FA_TOL[name])
+            if not ok:
+                fail(f"flash tp heads {label}: {name} kernel vs plain max "
+                     f"err {e} (tol {_fa_tol_text(FA_TOL[name])})")
+            worst[name] = max(worst[name], e)
+            errs.append(f"{name} {e:.3g}")
+        log(f"[parallel] (c) K2 at heads {hq}/{hkv} D={d} {label}: max "
+            f"|kernel - plain| " + ", ".join(errs) + "; two launches "
+            f"bit-identical")
+    q, k, v, gout, bias, kw = _fa_case(torch, fa, g, b, s, hq, hkv, d)
+    o, lse = fa.flash_attention_fwd(q, k, v, bias, **kw)
+    delta = fa._delta(gout, o)
+    t = {"fwd": timer.ms(lambda: fa.flash_attention_fwd(q, k, v, **kw)),
+         "dkdv": timer.ms(lambda: fa.flash_attention_bwd_dkdv(
+             q, k, v, None, gout, lse, delta, **kw)),
+         "dq": timer.ms(lambda: fa.flash_attention_bwd_dq(
+             q, k, v, None, gout, lse, delta, **kw)),
+         "plain_fwd": timer.ms(lambda: fa.flash_attention_fwd_plain(
+             q, k, v, **kw), iters=10),
+         "plain_bwd": timer.ms(lambda: fa._bwd_plain(
+             q, k, v, None, gout, lse, delta, **kw), iters=5)}
+    _sdpa_times(torch, timer, q, k, v, gout, t)
+    k2 = {}
+    for kname, (flops, nbytes) in _fa_work(b, s, hq, hkv, d).items():
+        ops_ms = flops / BF16_FLOPS * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        lib = t["sdpa_fwd"] if kname == "fwd" else t["sdpa_bwd"]
+        plain = t["plain_fwd"] if kname == "fwd" else t["plain_bwd"]
+        k2[kname] = {"shape": f"q ({b},{s},{hq},{d}) k/v ({b},{s},{hkv},"
+                              f"{d}) bf16 causal",
+                     "max_abs_err": max(worst[n] for n in FA_ERR_OF[kname]),
+                     "ms": t[kname], "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": ("operations" if ops_ms >= bytes_ms
+                                  else "bytes"),
+                     "flops": flops, "bytes": nbytes, "library_ms": lib}
+        log(f"[parallel] (c) K2 {kname} at B={b} S={s} heads {hq}/{hkv}: "
+            f"kernel {t[kname]:.4f} ms, {bound / t[kname]:.3f} of the bound "
+            f"{bound:.4f} ms; plain {plain:.4f} ms; SDPA (yardstick) "
+            f"{lib:.4f} ms")
+    # K3 at the TP engine's local heads: ragged lengths with 0 and the
+    # split plan's edges, then timed at the engine's 8 slots x 2048
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smax = PAR_MAX_LEN
+    _, chunk = split_plan(PAR_SLOTS, hkv, smax, sms)
+    lens = [0, 1, 129, chunk - 1, chunk, chunk + 1, smax - 1, smax]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    qd = torch.randn(len(lens), hq, d, generator=g, device="cuda").bfloat16()
+    kc = torch.randn(len(lens), smax, hkv, d, generator=g,
+                     device="cuda").bfloat16()
+    vc = torch.randn(len(lens), smax, hkv, d, generator=g,
+                     device="cuda").bfloat16()
+    e3 = _fd_check(torch, "tp heads", qd, kc, vc, lengths, FD_TOL["bf16"])
+    log(f"[parallel] (c) K3 at heads {hq}/{hkv} D={d} bf16 Smax={smax}, "
+        f"lengths {lens}: max |kernel - plain| {e3:.3g}; poisoned tail and a "
+        f"second launch bit-identical")
+    FD_HEADS["qwen2.5-coder-1.5b tp=2"] = (hq, hkv, d)
+    row = _fd_time(torch, timer, g, dict(
+        b=PAR_SLOTS, smax=smax, heads="qwen2.5-coder-1.5b tp=2",
+        lo=PAR_PROMPT_LENS[0], hi=PAR_PROMPT_LENS[1] + PAR_NEW), sms)
+    row["max_abs_err"] = max(row["max_abs_err"], e3)
+    return {"k2": k2, "k3": row}
+
+
+def phase_parallel(torch, cfg, seed, smi, tie_atol, timer):
+    """Two ranks on the one card (gloo on CUDA tensors, named; NCCL for
+    the one-rank check): (a) a one-rank NCCL mesh's step bit-equal to
+    mesh=None; (b) tp=2 and fsdp=2 train steps against the one-rank step;
+    (c) K2 and K3 at the local heads; (d) a tp=2 engine; (e) ring and
+    Ulysses at sp=2; (f) moe_ffn_sharded at ep=2."""
+    import multiprocessing as mp
+    t_phase = time.perf_counter()
+    kern = phase_kernel_tp(torch, cfg, timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    port, nccl_port = _free_port(), _free_port()
+    conns, procs = [], []
+    for r in range(PAR_RANKS):
+        parent, child = ctx.Pipe()
+        p = ctx.Process(target=_par_rank,
+                        args=(r, port, nccl_port, seed, tie_atol, child),
+                        daemon=True)
+        p.start()
+        conns.append(parent)
+        procs.append(p)
+    results, errors = [], []
+    deadline = time.perf_counter() + PAR_TIMEOUT_S
+    try:
+        for r, c in enumerate(conns):
+            got = None
+            while got is None and time.perf_counter() < deadline:
+                if c.poll(1.0):
+                    got = c.recv()
+                    if got[0] == "part":
+                        # a finished check's figures, printed as they come
+                        log(f"[parallel] rank {r} ({got[1]}) done: "
+                            f"{str(got[2])[:1500]}")
+                        got = None
+                elif not procs[r].is_alive():
+                    got = ("err", f"rank {r} exited with code "
+                                  f"{procs[r].exitcode}")
+            if got is None:
+                got = ("err", f"rank {r} timed out after {PAR_TIMEOUT_S} s")
+            if got[0] != "ok":
+                errors.append(f"--- rank {r} ---\n{got[1]}")
+                break
+            results.append(got[1])
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    if errors:
+        fail("parallel: " + "\n".join(errors))
+    # the ranks are gone and the card holds this process's memory alone
+    # before the next phases load their weights
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    if alive:
+        fail(f"parallel: ranks {alive} still running after the phase")
+    free, total = torch.cuda.mem_get_info()
+    log(f"[parallel] ranks exited (codes {[p.exitcode for p in procs]}); "
+        f"card memory in use {(total - free) / 1e9:.2f} GB, this process "
+        f"reserved {torch.cuda.memory_reserved() / 1e9:.2f} GB")
+    r0, r1 = results
+    a = r0["a"]
+    log(f"[parallel] (a) one-rank {a['backend']} mesh, {a['layers']} layers "
+        f"at full width, {PAR_NCCL_B} x {PAR_NCCL_S}, flash + remat: train "
+        f"step bit-equal to mesh=None (loss, metrics, params, both moments); "
+        f"{a['seconds']:.1f} s")
+    b0, b1 = r0["b"], r1["b"]
+    log(f"[parallel] (b) one-rank step {PAR_B} x {PAR_S}, accum {PAR_ACCUM}, "
+        f"flash + remat: loss {b0['ref_metrics']['loss']:.6f}, grad_norm "
+        f"{b0['ref_metrics']['grad_norm']:.4f}, {b0['ref_seconds']:.2f} s")
+    for name in ("tp2", "fsdp2"):
+        if b0[name]["metrics"] != b1[name]["metrics"]:
+            fail(f"parallel (b) {name}: the ranks' metrics differ")
+        row = b0[name]
+        log(f"[parallel] (b) {name}: local wq {row['local_wq']}, loss "
+            f"{row['metrics']['loss']:.6f} (rel {row['loss_rel']:.3g}, tol "
+            f"{PAR_LOSS_RTOL}), "
+            f"grad_norm {row['metrics']['grad_norm']:.4f}, gradient relative"
+            f" RMS per tensor at most {row['grad_worst'][0][1]:.4g} (tol "
+            f"{PAR_GRAD_TOL}; the worst "
+            + ", ".join(f"{n} {v:.4g}" for n, v in row["grad_worst"])
+            + f"), over every tensor {row['grad_rel_rms']:.4g}, update "
+            f"relative RMS {row['update_rel_rms']:.4g} (a figure: Adam's "
+            f"first step is sign-like), step {row['step_s']:.2f} / "
+            f"{b1[name]['step_s']:.2f} s (rank 0 / 1), K2 {row['k2']} a rank")
+    d0, d1 = r0["d"], r1["d"]
+    if d0["streams"] != d1["streams"]:
+        fail("parallel (d): the ranks' streams differ")
+    log(f"[parallel] (d) tp=2 engine ({PAR_SLOTS} slots, greedy, "
+        f"{d0['cache_heads']} KV head a rank, decode_attn_impl=flash): "
+        f"{PAR_REQUESTS} requests of {PAR_PROMPT_LENS[0]}-"
+        f"{PAR_PROMPT_LENS[1]} tokens, {PAR_NEW} new: {d0['tokens']} tokens "
+        f"in {d0['wall_s']:.2f} s ({d0['tokens'] / d0['wall_s']:.1f} tok/s; "
+        f"one rank {d0['one_wall_s']:.2f} s); K3 {d0['k3']} = "
+        f"{cfg.num_layers} x {d0['decode_steps']} decode steps a rank; "
+        f"{d0['equal_streams']} of {PAR_REQUESTS} streams equal the one-rank "
+        f"engine's")
+    _log_held("parallel", {"tp=2 engine": d0["held_tp"],
+                           "one-rank engine": d0["held_one"]}, tie_atol)
+    e0 = r0["e"]
+    for kind in ("ring", "ulysses"):
+        row = e0[kind]
+        log(f"[parallel] (e) {kind} sp=2, B={PAR_SP_B} S={PAR_SP_S} heads "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} bf16: relative RMS vs the "
+            f"one-rank flash path out {row['out']:.3g}, dq {row['dq']:.3g}, "
+            f"dk {row['dk']:.3g}, dv {row['dv']:.3g} (tol {PAR_SP_RMS_TOL}); "
+            f"fwd+bwd {row['ms']:.1f} / {r1['e'][kind]['ms']:.1f} ms (rank 0 "
+            f"/ 1) against flash's {e0['flash_ms']:.1f} ms on one rank")
+    for label in ("capacity 1.25", "dropless"):
+        f0, f1 = r0["f"][label], r1["f"][label]
+        log(f"[parallel] (f) ep=2 Qwen3-30B-A3B layer {label}, "
+            f"{PAR_MOE_B} x {PAR_MOE_S} tokens: max |sharded - moe_ffn| "
+            f"{max(f0['max_abs_err'], f1['max_abs_err']):.3g} (tol "
+            f"{MOE_LAYER_ATOL} + {MOE_LAYER_RTOL} * |dense|), aux "
+            f"{f0['aux']:.4f}; {f0['ms']:.1f} / {f1['ms']:.1f} ms against "
+            f"moe_ffn's {f0['dense_ms']:.1f} / {f1['dense_ms']:.1f} ms on the "
+            f"same rows")
+    for r, res in enumerate(results):
+        log(f"[parallel] rank {r}: peak {res['peak_gb']:.2f} GB; collectives "
+            f"{res['routes']}; (b) {res['b_s']:.1f} s, (d) {res['d_s']:.1f} "
+            f"s, (e) {res['e_s']:.1f} s, (f) {res['f_s']:.1f} s")
+    log(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"k2": {k: {"tp2": b0["tp2"]["k2"][k],
+                       "fsdp2": b0["fsdp2"]["k2"][k]}
+                   for k in ("fwd", "dkdv", "dq")},
+            "k3": d0["k3"], "kern": kern}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6303,15 +6997,26 @@ def main(argv=None) -> int:
                                     spec_launches["tie_atol"])
     migrate_launches = phase_migrate(torch, cfg, loaded, args.seed, smi,
                                      spec_launches["tie_atol"])
-    fleet_out = phase_fleet(torch, cfg, loaded, args.seed, smi,
+    # the fleet and the learner serve and train the first FLEET_LAYERS
+    # layers (views of the loaded weights, full width): their four weight
+    # frames over loopback HTTP cost time in proportion to the tree
+    fcfg = dataclasses.replace(cfg, num_layers=FLEET_LAYERS)
+    fparams = dict(loaded, layers={k: v[:FLEET_LAYERS]
+                                   for k, v in loaded["layers"].items()})
+    fleet_out = phase_fleet(torch, fcfg, fparams, args.seed, smi,
                             spec_launches["tie_atol"])
-    learner_launches = phase_learner(torch, cfg, fleet_out, args.seed, smi)
+    learner_launches = phase_learner(torch, fcfg, fleet_out, args.seed, smi)
+    del fparams
     fleet_launches = {k: fleet_out[k] for k in ("k1", "fwd", "dkdv", "dq",
                                                 "k3")}
     del fleet_out
     gc.collect()
     torch.cuda.empty_cache()
     control_launches = phase_control(torch, cfg, loaded, args.seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    par = phase_parallel(torch, cfg, args.seed, smi,
+                         spec_launches["tie_atol"], timer)
     gc.collect()
     torch.cuda.empty_cache()
     int8_w_launches = phase_int8(torch, cfg, loaded, args.seed, smi,
@@ -6432,8 +7137,11 @@ def main(argv=None) -> int:
             "launches_int8": int8_w_launches["k2"][kname],
             "launches_moe": moe["k2_serving"][kname],
             "launches_qlora": moe["k2"][kname],
+            "launches_parallel": par["k2"][kname],
+            "local_heads": par["kern"]["k2"][kname],
             "max_abs_err": max(r["max_abs_err"],
-                               rep8[kname]["max_abs_err"]),
+                               rep8[kname]["max_abs_err"],
+                               par["kern"]["k2"][kname]["max_abs_err"]),
             "tolerance": _fa_tol_text(FA_TOL[FA_ERR_OF[kname][0]]),
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -6464,7 +7172,10 @@ def main(argv=None) -> int:
         "launches_control": control_launches["k3"],
         "launches_int8": int8_w_launches["k3"],
         "launches_moe": moe["k3"], "launches_qlora": moe["k3_qlora"],
-        "max_abs_err": fd["max_abs_err"],
+        "launches_parallel": par["k3"],
+        "local_heads": par["kern"]["k3"],
+        "max_abs_err": max(fd["max_abs_err"],
+                           par["kern"]["k3"]["max_abs_err"]),
         "max_abs_err_f32": fd["max_abs_err_f32"],
         "tolerance": f"{FD_TOL['bf16'][0]} + {FD_TOL['bf16'][1]} * |plain|",
         "ms": fd["kernel_ms"], "kernel_ms": fd["kernel_ms"],

@@ -53,8 +53,8 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     # No-cache attention implementation: "einsum" (ops/attention.py) or
     # "flash" (the flash-attention kernels, ops/flash_attention.py);
-    # "ring"/"ulysses" shard over a mesh and raise until the
-    # parallel-layout slice.
+    # "ring"/"ulysses" shard the sequence over a mesh's 'sp' axis
+    # (parallel/ring_attention.py; forward(mesh=)).
     attn_impl: str = "einsum"
     # Contiguous-cache (slot layout) decode attention: "flash" runs the
     # flash-decode kernel (ops/flash_decode.py) on single-token steps that

@@ -33,12 +33,21 @@ shadow ``tied_head_q8``. Mixture-of-experts configs route each layer's
 FFN through ``parallel/expert.py::moe_ffn``; the no-cache forward returns
 the summed load-balance loss with ``with_aux=True``.
 
-Out of the port so far, and raising ``NotImplementedError`` where
-reached: the ring/ulysses attention (the parallel-layout slice).
+On a mesh (``forward(mesh=)``, ``parallel/mesh.py``) each rank runs on
+its local shards (``parallel/sharding.py::shard_params``) with explicit
+collectives that carry their own backward (``parallel/comm.py``): fsdp
+weights are all-gathered layer by layer, q/k/v and gate/up are
+column-parallel over ``tp`` (``Hq/tp`` and ``Hkv/tp`` local heads, which
+the attention kernels take as they are), wo and w_down row-parallel with
+an all-reduce, the embedding vocab-parallel, the head's logits
+vocab-sharded (:func:`vocab_parallel_logprobs` reduces them), the
+sequence split over ``sp`` (ring or Ulysses attention, or K/V gathered
+for einsum/flash) and MoE experts over ``ep``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -52,6 +61,8 @@ from ..ops.norms import rms_norm
 from ..ops.paged_attention import (paged_flash_decode,
                                    paged_flash_decode_plain, query_tiles)
 from ..ops.rotary import apply_rope, rope_cos_sin
+from ..parallel.comm import (all_gather, all_reduce, copy_to, gather_weight,
+                             reduce_from)
 from ..parallel.expert import MoEConfig, moe_ffn
 from .config import ModelConfig
 
@@ -229,6 +240,132 @@ def _layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
+_COLUMN = ("wq", "wk", "wv", "w_gate", "w_up")
+_ROW = ("wo", "w_down")
+
+
+def tp_local_config(config: ModelConfig, tp: int) -> ModelConfig:
+    """The config of one tp rank's slice: ``Hq/tp`` query and ``Hkv/tp``
+    KV heads (what its projections, attention and KV cache hold)."""
+    if tp == 1:
+        return config
+    for name, n in (("num_heads", config.num_heads),
+                    ("num_kv_heads", config.num_kv_heads),
+                    ("vocab_size", config.vocab_size),
+                    ("intermediate_size", config.intermediate_size)):
+        if n % tp:
+            raise ValueError(f"{name}={n} does not split over tp={tp}")
+    return dataclasses.replace(config, num_heads=config.num_heads // tp,
+                               num_kv_heads=config.num_kv_heads // tp)
+
+
+class _MeshCtx:
+    """One forward's view of the mesh: the local config, which dims to
+    all-gather over fsdp, and the tp/sp coordinates."""
+
+    def __init__(self, mesh, config: ModelConfig, params: Params, *,
+                 gather_fsdp: bool = True):
+        from ..parallel.sharding import restrict_spec, spec_for_path
+        if mesh.shape.get("pp", 1) > 1:
+            raise NotImplementedError(
+                "pipeline stages (a 'pp' axis) arrive with the slice that "
+                "ports parallel/pipeline.py")
+        self.mesh = mesh
+        self.tp = mesh.axis_size("tp")
+        self.tp_idx = mesh.coord("tp")
+        self.sp = mesh.axis_size("sp")
+        self.sp_idx = mesh.coord("sp")
+        self.config = tp_local_config(config, self.tp)
+        gather_fsdp = gather_fsdp and mesh.axis_size("fsdp") > 1
+
+        def fsdp_dim(path, t):
+            if not gather_fsdp:
+                return None
+            spec = restrict_spec(spec_for_path(path, t.ndim), mesh)
+            return spec.index("fsdp") if "fsdp" in spec else None
+
+        self.top = {n: fsdp_dim(n, t) for n, t in params.items()
+                    if n != "layers"}
+        self.layer_dims = {}
+        for n, t in params["layers"].items():
+            d = fsdp_dim("layers/" + n, t)
+            if d is not None:
+                self.layer_dims[n] = d - 1        # a layer's slice
+
+    def top_params(self, params: Params) -> Params:
+        """The top-level tensors (embed, heads, final norm), gathered."""
+        out = dict(params)
+        for n, d in self.top.items():
+            if d is not None:
+                out[n] = gather_weight(params[n], self.mesh, "fsdp", d)
+        return out
+
+    def layer(self, lp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One layer's tensors gathered over fsdp, LoRA factors cut to
+        this tp rank's part (B's columns of a column-parallel target, A's
+        rows of a row-parallel one)."""
+        out = {}
+        for n, t in lp.items():
+            d = self.layer_dims.get(n)
+            if d is not None:
+                t = gather_weight(t, self.mesh, "fsdp", d)
+            if self.tp > 1 and "_lora_" in n:
+                target, leaf = n.rsplit("_lora_", 1)
+                if leaf == "b" and target in _COLUMN:
+                    part = t.shape[-1] // self.tp
+                    t = t.narrow(-1, self.tp_idx * part, part)
+                elif leaf == "a" and target in _ROW:
+                    part = t.shape[0] // self.tp
+                    t = t.narrow(0, self.tp_idx * part, part)
+            out[n] = t
+        return out
+
+    def embed(self, emb: torch.Tensor, tokens: torch.Tensor
+              ) -> torch.Tensor:
+        """Vocab-parallel lookup: each rank looks up the tokens of its
+        vocab rows (zeros elsewhere), then an all-reduce over tp."""
+        if self.tp == 1:
+            return emb[tokens]
+        rows = emb.shape[0]
+        local = tokens - self.tp_idx * rows
+        ok = (local >= 0) & (local < rows)
+        x = emb[local.clamp(0, rows - 1)] * ok[..., None].to(emb.dtype)
+        return reduce_from(x, self.mesh, "tp")
+
+
+def _tp_in(h, ctx):
+    """The input of a column-parallel matmul (its gradient sums over tp)."""
+    return h if ctx is None else copy_to(h, ctx.mesh, "tp")
+
+
+def _tp_out(y, ctx):
+    """The output of a row-parallel matmul, summed over tp."""
+    return y if ctx is None else reduce_from(y, ctx.mesh, "tp")
+
+
+def vocab_parallel_logprobs(logits: torch.Tensor, targets: torch.Tensor,
+                            mesh=None) -> torch.Tensor:
+    """log p(target) from vocab-sharded fp32 logits (B, S, V/tp): the max
+    and the sum of exponentials are all-reduced over tp, and the target's
+    logit comes from the rank whose rows hold it. The (B, S, V) logits
+    are never gathered. Without tp it is ``training.grpo.token_logprobs``."""
+    tp = 1 if mesh is None else mesh.axis_size("tp")
+    if tp == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        return tgt - logz
+    v_local = logits.shape[-1]
+    m = all_reduce(logits.detach().amax(dim=-1), mesh, "tp", op="max")
+    sumexp = reduce_from(torch.exp(logits - m[..., None]).sum(-1), mesh,
+                         "tp")
+    local = targets.long() - mesh.coord("tp") * v_local
+    ok = (local >= 0) & (local < v_local)
+    tgt = torch.gather(logits, -1,
+                       local.clamp(0, v_local - 1)[..., None])[..., 0]
+    tgt = reduce_from(torch.where(ok, tgt, 0.0), mesh, "tp")
+    return tgt - (m + torch.log(sumexp))
+
+
 def _dense(h: torch.Tensor, lp: Dict[str, torch.Tensor],
            name: str) -> torch.Tensor:
     """``h @ lp[name]`` for an ``(in, out)`` weight, plus ``(h @ A) @ B``
@@ -362,10 +499,11 @@ _MOE_KEYS = ("router", "w_gate", "w_up", "w_down", "w_gate_scale",
 
 
 def _mlp(c: ModelConfig, lp: Dict[str, torch.Tensor],
-         x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+         x: torch.Tensor, ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x + FFN(norm(x)), the layer's MoE load-balance loss). The FFN is
     silu-gated with SiLU in fp32, dense or routed over experts (the loss
-    is a zero scalar for a dense layer)."""
+    is a zero scalar for a dense layer). On a mesh (``ctx``) gate/up are
+    column- and w_down row-parallel over tp; experts split over ep."""
     h = rms_norm(x, lp["mlp_norm"], c.rms_norm_eps)
     if c.num_experts > 0:
         moe_cfg = MoEConfig(hidden_size=c.hidden_size,
@@ -375,17 +513,21 @@ def _mlp(c: ModelConfig, lp: Dict[str, torch.Tensor],
                             capacity_factor=c.expert_capacity_factor,
                             dtype=c.dtype)
         out, aux = moe_ffn({n: lp[n] for n in _MOE_KEYS if n in lp},
-                           moe_cfg, h)
+                           moe_cfg, h,
+                           mesh=None if ctx is None else ctx.mesh)
         return x + out, aux
+    h = _tp_in(h, ctx)
     gate = _dense(h, lp, "w_gate")
     up = _dense(h, lp, "w_up")
     act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return (x + _dense(act, lp, "w_down"),
+    return (x + _tp_out(_dense(act, lp, "w_down"), ctx),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def _logits(params: Params, c: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], c.rms_norm_eps)
+def _logits(params: Params, c: ModelConfig, x: torch.Tensor,
+            ctx=None) -> torch.Tensor:
+    """fp32 logits; on a tp mesh this rank's vocab columns."""
+    x = _tp_in(rms_norm(x, params["final_norm"], c.rms_norm_eps), ctx)
     head = params.get("lm_head")
     if head is not None:
         logits = _dense(x, params, "lm_head")
@@ -401,35 +543,62 @@ def _logits(params: Params, c: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _self_attention(c: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor,
-                    kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                    v: torch.Tensor, kv_mask: Optional[torch.Tensor],
+                    ctx=None) -> torch.Tensor:
     """No-cache attention per ``c.attn_impl``. q (B,S,Hq,Dh), k/v
-    (B,S,Hkv,Dh) → (B,S,Hq,Dh)."""
-    if c.attn_impl == "einsum":
-        return attention(q, k, v, q_offset=0, kv_mask=kv_mask, causal=True,
-                         window=c.sliding_window)
-    if c.attn_impl == "flash":
-        return flash_attention(q, k, v, q_offset=0, kv_mask=kv_mask,
-                               causal=True, window=c.sliding_window)
-    if c.attn_impl in ("ring", "ulysses"):
+    (B,S,Hkv,Dh) → (B,S,Hq,Dh): this rank's sequence chunk on an sp
+    mesh, where ring/ulysses shard the attention and einsum/flash attend
+    the chunk's queries to K/V (and the mask) gathered over sp."""
+    sp = 1 if ctx is None else ctx.sp
+    if c.attn_impl in ("einsum", "flash"):
+        q_offset = 0
+        if sp > 1:
+            q_offset = ctx.sp_idx * q.shape[1]
+            k = gather_weight(k, ctx.mesh, "sp", 1)
+            v = gather_weight(v, ctx.mesh, "sp", 1)
+            if kv_mask is not None:
+                kv_mask = all_gather(kv_mask, ctx.mesh, "sp", 1)
+        fn = attention if c.attn_impl == "einsum" else flash_attention
+        return fn(q, k, v, q_offset=q_offset, kv_mask=kv_mask, causal=True,
+                  window=c.sliding_window)
+    if c.sliding_window is not None:
         raise NotImplementedError(
-            f"attn_impl={c.attn_impl!r} shards the sequence over a mesh; it "
-            f"arrives with the parallel-layout slice of the PyTorch port")
+            f"sliding_window is implemented for attn_impl='einsum'/'flash' "
+            f"only (got {c.attn_impl!r}); the ring kernels would silently "
+            f"attend outside the window")
+    if c.attn_impl in ("ring", "ulysses"):
+        from ..parallel.ring_attention import (ring_attention,
+                                               ulysses_attention)
+        mesh = None if ctx is None else ctx.mesh
+        if mesh is None or "sp" not in mesh.axis_names:
+            raise ValueError(
+                f"attn_impl={c.attn_impl!r} needs forward(mesh=...) with an "
+                f"'sp' axis; got {mesh}")
+        if c.attn_impl == "ulysses":
+            if kv_mask is not None:
+                raise NotImplementedError(
+                    "ulysses attention does not take a kv mask; pre-mask "
+                    "k/v or use attn_impl='ring'")
+            return ulysses_attention(q, k, v, mesh=mesh)
+        return ring_attention(q, k, v, mesh=mesh, kv_mask=kv_mask)
     raise ValueError(f"unknown attn_impl {c.attn_impl!r}; expected "
                      f"einsum|flash|ring|ulysses")
 
 
 def _layer(c: ModelConfig, lp: Dict[str, torch.Tensor], x: torch.Tensor,
            cos: torch.Tensor, sin: torch.Tensor,
-           attn_mask: Optional[torch.Tensor]
+           attn_mask: Optional[torch.Tensor], ctx=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One no-cache transformer block. x: (B, S, D) → (x', MoE aux)."""
+    """One no-cache transformer block. x: (B, S, D) → (x', MoE aux). On a
+    mesh, ``c`` is the tp-local config and ``lp`` the local shards."""
+    if ctx is not None:
+        lp = ctx.layer(lp)
     b, s, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], c.rms_norm_eps)
-    q, k, v = _qkv(c, lp, h, cos, sin)
-    out = _self_attention(c, q, k, v, attn_mask)
-    x = x + _dense(out.reshape(b, s, c.q_dim), lp, "wo")
-    return _mlp(c, lp, x)
+    q, k, v = _qkv(c, lp, _tp_in(h, ctx), cos, sin)
+    out = _self_attention(c, q, k, v, attn_mask, ctx)
+    x = x + _tp_out(_dense(out.reshape(b, s, c.q_dim), lp, "wo"), ctx)
+    return _mlp(c, lp, x, ctx)
 
 
 def _write_cache(dst: torch.Tensor, new: torch.Tensor, length: torch.Tensor,
@@ -504,7 +673,7 @@ def _cache_attention(c: ModelConfig, q: torch.Tensor, k_full: torch.Tensor,
 def _cache_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
                  x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                  kv: Tuple[torch.Tensor, ...], length: torch.Tensor,
-                 kv_mask: torch.Tensor, flash_decode_ok: bool
+                 kv_mask: torch.Tensor, flash_decode_ok: bool, ctx=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One transformer block over one layer of the contiguous cache →
     (x', MoE aux).
@@ -517,10 +686,11 @@ def _cache_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
     cache ‖ chunk] (the chunk's own k/v unquantized), since a wrapping
     chunk's writes would destroy keys still inside earlier queries'
     windows; with a chunk-width mask (fresh cache) it attends over the
-    chunk alone."""
+    chunk alone. On a tp mesh (``ctx``) the cache holds this rank's KV
+    heads."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], c.rms_norm_eps)
-    q, k, v = _qkv(c, lp, h, cos, sin)
+    q, k, v = _qkv(c, lp, _tp_in(h, ctx), cos, sin)
     k_cache, v_cache = kv[0], kv[1]
     quant = len(kv) == 4
     cap = k_cache.shape[1]
@@ -549,8 +719,8 @@ def _cache_layer(c: ModelConfig, lp: Dict[str, torch.Tensor],
     if out is None:
         out = _cache_attention(c, q, full(0), full(1), length, kv_mask,
                                flash_decode_ok)
-    x = x + _dense(out.reshape(b, s, c.q_dim), lp, "wo")
-    return _mlp(c, lp, x)
+    x = x + _tp_out(_dense(out.reshape(b, s, c.q_dim), lp, "wo"), ctx)
+    return _mlp(c, lp, x, ctx)
 
 
 def _cache_mask(c: ModelConfig, cache: KVCache, b: int, s: int,
@@ -633,7 +803,8 @@ def forward(params: Params, config: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             attn_mask: Optional[torch.Tensor] = None,
             with_aux: bool = False, cache: Optional[KVCache] = None,
-            fresh_cache: bool = False):
+            fresh_cache: bool = False, mesh=None,
+            logits_at: Optional[torch.Tensor] = None):
     """Run the model over ``tokens`` (B, S).
 
     Without a cache: full causal self-attention → fp32 logits (B, S, V)
@@ -657,12 +828,39 @@ def forward(params: Params, config: ModelConfig, tokens: torch.Tensor, *,
     ``new_cache`` holds the same tensors with ``length + S``. ``attn_mask``
     is then (B, Smax) over the cache, and ``fresh_cache`` promises the
     cache holds nothing yet, so a ring-cache chunk attends over itself
-    alone."""
+    alone.
+
+    With a ``mesh`` (``parallel/mesh.py``) every argument is this rank's
+    part: ``params`` its shards (``shard_params``), ``tokens`` and
+    ``attn_mask`` its rows (over dp/fsdp) and sequence chunk (over sp;
+    positions default to the chunk's absolute ones), and the no-cache
+    logits its (B_local, S_local, V/tp) block of JAX's global logits.
+    The cache forward on a mesh is the tensor-parallel serving path: the
+    params are sharded over tp alone, the cache holds this rank's KV
+    heads (``tp_local_config``), rows are replicated, and the logits are
+    all-gathered over tp to the full vocabulary for sampling.
+
+    ``logits_at`` (cache forward only; an int or a (B,) tensor of
+    positions) returns each row's logits at that position alone, (B, V):
+    only those rows go through the head (and, on a tp mesh, the
+    all-gather)."""
     c = config
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    ctx = None
+    if mesh is not None:
+        ctx = _MeshCtx(mesh, config, params, gather_fsdp=cache is None)
+        if cache is not None and ctx.sp > 1:
+            raise ValueError("the cache forward does not split the "
+                             "sequence over sp")
+        c = ctx.config
+        params = ctx.top_params(params)
+        x = ctx.embed(params["embed"], tokens)
+    else:
+        x = params["embed"][tokens]
     if positions is None:
         base = torch.zeros((), dtype=torch.int32, device=tokens.device)
+        if ctx is not None and ctx.sp > 1:
+            base = base + ctx.sp_idx * s
         if cache is not None:
             base = cache.length.to(tokens.device)
             if base.ndim == 1:
@@ -682,10 +880,18 @@ def forward(params: Params, config: ModelConfig, tokens: torch.Tensor, *,
                 kv += (cache.k_scale[i], cache.v_scale[i])
             x, layer_aux = _cache_layer(c, _layer_params(params, i), x, cos,
                                         sin, kv, cache.length, valid,
-                                        flash_ok)
+                                        flash_ok, ctx)
             aux = aux + layer_aux
         new_cache = cache._replace(length=cache.length + s)
-        logits = _logits(params, c, x)
+        if logits_at is not None:
+            at = torch.as_tensor(logits_at, device=x.device).long()
+            x = x[torch.arange(b, device=x.device),
+                  at.reshape(-1).expand(b)][:, None]
+        logits = _logits(params, c, x, ctx)
+        if ctx is not None and ctx.tp > 1:
+            logits = all_gather(logits, mesh, "tp", -1)
+        if logits_at is not None:
+            logits = logits[:, 0]
         return (logits, new_cache, aux) if with_aux else (logits, new_cache)
     remat = bool(c.remat) and torch.is_grad_enabled()
     # One unbind per stacked tensor: its backward stacks the L per-layer
@@ -697,11 +903,11 @@ def forward(params: Params, config: ModelConfig, tokens: torch.Tensor, *,
         lp = {k: v[i] for k, v in layers.items()}
         if remat:
             x, layer_aux = checkpoint(_layer, c, lp, x, cos, sin, attn_mask,
-                                      use_reentrant=False)
+                                      ctx, use_reentrant=False)
         else:
-            x, layer_aux = _layer(c, lp, x, cos, sin, attn_mask)
+            x, layer_aux = _layer(c, lp, x, cos, sin, attn_mask, ctx)
         aux = aux + layer_aux
-    logits = _logits(params, c, x)
+    logits = _logits(params, c, x, ctx)
     if with_aux:
         return logits, None, aux
     return logits

@@ -1,4 +1,5 @@
-"""Top-k routed mixture-of-experts FFN on one device (PyTorch port).
+"""Top-k routed mixture-of-experts FFN (PyTorch port): on one device,
+inside the model's forward on a mesh, and expert-parallel over 'ep'.
 
 Routing: softmax router → top-k experts per token → capacity-bounded
 dispatch (capacity = ceil(tokens/E · capacity_factor · top_k)); an
@@ -15,6 +16,10 @@ batched matmul over E, and each token sums its k gated outputs: the same
 function without the one-hot tensors (1.34 GB a layer for one 2048-token
 Qwen3-30B-A3B prefill). No index leaves the device, so a step does not
 wait on the host.
+
+:func:`moe_ffn_sharded` is JAX's expert-parallel path: tokens and
+experts both split over 'ep', two all-to-alls of the (E, C, D) buffer
+per call (``parallel/comm.py``).
 """
 
 from __future__ import annotations
@@ -136,32 +141,104 @@ def _capacity(cfg: MoEConfig, tokens: int) -> int:
                             * cfg.capacity_factor * cfg.top_k))
 
 
-def moe_ffn(params: MoEParams, cfg: MoEConfig,
-            x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _dispatch(x_flat: torch.Tensor, r: Routing, num_experts: int,
+              capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kept assignments gathered into an ``(E, C, D)`` buffer, and
+    each assignment's row in it: a dropped assignment addresses the spare
+    row E·C, which no expert reads."""
+    t, d = x_flat.shape
+    E, C, k = num_experts, capacity, r.expert_idx.shape[1]
+    slot = torch.where(r.keep, r.expert_idx * C + r.pos_in_expert,
+                       E * C).reshape(t * k)
+    tok = torch.arange(t, device=x_flat.device)[:, None].expand(
+        t, k).reshape(-1)
+    buf = x_flat.new_zeros((E * C + 1, d)).index_put((slot,), x_flat[tok])
+    return buf[:E * C].view(E, C, d), slot
+
+
+def _combine(out: torch.Tensor, slot: torch.Tensor, r: Routing
+             ) -> torch.Tensor:
+    """Each token's gated sum of its k expert outputs (``out`` (E, C, D);
+    the spare row is zero) → (T, D) fp32."""
+    E, C, d = out.shape
+    t, k = r.gates.shape
+    out = torch.cat([out.reshape(E * C, d), out.new_zeros((1, d))])
+    w = (r.gates * r.keep).reshape(t * k, 1)
+    return (out[slot].float() * w).view(t, k, d).sum(1)
+
+
+def moe_ffn(params: MoEParams, cfg: MoEConfig, x: torch.Tensor, *,
+            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) → (out (B, S, D), aux loss). The capacity counts every
-    row of the flat B·S batch, padding included."""
+    row of the flat B·S batch, padding included.
+
+    With a ``mesh`` (the model's forward on a mesh), ``x`` is replicated
+    over ``ep`` and ``tp``, the banks are this rank's local shards (E/ep
+    experts, F/tp columns) and the result equals the one-device result:
+    every rank routes every token alike, runs its own experts on the
+    buffer (sums over tp), and the expert outputs are all-gathered over
+    ep before the combine."""
+    from .comm import copy_to, gather_grid, reduce_from
     b, s, d = x.shape
-    t, E, k = b * s, cfg.num_experts, cfg.top_k
+    t, E = b * s, cfg.num_experts
     x_flat = x.reshape(t, d)
     C = _capacity(cfg, t)
     r = _route(cfg, params["router"], x_flat, C)
-    # a dropped assignment addresses the spare row E·C, which no expert
-    # reads and whose output row is zero
-    slot = torch.where(r.keep, r.expert_idx * C + r.pos_in_expert,
-                       E * C).reshape(t * k)
-    tok = torch.arange(t, device=x.device)[:, None].expand(t, k).reshape(-1)
-    buf = x_flat.new_zeros((E * C + 1, d)).index_put((slot,), x_flat[tok])
-    out = _run_experts(params, buf[:E * C].view(E, C, d))
-    out = torch.cat([out.reshape(E * C, d), out.new_zeros((1, d))])
-    w = (r.gates * r.keep).reshape(t * k, 1)
-    y = (out[slot].float() * w).view(t, k, d).sum(1)
+    n_local = params["w_gate"].shape[0]
+    split = mesh is not None and n_local < E
+    # the expert path's input: its gradient sums over the ranks whose
+    # experts read it
+    h = copy_to(copy_to(x_flat, mesh if split else None, "ep"), mesh, "tp")
+    buf, slot = _dispatch(h, r, E, C)
+    if split:
+        e0 = mesh.coord("ep") * n_local
+        out = _run_experts(params, buf[e0:e0 + n_local])
+        out = gather_grid(reduce_from(out, mesh, "tp"), mesh, ("ep",))
+    else:
+        out = reduce_from(_run_experts(params, buf), mesh, "tp")
+    y = _combine(out, slot, r)
     return y.view(b, s, d).to(x.dtype), r.aux
 
 
 def moe_ffn_sharded(params: MoEParams, cfg: MoEConfig, x: torch.Tensor, *,
                     mesh) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The expert-parallel path (experts sharded over an 'ep' axis, two
-    all-to-alls per layer)."""
-    raise NotImplementedError(
-        "moe_ffn_sharded shards experts over a mesh; it arrives with the "
-        "parallel-layout slice of the PyTorch port")
+    """The expert-parallel path: tokens AND experts split over the mesh's
+    'ep' axis, two all-to-alls per call.
+
+    ``x`` is this rank's (B/ep, S, D) rows; the router is replicated and
+    the banks are this rank's E/ep experts (a full (E, ...) bank is cut to
+    them here). Each rank routes its own tokens with the capacity of its
+    own B/ep·S tokens, dispatches into an (E, C, D) buffer, and the first
+    all-to-all sends expert block j to rank j: (E, C, D) → (E/ep, ep·C,
+    D). The return trip undoes it. The aux loss is averaged over ep.
+    Returns (out (B/ep, S, D), aux)."""
+    from .comm import all_to_all, reduce_from
+    ep = mesh.axis_size("ep")
+    E = cfg.num_experts
+    if E % ep != 0:
+        raise ValueError(f"num_experts {E} not divisible by ep={ep}")
+    el = E // ep
+    banks = {}
+    for n in ("w_gate", "w_up", "w_down", "w_gate_scale", "w_up_scale",
+              "w_down_scale"):
+        if n in params:
+            w = params[n]
+            if w.shape[0] == E and el != E:
+                w = w[mesh.coord("ep") * el:(mesh.coord("ep") + 1) * el]
+            banks[n] = w
+    b, s, d = x.shape
+    t = b * s
+    x_flat = x.reshape(t, d)
+    C = _capacity(cfg, t)
+    r = _route(cfg, params["router"], x_flat, C)
+    buf, slot = _dispatch(x_flat, r, E, C)
+    # (E, C, D) → per-destination blocks (ep, E/ep, C, D) → received per
+    # source → (E/ep, ep·C, D)
+    got = all_to_all(buf.reshape(ep, el, C, d), mesh, "ep")
+    got = got.permute(1, 0, 2, 3).reshape(el, ep * C, d)
+    out = _run_experts(banks, got)
+    out = out.reshape(el, ep, C, d).permute(1, 0, 2, 3).contiguous()
+    back = all_to_all(out, mesh, "ep").reshape(E, C, d)
+    y = _combine(back, slot, r)
+    aux = reduce_from(r.aux, mesh, "ep") / ep
+    return y.view(b, s, d).to(x.dtype), aux

@@ -72,8 +72,18 @@ NEXT request decodes under.
 in-flight decode is frozen, its KV blocks and host state leave as a
 portable checkpoint, and another engine resumes it token-exactly.
 
-Tensor-parallel meshes belong to a later slice and raise where
-requested.
+**Tensor parallel** (``RolloutEngine(mesh=)``, ``parallel/mesh.py``):
+every rank of the mesh runs this engine on the same submits, in lockstep.
+As in JAX, a mesh engine serves from the slot layout
+(``kv_layout_fallback = "tensor-parallel KV sharding"``): the params are
+sharded over ``tp`` alone (Megatron columns and rows), each rank's cache
+holds its ``Hkv/tp`` KV heads and the flash-decode kernel runs over
+them, and the forward all-gathers the logits over tp. Slots are
+REPLICATED over the data axes (dp, fsdp): every rank runs every slot.
+Every token is decided once: rank 0 samples, and the ids and their
+log-probs are broadcast over the mesh each step, so float differences
+between ranks cannot fork the streams. Prefixes export with all KV heads
+(gathered over tp) and install this rank's heads.
 
 Observability is the JAX engine's, under its names: the step bodies run
 under the runtime ledger entries ``engine.fused_step`` (paged) and
@@ -100,11 +110,12 @@ from ..models.quantize import is_quantized, quantize_weights_int8
 from ..models.transformer import (KVCache, Params, _is_ring,
                                   dequantize_pool_kv, forward,
                                   forward_paged, init_kv_cache,
-                                  ring_capacity)
+                                  ring_capacity, tp_local_config)
 from ..obs import get_registry, get_tracer
 from ..obs.runtime_profile import (ProfiledFunction, get_profiler,
                                    profiled_device_get)
 from ..ops.sampling import sample_token, sampled_logprob
+from ..parallel.comm import all_gather, broadcast
 from .kv_pressure import HostPrefix, PrefixCandidate, pick_victim, should_tier
 from .paged_kv import (BlockAllocator, BlockPayload, BlocksExhausted,
                        copy_blocks, gather_blocks, gather_blocks_quant,
@@ -346,7 +357,7 @@ def _writeback_slot(cache: KVCache, slot: int, new_len) -> KVCache:
 @torch.no_grad()
 def _prefill_slot(params: Params, config: ModelConfig, tokens: torch.Tensor,
                   true_len: int, cache: KVCache,
-                  slot: int) -> tuple:
+                  slot: int, mesh=None) -> tuple:
     """Prefill one slot. tokens: (1, S_bucket) right-padded; returns
     (last-real-token logits (V,), pool cache). Padding is masked out of
     the prompt's attention; decode overwrites it before it is read."""
@@ -356,15 +367,16 @@ def _prefill_slot(params: Params, config: ModelConfig, tokens: torch.Tensor,
                                                device=dev))
     attn_mask = torch.arange(max_len, device=dev)[None, :] < true_len
     logits, _ = forward(params, config, tokens, cache=sub,
-                        attn_mask=attn_mask, fresh_cache=True)
-    return logits[0, true_len - 1, :], _writeback_slot(cache, slot,
-                                                       true_len)
+                        attn_mask=attn_mask, fresh_cache=True, mesh=mesh,
+                        logits_at=true_len - 1)
+    return logits[0], _writeback_slot(cache, slot, true_len)
 
 
 @torch.no_grad()
 def _prefill_slots_batched(params: Params, config: ModelConfig,
                            tokens: torch.Tensor, true_lens: torch.Tensor,
-                           cache: KVCache, slots: torch.Tensor) -> tuple:
+                           cache: KVCache, slots: torch.Tensor,
+                           mesh=None) -> tuple:
     """Prefill N fresh slots in ONE forward. tokens: (N, S_bucket)
     right-padded; true_lens/slots: (N,) on the cache's device. The rows
     run in a zeroed N-row sub-cache (fresh slots need nothing gathered),
@@ -373,11 +385,12 @@ def _prefill_slots_batched(params: Params, config: ModelConfig,
     cap = cache.k.shape[2]
     n = tokens.shape[0]
     dev = cache.k.device
-    sub = init_kv_cache(config, n, cap, device=dev)
+    tp = 1 if mesh is None else mesh.axis_size("tp")
+    sub = init_kv_cache(tp_local_config(config, tp), n, cap, device=dev)
     attn_mask = torch.arange(cap, device=dev)[None, :] < true_lens[:, None]
-    logits, sub = forward(params, config, tokens, cache=sub,
-                          attn_mask=attn_mask, fresh_cache=True)
-    last = logits[torch.arange(n, device=dev), true_lens.long() - 1]
+    last, sub = forward(params, config, tokens, cache=sub,
+                        attn_mask=attn_mask, fresh_cache=True, mesh=mesh,
+                        logits_at=true_lens - 1)
     cache.k[:, slots] = sub.k
     cache.v[:, slots] = sub.v
     if cache.quantized:
@@ -391,7 +404,7 @@ def _prefill_slots_batched(params: Params, config: ModelConfig,
 @torch.no_grad()
 def _prefill_slot_chunk(params: Params, config: ModelConfig,
                         tokens: torch.Tensor, cache: KVCache, slot: int, *,
-                        fresh: bool) -> tuple:
+                        fresh: bool, mesh=None) -> tuple:
     """One EXACT-SIZE prefill chunk into a slot at its current length:
     the ring pool's long-prompt path. A pad token written into a ring
     would get a real position from the modular mask, so long prompts are
@@ -401,9 +414,9 @@ def _prefill_slot_chunk(params: Params, config: ModelConfig,
     start = cache.length[slot].clone()
     logits, _ = forward(params, config, tokens,
                         cache=_slice_slot(cache, slot, start),
-                        fresh_cache=fresh)
-    return (logits[0, -1, :],
-            _writeback_slot(cache, slot, start + tokens.shape[1]))
+                        fresh_cache=fresh, mesh=mesh,
+                        logits_at=tokens.shape[1] - 1)
+    return logits[0], _writeback_slot(cache, slot, start + tokens.shape[1])
 
 
 def _install_prefix(cache: KVCache, prefix: KVCache, slot: int) -> KVCache:
@@ -417,6 +430,15 @@ def _install_prefix(cache: KVCache, prefix: KVCache, slot: int) -> KVCache:
     length = cache.length.clone()
     length[slot] = prefix.length.reshape(-1)[0]
     return cache._replace(length=length)
+
+
+def _decide_on_rank0(tok: torch.Tensor, logp: torch.Tensor,
+                     mesh) -> tuple:
+    """Rank 0's sampled ids and log-probs, broadcast over the mesh: a
+    token is decided once (ids < 2**24 are exact in f32)."""
+    both = broadcast(torch.stack([tok.float(), logp.float()]), mesh,
+                     mesh.axis_names)
+    return both[0].to(tok.dtype), both[1].to(logp.dtype)
 
 
 def _chunk_sizes(n: int, cap: int) -> list:
@@ -438,19 +460,22 @@ def _chunk_sizes(n: int, cap: int) -> list:
 def _pool_decode_step(params: Params, config: ModelConfig,
                       cur_tok: torch.Tensor, active: torch.Tensor,
                       cache: KVCache, generator: torch.Generator,
-                      sample: SampleParams) -> tuple:
+                      sample: SampleParams, mesh=None) -> tuple:
     """One decode step over the whole pool. cur_tok/active:
     (num_slots,). Inactive slots compute values that are discarded; they
     keep their token and their length. Also returns each sampled token's
-    model log-prob (the behaviour log-prob GRPO trains against)."""
+    model log-prob (the behaviour log-prob GRPO trains against). On a
+    mesh, rank 0's tokens and log-probs are every rank's."""
     logits, new_cache = forward(params, config, cur_tok[:, None],
-                                cache=cache)
+                                cache=cache, mesh=mesh)
     logits = logits[:, -1, :]
     next_tok = sample_token(logits, generator,
                             temperature=sample.temperature,
                             top_k=sample.top_k, top_p=sample.top_p)
     next_tok = torch.where(active, next_tok, cur_tok)
     logp = sampled_logprob(logits, next_tok)
+    if mesh is not None:
+        next_tok, logp = _decide_on_rank0(next_tok, logp, mesh)
     length = torch.where(active, new_cache.length, cache.length)
     return next_tok, logp, new_cache._replace(length=length)
 
@@ -564,10 +589,9 @@ class RolloutEngine:
         self.engine_config = ec = engine_config or EngineConfig()
         if ec.kv_layout not in ("paged", "slots"):
             raise ValueError(f"unknown kv_layout {ec.kv_layout!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel meshes arrive with the parallel-layout "
-                "slice of the PyTorch port")
+        from ..training.trainer import check_mesh
+        check_mesh(mesh)
+        self.mesh = mesh
         embed = params["embed"]
         if embed.device.type != self.device.type:
             raise ValueError(f"params live on {embed.device}, engine on "
@@ -585,17 +609,19 @@ class RolloutEngine:
         self.context_bound = config.max_seq_len if self._ring else max_len
         self.sample = sample
         self.eos_id = eos_id
-        self.params = params
+        self.params = self._place_params(params)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         # KV layout: the paged pool unless asked for slots, or the pool
-        # has no equivalent yet (the int8 cache, ring caches).
+        # has no equivalent yet (the int8 cache, ring caches, meshes).
         fallback = None
         if ec.kv_layout == "paged":
             if config.kv_quant:
                 fallback = "kv_quant int8 cache"
             elif self._ring:
                 fallback = "sliding-window ring cache"
+            elif mesh is not None:
+                fallback = "tensor-parallel KV sharding"
         self.kv_layout = ("slots" if ec.kv_layout == "slots" or fallback
                           else "paged")
         self.kv_layout_fallback = fallback
@@ -624,7 +650,7 @@ class RolloutEngine:
                                  f"{self.device}")
         self.adapter_pool = adapter_pool
         if self.kv_layout == "slots":
-            cache = init_kv_cache(config, num_slots, max_len,
+            cache = init_kv_cache(self._cache_config(), num_slots, max_len,
                                   device=self.device)
             self.cache = cache._replace(length=torch.zeros(
                 num_slots, dtype=torch.int32, device=self.device))
@@ -710,6 +736,24 @@ class RolloutEngine:
         # serialized.
         self._lock = threading.RLock()
 
+    def _place_params(self, params: Params) -> Params:
+        """Full params as this engine serves them: this rank's tp shards
+        on a mesh (replicated over every other axis)."""
+        if self.mesh is None:
+            return params
+        from ..parallel.sharding import shard_params
+        return shard_params(params, self.mesh, axes=("tp",))
+
+    def _cache_config(self) -> ModelConfig:
+        """The config of this rank's KV cache (its Hkv/tp heads)."""
+        if self.mesh is None:
+            return self.config
+        return tp_local_config(self.config, self.mesh.axis_size("tp"))
+
+    def _decide(self, tok: torch.Tensor, logp: torch.Tensor) -> tuple:
+        return (_decide_on_rank0(tok, logp, self.mesh)
+                if self.mesh is not None else (tok, logp))
+
     def _init_paged(self, ec: EngineConfig) -> None:
         """The block pool, its allocator and the host-side row state."""
         num_slots, max_len = self.num_slots, self.max_len
@@ -767,6 +811,7 @@ class RolloutEngine:
             # an int8 engine keeps its serving representation across a
             # trainer's full-precision publish
             params = quantize_weights_int8(params)
+        params = self._place_params(params)
         with self._lock:
             self.params = params
             # release_prefix, not .clear(): paged prefixes hand their
@@ -1450,7 +1495,7 @@ class RolloutEngine:
                 self._touch_prefix(pid)
                 return pid
             self._make_prefix_room()
-            sub = init_kv_cache(self.config, 1, self.max_len,
+            sub = init_kv_cache(self._cache_config(), 1, self.max_len,
                                 device=self.device)
             last = None
             pos = 0
@@ -1459,7 +1504,8 @@ class RolloutEngine:
                 chunk = torch.tensor(tokens[pos:pos + size],
                                      dtype=torch.long, device=self.device)
                 last, sub = prefill(self.params, self.config, chunk[None, :],
-                                    sub, fresh_cache=(i == 0))
+                                    sub, fresh_cache=(i == 0),
+                                    mesh=self.mesh)
                 pos += size
             if self.kv_layout == "paged":
                 nblk = self._alloc.blocks_for(len(tokens))
@@ -1488,7 +1534,12 @@ class RolloutEngine:
             tokens, entry, last = self._prefixes[prefix_id]
             self._touch_prefix(prefix_id)
             self._stats["prefix_exports"] += 1
-            if self.kv_layout != "paged":
+            if self.kv_layout != "paged" and self.mesh is not None:
+                # every KV head: this rank's gathered with the others'
+                kv = KVCache(*(None if a is None else a.clone() if a.ndim < 4
+                               else all_gather(a, self.mesh, "tp", 3)
+                               for a in entry))
+            elif self.kv_layout != "paged":
                 kv = KVCache(*(None if a is None else a.clone()
                                for a in entry))
             elif entry is None:
@@ -1531,6 +1582,15 @@ class RolloutEngine:
                 return pid
             kv = KVCache(*(None if a is None else torch.as_tensor(a)
                            for a in kv))
+            if self.mesh is not None and kv.k.shape[3] \
+                    == self.config.num_kv_heads:
+                # a prefix with every KV head: install this rank's
+                tp = self.mesh.axis_size("tp")
+                part = self.config.num_kv_heads // tp
+                h0 = self.mesh.coord("tp") * part
+                kv = KVCache(*(None if a is None else a if a.ndim < 4
+                               else a[:, :, :, h0:h0 + part]
+                               for a in kv))
             if self.kv_layout == "paged":
                 pool = self.pool
                 num_layers = pool.num_layers
@@ -2758,7 +2818,7 @@ class RolloutEngine:
             active = torch.tensor(active_list, device=self.device)
             next_tok, logp, self.cache = _pool_decode_step(
                 self.params, self.config, self.cur_tok, active, self.cache,
-                self._gen, self.sample)
+                self._gen, self.sample, mesh=self.mesh)
             self.cur_tok = next_tok
             self._stats["decode_steps"] += 1
             # ONE device→host copy for tokens, log-probs and lengths
@@ -2836,7 +2896,7 @@ class RolloutEngine:
                                  device=self.device)[None, :]
             last_logits, self.cache = _prefill_slot_chunk(
                 self.params, self.config, chunk, self.cache, slot,
-                fresh=(fresh_first and i == 0))
+                fresh=(fresh_first and i == 0), mesh=self.mesh)
             pos += size
         return last_logits
 
@@ -2891,7 +2951,7 @@ class RolloutEngine:
                                   dtype=torch.long, device=self.device)
             last_logits, self.cache = _prefill_slot(
                 self.params, self.config, tokens[None, :], true_len,
-                self.cache, slot)
+                self.cache, slot, mesh=self.mesh)
         self._emit_first_token(req, slot, last_logits)
 
     def _schedule_batch(self, group: List[_Request], slots: List[int],
@@ -2929,7 +2989,8 @@ class RolloutEngine:
             self.params, self.config,
             torch.tensor(rows, dtype=torch.long, device=dev),
             torch.tensor(lens, dtype=torch.int32, device=dev), self.cache,
-            torch.tensor(slot_ids, dtype=torch.long, device=dev))
+            torch.tensor(slot_ids, dtype=torch.long, device=dev),
+            mesh=self.mesh)
         self._stats["batched_prefills"] += 1
         self._stats["batched_prefill_slots"] += len(group)
         for i, (req, slot) in enumerate(zip(group, slots)):
@@ -2944,8 +3005,8 @@ class RolloutEngine:
         tok0 = sample_token(last_logits[None, :], self._gen,
                             temperature=s.temperature, top_k=s.top_k,
                             top_p=s.top_p)[0]
-        host = torch.stack([tok0.double(), sampled_logprob(
-            last_logits, tok0).double()]).cpu().tolist()
+        tok0, logp0 = self._decide(tok0, sampled_logprob(last_logits, tok0))
+        host = torch.stack([tok0.double(), logp0.double()]).cpu().tolist()
         tok0_i = int(host[0])
         req.tokens.append(tok0_i)
         req.logps.append(host[1])

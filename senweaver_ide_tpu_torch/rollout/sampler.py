@@ -40,14 +40,16 @@ def _sample(logits: torch.Tensor, generator, sample: SampleParams):
 @torch.no_grad()
 def prefill(params: Params, config: ModelConfig, tokens: torch.Tensor,
             cache: KVCache, *,
-            fresh_cache: bool = False) -> Tuple[torch.Tensor, KVCache]:
+            fresh_cache: bool = False,
+            mesh=None) -> Tuple[torch.Tensor, KVCache]:
     """Run ``tokens`` (B, S) through the model into ``cache``; returns
     (last-token logits (B, V), cache). ``fresh_cache`` promises the cache
     holds nothing yet, so a ring-cache chunk skips the empty cache
-    half."""
-    logits, cache = forward(params, config, tokens, cache=cache,
-                            fresh_cache=fresh_cache)
-    return logits[:, -1, :], cache
+    half. ``mesh``: the tensor-parallel cache forward
+    (``models.transformer.forward``)."""
+    return forward(params, config, tokens, cache=cache,
+                   fresh_cache=fresh_cache, mesh=mesh,
+                   logits_at=tokens.shape[1] - 1)
 
 
 def prefill_chunked(params: Params, config: ModelConfig,

@@ -63,37 +63,44 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.transformer import forward
+from ..models.transformer import forward, vocab_parallel_logprobs
 from .data import make_batch, make_batch_logps, place_batch_for_mesh
 from .experience import BehaviorParamsCache, BehaviorParamsEvicted
 from .grpo import GRPOConfig, token_logprobs
-from .rl_loop import EpisodeRecord, collect_group_trajectories
-from .trainer import (TrainState, _host_metrics, _leaves, _refuse_mesh,
+from .rl_loop import (EpisodeRecord, collect_group_trajectories,
+                      is_lead_rank)
+from .trainer import (TrainState, _host_metrics, _leaves, check_mesh,
                       clone_params, train_step)
 
 
 @torch.no_grad()
-def _behavior_logp(params, config, tokens: torch.Tensor) -> torch.Tensor:
-    logits = forward(params, config, tokens[:, :-1])
-    return token_logprobs(logits, tokens[:, 1:])
+def _behavior_logp(params, config, tokens: torch.Tensor,
+                   mesh=None) -> torch.Tensor:
+    if mesh is None:
+        logits = forward(params, config, tokens[:, :-1])
+        return token_logprobs(logits, tokens[:, 1:])
+    logits = forward(params, config, tokens[:, :-1], mesh=mesh)
+    return vocab_parallel_logprobs(logits, tokens[:, 1:], mesh)
 
 
 def behavior_logp_batched(params, config, tokens,
-                          accum_steps: int = 1) -> torch.Tensor:
+                          accum_steps: int = 1, mesh=None) -> torch.Tensor:
     """(B, S-1) log-probs of ``tokens`` (B, S) under ``params``, in the
     trainer's target layout, one microbatch at a time: a whole-batch
     forward would hold the (B, S-1, V) logits that ``accum_steps`` was
-    sized to avoid. A batch not divisible by ``accum_steps`` runs whole."""
+    sized to avoid. A batch not divisible by ``accum_steps`` runs whole.
+    On a ``mesh``: this rank's shards, rows and chunk
+    (``data.place_batch_for_mesh``), and its block of the log-probs."""
     dev = params["embed"].device
     if not isinstance(tokens, torch.Tensor):
         tokens = torch.from_numpy(np.asarray(tokens))
     tokens = tokens.to(dev, torch.long)
     b = tokens.shape[0]
     if accum_steps <= 1 or b % accum_steps != 0:
-        return _behavior_logp(params, config, tokens)
+        return _behavior_logp(params, config, tokens, mesh)
     mb = b // accum_steps
     return torch.cat([_behavior_logp(params, config,
-                                     tokens[i * mb:(i + 1) * mb])
+                                     tokens[i * mb:(i + 1) * mb], mesh)
                       for i in range(accum_steps)], dim=0)
 
 
@@ -142,7 +149,7 @@ class AsyncGRPOTrainer:
                  metrics_service=None,
                  lora_base=None,
                  ref_params=None):
-        _refuse_mesh(mesh)
+        check_mesh(mesh)
         self.state = state
         self.model_config = model_config
         self.mesh = mesh
@@ -169,6 +176,11 @@ class AsyncGRPOTrainer:
         # tree; swap it with set_ref_params at round boundaries.
         self.ref_params = ref_params
         self._device = _leaves(state.params)[0].device
+        # On a mesh the lead rank collects and publishes; every rank
+        # trains on its shards, and a publish carries gathered weights.
+        self._lead = is_lead_rank(mesh)
+        self._full_base = (lora_base if mesh is None or lora_base is None
+                           else self._gather(lora_base))
 
         self._queue: "queue.Queue[_Collected]" = queue.Queue(
             maxsize=max(1, prefetch))
@@ -189,7 +201,8 @@ class AsyncGRPOTrainer:
         # copy is staged too: the engine must stop serving the trainer's
         # own tensors before the first in-place update.
         self._pending_publish: Optional[tuple] = (
-            (0, v0) if publish_params is not None else None)
+            (0, self._gather(v0) if lora_base is None else v0)
+            if publish_params is not None else None)
         # the last APPLIED pair: what the serving engine runs
         self._applied_behavior: tuple = (0, v0)
         self._version = 0
@@ -213,6 +226,14 @@ class AsyncGRPOTrainer:
                 # (version 0 is cached from construction, unfolded)
                 self.behavior_cache.put(pending[0], pending[1])
 
+    def _gather(self, params):
+        """The full tensors of this rank's shards (every rank calls it);
+        the params themselves without a mesh."""
+        if self.mesh is None:
+            return params
+        from ..parallel.sharding import gather_params
+        return gather_params(params, self.mesh)
+
     def set_ref_params(self, ref_params) -> None:
         """Swap the KL anchor (rolling-anchor pattern); takes effect on
         the next train round. Pass a FULL policy tree (materialized for
@@ -234,7 +255,7 @@ class AsyncGRPOTrainer:
         if self.lora_base is None:
             return params
         from .lora import materialize_lora
-        return materialize_lora(self.lora_base, params, self.model_config)
+        return materialize_lora(self._full_base, params, self.model_config)
 
     def _refuse_aliasing_engine(self, session) -> None:
         """Without a publication channel an engine serving the trainer's
@@ -302,35 +323,54 @@ class AsyncGRPOTrainer:
 
     # -- trainer side -----------------------------------------------------
     def run(self, num_rounds: int) -> List[AsyncRoundResult]:
-        """Train ``num_rounds`` updates with pipelined collection."""
+        """Train ``num_rounds`` updates with pipelined collection. On a
+        mesh only the lead rank runs the collector thread; each round's
+        batch reaches the other ranks by broadcast from the training
+        thread, which makes every collective of the step."""
         self._rounds_wanted = num_rounds
-        self._thread = threading.Thread(target=self._collect_loop,
-                                        name="grpo-collector", daemon=True)
-        self._thread.start()
+        if self._lead:
+            self._thread = threading.Thread(target=self._collect_loop,
+                                            name="grpo-collector",
+                                            daemon=True)
+            self._thread.start()
         results: List[AsyncRoundResult] = []
         try:
             for _ in range(num_rounds):
                 t_wait = time.monotonic()
-                while True:
-                    if self._error is not None:
-                        raise RuntimeError(
-                            "rollout collector failed") from self._error
-                    try:
-                        item = self._queue.get(timeout=0.2)
-                        break
-                    except queue.Empty:
-                        continue
+                item = self._next_item() if self._lead else None
+                if self.mesh is not None:
+                    from ..parallel.comm import broadcast_object
+                    item = broadcast_object(item, self.mesh,
+                                            self.mesh.axis_names)
+                if isinstance(item, BaseException):
+                    raise RuntimeError("rollout collector failed") from item
                 wait_s = time.monotonic() - t_wait
                 results.append(self._train_on(item, wait_s))
         finally:
             self._stop.set()
-            self._thread.join(timeout=30)
-            # Collector is down: flush the last pending publication so the
-            # engine ends on the final params. If the join timed out (a
-            # wedged session), the collector still owns publication.
-            if not self._thread.is_alive():
-                self._flush_pending_publish()
+            if self._thread is not None:
+                self._thread.join(timeout=30)
+                # Collector is down: flush the last pending publication so
+                # the engine ends on the final params. If the join timed
+                # out (a wedged session), the collector still owns
+                # publication.
+                if not self._thread.is_alive():
+                    self._flush_pending_publish()
         return results
+
+    def _next_item(self):
+        """The collector's next round, or its error (a mesh forwards the
+        error to every rank before raising)."""
+        while True:
+            if self._error is not None:
+                if self.mesh is None:
+                    raise RuntimeError(
+                        "rollout collector failed") from self._error
+                return self._error
+            try:
+                return self._queue.get(timeout=0.2)
+            except queue.Empty:
+                continue
 
     def _train_on(self, item: _Collected,
                   wait_s: float) -> AsyncRoundResult:
@@ -361,13 +401,15 @@ class AsyncGRPOTrainer:
                 self.behavior_cache.note_ratio_one_fallback()
                 behavior = self._merged_view(self.state.params)
             old_logp = behavior_logp_batched(behavior, self.model_config,
-                                             tokens, self.accum_steps)
+                                             tokens, self.accum_steps,
+                                             mesh=self.mesh)
 
         ref_logp = None
         ref = self.ref_params     # single read: set_ref_params may swap
         if ref is not None and self.grpo_config.kl_coef > 0.0:
             ref_logp = behavior_logp_batched(ref, self.model_config,
-                                             tokens, self.accum_steps)
+                                             tokens, self.accum_steps,
+                                             mesh=self.mesh)
         with self._step_lock:
             for _ in range(self.ppo_epochs):
                 self.state, metrics = train_step(
@@ -382,6 +424,13 @@ class AsyncGRPOTrainer:
                 # boundary, latest wins. Adapters are staged raw; the
                 # fold happens at flush.
                 staged = (self._version, clone_params(self.state.params))
+                if self.mesh is not None:
+                    # the behavior view stays on this rank's shards; the
+                    # publish carries the gathered weights
+                    self.behavior_cache.put(self._version,
+                                            self._merged_view(staged[1]))
+                    if self.lora_base is None:
+                        staged = (self._version, self._gather(staged[1]))
                 with self._publish_lock:
                     self._pending_publish = staged
 

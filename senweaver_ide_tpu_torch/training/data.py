@@ -6,8 +6,7 @@ log-probs the engine recorded at sample time and, for tree rollouts, its
 branch points. Batches pad to a power-of-two bucket with a completion
 mask so the objective scores generated tokens only.
 :func:`place_batch_for_mesh` pads a batch for the microbatch split and
-moves it to the training device; placement over a mesh belongs to the
-parallel-layout slice.
+the mesh, and moves this rank's part of it to the training device.
 """
 
 from __future__ import annotations
@@ -147,34 +146,84 @@ def pad_batch_for_mesh(
     return tokens, mask, rewards, group_ids
 
 
+def local_rows(mesh, batch: int, accum_steps: int = 1) -> np.ndarray:
+    """The rows of a padded ``batch`` that this rank holds, in its order:
+    its share of every microbatch (over dp·fsdp)."""
+    from ..parallel.mesh import DATA_AXES
+    accum = max(accum_steps, 1)
+    mb = batch // accum
+    mbl = mb // mesh.axis_size(DATA_AXES)
+    d = mesh.coord(DATA_AXES)
+    return np.concatenate([np.arange(i * mb + d * mbl,
+                                     i * mb + (d + 1) * mbl)
+                           for i in range(accum)])
+
+
+def local_block(mesh, x: np.ndarray, accum_steps: int = 1, *,
+                targets: bool = False) -> np.ndarray:
+    """This rank's block of a PADDED host batch array (rows first): its
+    rows of every microbatch (over dp·fsdp) and, for 2-d arrays, its
+    sequence chunk (over sp) — L+1 positions of a (B, S) token-layout
+    array, L of a (B, S−1) target-layout one (``targets``), for L =
+    (S−1)/sp. The layout :func:`place_batch_for_mesh` gives."""
+    x = x[local_rows(mesh, x.shape[0], accum_steps)]
+    if x.ndim < 2:
+        return x
+    sp = mesh.axis_size("sp")
+    length = x.shape[1] // sp if targets else (x.shape[1] - 1) // sp
+    c0 = mesh.coord("sp") * length
+    return x[:, c0:c0 + length + (0 if targets else 1)]
+
+
 def place_batch_for_mesh(mesh, tokens, mask, rewards, group_ids,
                          old_logp=None, *, pad_id: int = 0,
                          accum_steps: int = 1, device="cuda"):
-    """Pad a make_batch output so its rows split into ``accum_steps``
-    microbatches and move every array to ``device`` (the params' device):
-    tokens and group ids as int64, the mask as bool, rewards and
-    ``old_logp`` as f32. Returns ``(tokens, mask, rewards, group_ids,
-    old_logp or None)`` ready for train_step. A mesh raises, as the
-    trainer does, until the parallel-layout slice."""
+    """Pad a make_batch output and move THIS RANK's part of it to
+    ``device`` (the params' device): tokens and group ids as int64, the
+    mask as bool, rewards and ``old_logp`` as f32. Returns ``(tokens, mask,
+    rewards, group_ids, old_logp or None)`` ready for train_step.
+
+    Without a mesh the rows pad to a multiple of ``accum_steps``. On a
+    mesh the TRAINING length S−1 pads to a multiple of sp (old_logp's
+    columns with it), as in JAX, and the rows to a multiple of n ·
+    ``accum_steps`` for n = dp·fsdp data ranks: JAX pads to their lcm and
+    lets a microbatch split unevenly, here each data rank holds an equal
+    share of every microbatch (a padded row has no completion token, so
+    the objective, its metrics and the gradients are the same). Data rank
+    d gets rows ``[i·mb + d·mbl, i·mb + (d+1)·mbl)`` of each microbatch i
+    (mb = B/accum_steps, mbl = mb/n), and sp rank c the tokens and mask of
+    positions ``[c·L, (c+1)·L]`` (L = (S−1)/sp: its L inputs and the
+    token after them) and old_logp's ``[c·L, (c+1)·L)``."""
     import torch
 
     from ..device import resolve_device
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "placing a batch over a mesh arrives with the parallel-layout "
-            "slice of the PyTorch port; pass mesh=None")
     dev = resolve_device(device)
-    if accum_steps > 1 and tokens.shape[0] % accum_steps != 0:
+    n_data, sp = 1, 1
+    if mesh is not None:
+        from ..parallel.mesh import DATA_AXES
+        n_data, sp = mesh.axis_size(DATA_AXES), mesh.axis_size("sp")
+    batch_multiple = n_data * max(accum_steps, 1)
+    if tokens.shape[0] % batch_multiple or (tokens.shape[1] - 1) % sp:
         # the returned batch must satisfy the microbatch split's
         # divisibility check
         tokens, mask, rewards, group_ids = pad_batch_for_mesh(
             tokens, mask, rewards, group_ids,
-            batch_multiple=accum_steps, pad_id=pad_id)
-        if old_logp is not None and old_logp.shape[0] < tokens.shape[0]:
-            old_logp = np.pad(
-                old_logp, ((0, tokens.shape[0] - old_logp.shape[0]),
-                           (0, 0)))
+            batch_multiple=batch_multiple, seq_multiple=sp, pad_id=pad_id)
+    if old_logp is not None and old_logp.shape != (tokens.shape[0],
+                                                   tokens.shape[1] - 1):
+        # padded positions are outside the mask and never read
+        old_logp = np.pad(old_logp,
+                          ((0, tokens.shape[0] - old_logp.shape[0]),
+                           (0, tokens.shape[1] - 1 - old_logp.shape[1])))
+    if mesh is not None:
+        tokens, mask = (local_block(mesh, a, accum_steps)
+                        for a in (tokens, mask))
+        rewards, group_ids = (local_block(mesh, a, accum_steps)
+                              for a in (rewards, group_ids))
+        if old_logp is not None:
+            old_logp = local_block(mesh, old_logp, accum_steps,
+                                   targets=True)
 
     def put(x, dtype):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)

@@ -450,14 +450,16 @@ class StreamingTrainerAdapter:
     publish so the cache can serve later recomputes for episodes that
     version will sample. Each cached version is a COPY of the params
     (the update writes them in place); the batch moves to the params'
-    device."""
+    device. On a mesh every rank calls :meth:`train_on_batch` with the
+    same episodes and keeps its part of the batch; cached versions hold
+    its shards."""
 
     def __init__(self, state, model_config, mesh, *,
                  grpo_config=None, optimizer=None, pad_id: int = 0,
                  max_len: Optional[int] = None, accum_steps: int = 1,
                  behavior_cache_size: int = 4, registry=None):
-        from .trainer import GRPOConfig, _refuse_mesh, clone_params
-        _refuse_mesh(mesh)
+        from .trainer import GRPOConfig, check_mesh, clone_params
+        check_mesh(mesh)
         self.state = state
         self.model_config = model_config
         self.mesh = mesh
@@ -484,25 +486,29 @@ class StreamingTrainerAdapter:
                                 clone_params(self.state.params))
 
     def _recomputed_old_logp(self, episodes: Sequence[StreamedEpisode],
-                             tokens: np.ndarray) -> np.ndarray:
+                             tokens, rows=None) -> np.ndarray:
         """Per-row behavior logps under each row's STAMPED version —
         one forward per distinct version in the batch (small: the
-        staleness bound caps how many versions can coexist)."""
+        staleness bound caps how many versions can coexist). On a mesh
+        ``tokens`` is this rank's part and ``rows`` its rows' indices in
+        the padded batch (rows past the episodes are padding)."""
         from .async_loop import behavior_logp_batched
-        rows_by_version: Dict[int, List[int]] = {}
-        for i, ep in enumerate(episodes):
-            rows_by_version.setdefault(int(ep.version), []).append(i)
+        if rows is None:
+            rows = np.arange(tokens.shape[0])
+        version_of = [int(episodes[r].version) if r < len(episodes)
+                      else None for r in rows]
         out = np.zeros((tokens.shape[0], tokens.shape[1] - 1),
                        dtype=np.float32)
-        for version, rows in sorted(rows_by_version.items()):
+        for version in sorted({v for v in version_of if v is not None}):
+            mine = [j for j, v in enumerate(version_of) if v == version]
             try:
                 params = self.behavior_cache.get(version)
             except BehaviorParamsEvicted:
                 self.behavior_cache.note_ratio_one_fallback()
                 params = self.state.params
             lp = behavior_logp_batched(params, self.model_config, tokens,
-                                       self.accum_steps)
-            out[rows] = lp.float().cpu().numpy()[rows]
+                                       self.accum_steps, mesh=self.mesh)
+            out[mine] = lp.float().cpu().numpy()[mine]
         return out
 
     def train_on_batch(self, episodes: Sequence[StreamedEpisode]
@@ -513,13 +519,21 @@ class StreamingTrainerAdapter:
         from .trainer import _host_metrics, _leaves, train_step
         _, tokens, mask, rewards, group_ids, old_logp = assemble_batch(
             episodes, pad_id=self.pad_id, max_len=self.max_len)
-        if old_logp is None:
+        if old_logp is None and self.mesh is None:
             old_logp = self._recomputed_old_logp(episodes, tokens)
         device = _leaves(self.state.params)[0].device
         tokens, mask, rewards, group_ids, old_logp = \
             place_batch_for_mesh(self.mesh, tokens, mask, rewards,
                                  group_ids, old_logp, pad_id=self.pad_id,
                                  accum_steps=self.accum_steps, device=device)
+        if old_logp is None and self.mesh is not None:
+            import torch
+
+            from .data import local_rows
+            rows = local_rows(self.mesh, tokens.shape[0] * self.mesh
+                              .axis_size(("dp", "fsdp")), self.accum_steps)
+            old_logp = torch.from_numpy(self._recomputed_old_logp(
+                episodes, tokens, rows)).to(device)
         self.state, metrics = train_step(
             self.state, self.model_config, self.mesh, tokens, mask,
             rewards, group_ids, old_logp=old_logp,

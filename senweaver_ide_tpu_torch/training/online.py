@@ -32,8 +32,14 @@ a ``copy_`` into the same tensors at each refresh); holding a reference,
 as the JAX loop may with its immutable arrays, would make the anchor
 follow every update and the k3-KL term read 0. The anchor is saved beside
 the train state as ``anchor.safetensors`` (names in sorted key order,
-through the port's codec). Sharded meshes arrive with a later slice and
-raise at construction.
+through the port's codec).
+
+On a mesh every rank runs the loop alike: the lead rank (the mesh's
+origin) collects against its engine, every rank trains on its shards,
+the params are gathered each round and the lead rank publishes them
+(``grpo_round``; pass the engine on the lead rank). Each rank
+checkpoints its own shards: give every rank a ``checkpoint_manager`` of
+its own root.
 Beyond the JAX signature, ``accum_steps`` (default 1, as the JAX loop
 runs) is passed to every ``grpo_round``: at full width one card holds a
 round's update only in microbatches.
@@ -148,10 +154,8 @@ class OnlineImprovementLoop:
                  tenant_id: Optional[str] = None,
                  experience_sink=None,
                  accum_steps: int = 1):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded online rounds over a mesh arrive with the "
-                "parallel-layout slice of the PyTorch port; pass mesh=None")
+        from .trainer import check_mesh
+        check_mesh(mesh)
         self.state = state
         self.model_config = model_config
         self.mesh = mesh
@@ -397,10 +401,15 @@ class OnlineImprovementLoop:
                     })
             if hasattr(self.engine, "record_snapshot"):
                 self.engine.record_snapshot()
-        elif self.engine is not None and hasattr(self.engine,
-                                                 "update_params"):
-            with get_tracer().span("online.publish_params"):
-                published = self.engine.update_params(self.state.params)
+        elif self.mesh is not None or (
+                self.engine is not None
+                and hasattr(self.engine, "update_params")):
+            full = _full_params(self.state.params, self.mesh)
+            published = None
+            if self.engine is not None and hasattr(self.engine,
+                                                   "update_params"):
+                with get_tracer().span("online.publish_params"):
+                    published = self.engine.update_params(full)
             # A ServingFleet publish is VERSIONED (rolling drain→swap
             # across replicas via serve.WeightPublisher); a bare engine
             # returns None. Record the version + serving state so the
@@ -523,14 +532,23 @@ class OnlineImprovementLoop:
                     read_params_like(reader, loop._anchor, into=True)
             # else: the constructor's anchor is a copy of the restored
             # params (the re-anchor)
+        full = _full_params(state.params, mesh)
         if loop.engine is not None and hasattr(loop.engine,
                                                "update_params"):
             saved_version = meta.get("online_weight_version")
-            published = _republish(loop.engine, state.params,
-                                   saved_version)
+            published = _republish(loop.engine, full, saved_version)
             if isinstance(published, int):
                 loop._published_version = published
         return loop
+
+
+def _full_params(params, mesh):
+    """The full weights of this rank's shards on a mesh (every rank of it
+    calls this), the params themselves without one."""
+    if mesh is None:
+        return params
+    from ..parallel.sharding import gather_params
+    return gather_params(params, mesh)
 
 
 def _republish(engine, params, saved_version: Optional[int]):

@@ -446,6 +446,12 @@ def collect_group_trajectories(
                          retries=retries_total[0])
 
 
+def is_lead_rank(mesh) -> bool:
+    """True without a mesh, and on the rank at the mesh's origin: the one
+    that collects and publishes for the mesh."""
+    return mesh is None or mesh.coord(mesh.axis_names) == 0
+
+
 def grpo_round(state: TrainState, model_config, mesh,
                make_session: Callable[[], RolloutSession],
                tasks: Sequence[str], *, group_size: int = 4,
@@ -498,7 +504,14 @@ def grpo_round(state: TrainState, model_config, mesh,
     checked before the optimizer runs (``trainer.train_step_guarded``):
     a vetoed epoch leaves them, and ``state.step``, untouched. The
     ``engine`` (when shared for observability) serves those same tensors;
-    ``engine.update_params(result.state.params)`` is the round's publish."""
+    ``engine.update_params(result.state.params)`` is the round's publish.
+
+    On a ``mesh`` every rank of it calls ``grpo_round`` alike: the rank at
+    the mesh's origin collects (its sessions drive its engine), the
+    collection is broadcast, and every rank builds the batch, keeps its
+    part (``data.place_batch_for_mesh``) and trains; the result's state
+    holds each rank's shards (``parallel.gather_params`` rebuilds the full
+    weights for a publish)."""
     if ppo_epochs < 1:
         raise ValueError(f"ppo_epochs must be >= 1, got {ppo_epochs}")
     if update_guard is None and resilience is not None:
@@ -535,10 +548,16 @@ def _grpo_round_impl(state, model_config, mesh, make_session, tasks, *,
     tracer = get_tracer()
     t0 = _time.monotonic()
     with tracer.span("collect", tasks=len(tasks), group_size=group_size):
-        collected = collect_group_trajectories(
-            make_session, tasks, group_size=group_size,
-            reward_override=reward_override, max_parallel=max_parallel,
-            resilience=resilience, round_idx=round_idx, planner=planner)
+        collected = None
+        if is_lead_rank(mesh):
+            collected = collect_group_trajectories(
+                make_session, tasks, group_size=group_size,
+                reward_override=reward_override, max_parallel=max_parallel,
+                resilience=resilience, round_idx=round_idx,
+                planner=planner)
+        if mesh is not None:
+            from ..parallel.comm import broadcast_object
+            collected = broadcast_object(collected, mesh, mesh.axis_names)
     trajectories, episodes = collected.trajectories, collected.episodes
     if behavior_stamp is not None:
         # Lockstep sampling: every episode in the round was collected
@@ -603,7 +622,20 @@ def _grpo_round_impl(state, model_config, mesh, make_session, tasks, *,
             mesh, tokens, mask, rewards, group_ids, old_logp,
             pad_id=pad_id, accum_steps=accum_steps, device=device)
         branch_mask = None
-        if branch_np is not None:
+        if branch_np is not None and mesh is not None:
+            import torch as _torch
+            from .data import local_block
+            full_rows = (int(tokens.shape[0]) * mesh.axis_size(("dp",
+                                                                "fsdp")))
+            sp = mesh.axis_size("sp")
+            full_cols = (int(tokens.shape[1]) - 1) * sp + 1
+            branch_np = _np.pad(
+                branch_np,
+                ((0, full_rows - branch_np.shape[0]),
+                 (0, full_cols - branch_np.shape[1])))
+            branch_mask = _torch.from_numpy(local_block(
+                mesh, branch_np, accum_steps)).to(tokens.device)
+        elif branch_np is not None:
             # Tree-planner batches: pad the host branch mask to the
             # placed grid (appended rows/columns are outside the
             # completion mask, never read) and move it beside tokens.
@@ -646,7 +678,7 @@ def _grpo_round_impl(state, model_config, mesh, make_session, tasks, *,
                 from .lora import merge_lora
                 logp_params = merge_lora(lora_base, state.params)
             old_logp = behavior_logp_batched(logp_params, model_config,
-                                             tokens, accum_steps)
+                                             tokens, accum_steps, mesh=mesh)
         if perf_monitor is not None:
             perf_monitor.record_ms("behavior_logp",
                                    (_time.monotonic() - t_b) * 1000.0)
@@ -663,7 +695,7 @@ def _grpo_round_impl(state, model_config, mesh, make_session, tasks, *,
         t_r = _time.monotonic()
         with tracer.span("ref_logp"):
             ref = behavior_logp_batched(ref_params, model_config, tokens,
-                                        accum_steps)
+                                        accum_steps, mesh=mesh)
         if perf_monitor is not None:
             perf_monitor.record_ms("ref_logp",
                                    (_time.monotonic() - t_r) * 1000.0)

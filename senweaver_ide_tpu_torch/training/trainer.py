@@ -26,6 +26,25 @@ an engine serving those tensors sees the new weights at once.
 The step runs under the span ``trainer.grpo_step`` and the runtime ledger
 entry of the same name (``obs/runtime_profile.py``, ``block=False``: the
 metrics stay on the device until the caller syncs them).
+
+On a mesh (``parallel/mesh.py``) every rank holds its shards of the
+params and the Adam moments (``shard_params``; LoRA adapters are
+replicated) and its part of the batch, laid out by
+``data.place_batch_for_mesh``: its rows of every microbatch (over dp and
+fsdp) and its sequence chunk (over sp). The step keeps JAX's
+global-batch semantics: rewards and group ids are all-gathered so the
+group advantages are computed over the full batch, and each microbatch's
+token log-probs are all-gathered (differentiably: the backward keeps
+this rank's block) so every rank evaluates the same masked objective
+over the whole microbatch; the metrics are then equal on every rank.
+Each rank's gradients are its own tokens' contributions; they are summed
+over the data axes (dp, fsdp, sp; fsdp-sharded weights already were, by
+their gather's reduce-scatter) and, for replicated tensors that the
+forward applies to tp-split activations (q/k norms, LoRA factors), over
+tp. The global gradient norm sums each shard's squares over the axes it
+is split on. With MoE on data axes each rank routes its own rows (the
+capacity counts the local batch) and the load-balance loss is averaged
+over the data ranks.
 """
 
 from __future__ import annotations
@@ -38,8 +57,13 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import Params, forward, init_params
+from ..models.transformer import (Params, forward, init_params,
+                                  vocab_parallel_logprobs)
 from ..obs.runtime_profile import ProfiledFunction
+from ..parallel.comm import all_gather, all_reduce, gather_grid, reduce_from
+from ..parallel.mesh import DATA_AXES, Mesh
+from ..parallel.sharding import (restrict_spec, shard_params, spec_axes,
+                                 spec_for_path)
 from .grpo import (GRPOConfig, group_relative_advantages, grpo_objective,
                    token_logprobs)
 from .lora import merge_lora
@@ -202,11 +226,11 @@ class TrainState:
     opt: Optional[AdamW] = None
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded training over a mesh arrives with the parallel-layout "
-            "slice of the PyTorch port; pass mesh=None")
+def check_mesh(mesh) -> None:
+    """A mesh argument is None or a ``parallel.mesh.Mesh``."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh or None, got "
+                        f"{type(mesh).__name__}")
 
 
 def make_train_state(config: ModelConfig,
@@ -215,13 +239,16 @@ def make_train_state(config: ModelConfig,
                      params: Optional[Params] = None,
                      optimizer: Optional[AdamW] = None,
                      device="cuda") -> TrainState:
-    """Init (from ``generator`` on ``device``) or adopt ``params``, and
-    init the optimizer state beside them."""
-    _refuse_mesh(mesh)
+    """Init (from ``generator`` on ``device``) or adopt FULL ``params``,
+    keep this rank's shards of them on a ``mesh``, and init the optimizer
+    state beside them (the moments shard like their params)."""
+    check_mesh(mesh)
     if params is None:
         if generator is None:
             raise ValueError("pass params or a generator to init them")
         params = init_params(config, generator, device=device)
+    if mesh is not None:
+        params = shard_params(params, mesh)
     opt = optimizer or make_optimizer(learning_rate)
     return TrainState(params=params, opt_state=opt.init(params), step=0,
                       opt=opt)
@@ -235,11 +262,16 @@ def make_lora_train_state(config: ModelConfig, base_params: Params,
                           optimizer: Optional[AdamW] = None) -> TrainState:
     """TrainState whose params are ONLY the LoRA adapters for
     ``base_params``; pass the frozen base to ``train_step(...,
-    lora_base=base_params)``. Adapters live on the base's device."""
+    lora_base=base_params)``. Adapters live on the base's device and are
+    replicated on a mesh, where ``base_params`` are this rank's shards."""
     from .lora import DEFAULT_TARGETS, init_lora
-    _refuse_mesh(mesh)
+    check_mesh(mesh)
     wq = base_params["layers"]["wq"]
     expect = (config.num_layers, config.hidden_size, config.q_dim)
+    if mesh is not None:
+        spec = restrict_spec(spec_for_path("layers/wq"), mesh)
+        expect = tuple(n // mesh.axis_size(e) if e else n
+                       for n, e in zip(expect, spec))
     if tuple(wq.shape) != expect:
         raise ValueError(f"base_params do not match config "
                          f"{config.name!r}: wq {tuple(wq.shape)} != "
@@ -265,6 +297,7 @@ def grpo_gradients(params: Params, config: ModelConfig,
                    num_groups: Optional[int] = None,
                    accum_steps: int = 1,
                    lora_base: Optional[Params] = None,
+                   mesh: Optional[Mesh] = None,
                    ) -> Tuple[Params, Dict[str, torch.Tensor]]:
     """The GRPO gradient of ``params`` (the adapters when ``lora_base`` is
     given) over the batch, in the param dtype, and the metrics: the
@@ -272,7 +305,8 @@ def grpo_gradients(params: Params, config: ModelConfig,
     loss, ``moe_aux_coef`` times which is in the loss), each token-share
     weighted over microbatches, ``loss``,
     ``grad_norm`` (of the returned gradients) and ``adv_mean``. Writes
-    nothing."""
+    nothing. On a ``mesh`` the params, gradients and batch are this
+    rank's parts (module docstring)."""
     pairs = list(flatten_params(params))
     names = [p for p, _ in pairs]
     base = [t for _, t in pairs]
@@ -287,7 +321,9 @@ def grpo_gradients(params: Params, config: ModelConfig,
     if b % accum_steps != 0:
         raise ValueError(f"batch {b} not divisible by accum_steps "
                          f"{accum_steps}")
-    n_groups = num_groups or b
+    lay = _Layout(mesh, accum_steps)
+    rewards, group_ids = lay.rows(rewards), lay.rows(group_ids)
+    n_groups = num_groups or rewards.shape[0]
     # 1. advantages over the FULL batch (group members may land in
     #    different microbatches)
     adv = group_relative_advantages(
@@ -295,11 +331,14 @@ def grpo_gradients(params: Params, config: ModelConfig,
         normalize_std=grpo_config.normalize_std,
         min_std=grpo_config.min_group_std,
         leave_one_out=grpo_config.leave_one_out)
-    # 2. next-token shift
+    # 2. next-token shift (the local chunk; the full arrays for the
+    #    objective)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    tgt_mask = completion_mask[:, 1:]
+    tgt_mask = lay.grid(completion_mask[:, 1:])
+    old_logp, ref_logp = lay.grid(old_logp), lay.grid(ref_logp)
     branch = (None if branch_mask is None
-              else _as_tensor(branch_mask, dev, torch.float32)[:, 1:])
+              else lay.grid(_as_tensor(branch_mask, dev,
+                                       torch.float32)[:, 1:]))
     total_denom = torch.clamp_min(tgt_mask.sum().float(), 1.0)
     moe = config.num_experts > 0
     keys = (_METRIC_KEYS
@@ -312,16 +351,26 @@ def grpo_gradients(params: Params, config: ModelConfig,
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     loss_acc = zero
     metr_acc = {k: zero for k in keys}
-    mb = b // accum_steps
+    mb_local = b // accum_steps
+    mb = tgt_mask.shape[0] // accum_steps
     for i in range(accum_steps):
         sl = slice(i * mb, (i + 1) * mb)
+        sl_local = slice(i * mb_local, (i + 1) * mb_local)
         live = [t.detach().requires_grad_() for t in base]
         trainable = unflatten_params(zip(names, live))
         model_params = (trainable if lora_base is None
                         else merge_lora(lora_base, trainable))
-        logits, _, moe_aux = forward(model_params, config, inputs[sl],
-                                     with_aux=True)
-        logp = token_logprobs(logits, targets[sl])
+        if mesh is None:
+            logits, _, moe_aux = forward(model_params, config, inputs[sl],
+                                         with_aux=True)
+            logp = token_logprobs(logits, targets[sl])
+        else:
+            logits, _, moe_aux = forward(model_params, config,
+                                         inputs[sl_local], with_aux=True,
+                                         mesh=mesh)
+            logp = lay.grid(vocab_parallel_logprobs(
+                logits, targets[sl_local], mesh), grad=True)
+            moe_aux = lay.mean(moe_aux)
         olp = old_logp[sl] if old_logp is not None else logp.detach()
         loss, metrics = grpo_objective(
             logp, olp, adv[sl], tgt_mask[sl], grpo_config,
@@ -339,13 +388,116 @@ def grpo_gradients(params: Params, config: ModelConfig,
         loss_acc = loss_acc + loss.detach() * w
         metr_acc = {k: metr_acc[k] + metrics[k].detach() * w for k in keys}
         del grads, loss, metrics
+    if mesh is not None:
+        grads_acc = _reduce_grads(names, base, grads_acc, mesh)
     # 4. gradients in the param dtype; 5. their global norm
     out = [acc.to(t.dtype) for acc, t in zip(grads_acc, base)]
     metrics = dict(metr_acc)
     metrics["loss"] = loss_acc
-    metrics["grad_norm"] = global_norm(out)
+    metrics["grad_norm"] = (global_norm(out) if mesh is None
+                            else _global_norm_mesh(names, out, mesh))
     metrics["adv_mean"] = adv.mean()
     return unflatten_params(zip(names, out)), metrics
+
+
+class _Layout:
+    """This rank's place in the mesh's batch: ``rows`` and ``grid`` turn
+    its (rows, sequence chunk) block into the global array in JAX's row
+    order; the identity without a mesh.
+
+    ``data.place_batch_for_mesh`` gives data rank d rows ``[i·mb +
+    d·mbl, i·mb + (d+1)·mbl)`` of every microbatch i (mbl = mb / n, n data
+    ranks), so the gathered blocks are interleaved back microbatch by
+    microbatch; one microbatch's blocks are already in order."""
+
+    def __init__(self, mesh: Optional[Mesh], accum: int):
+        self.mesh = mesh
+        self.n = 1 if mesh is None else mesh.axis_size(DATA_AXES)
+        self.accum = accum
+
+    def _interleave(self, x: torch.Tensor) -> torch.Tensor:
+        if self.n == 1 or self.accum == 1:
+            return x
+        rest = x.shape[1:]
+        mbl = x.shape[0] // (self.n * self.accum)
+        return x.reshape((self.n, self.accum, mbl) + rest).transpose(
+            0, 1).reshape((-1,) + rest)
+
+    def rows(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """(B_local, ...) → (B, ...)."""
+        if self.mesh is None or x is None:
+            return x
+        return self._interleave(all_gather(x, self.mesh, DATA_AXES, 0))
+
+    def grid(self, x: Optional[torch.Tensor], grad: bool = False
+             ) -> Optional[torch.Tensor]:
+        """(rows, chunk) → the whole: a whole microbatch's block when
+        ``grad`` (differentiable, no reordering), else the batch."""
+        if self.mesh is None or x is None:
+            return x
+        full = gather_grid(x, self.mesh, DATA_AXES, ("sp",), 0, 1)
+        return full if grad else self._interleave(full)
+
+    def mean(self, aux: torch.Tensor) -> torch.Tensor:
+        """A per-rank scalar averaged over the data ranks (sp included)."""
+        n = self.mesh.axis_size(DATA_AXES + ("sp",))
+        if n == 1:
+            return aux
+        return reduce_from(aux, self.mesh, DATA_AXES + ("sp",)) / n
+
+
+# replicated tensors the forward applies to tp-split activations
+def _tp_partial(name: str) -> bool:
+    return name.endswith(("q_norm", "k_norm")) or "_lora_" in name
+
+
+def _sharded_axes(name: str, t: torch.Tensor, mesh: Mesh) -> Tuple[str, ...]:
+    spec = restrict_spec(spec_for_path(name, t.ndim), mesh)
+    return tuple(a for a in spec_axes(spec) if mesh.axis_size(a) > 1)
+
+
+def _reduce_grads(names, base, grads, mesh: Mesh) -> List[torch.Tensor]:
+    """Sum each gradient over the axes whose ranks hold other tokens
+    (dp, fsdp and sp unless it is split there) and, for the tensors
+    :func:`_tp_partial` names, over tp; one flat all-reduce per axis for
+    the tensors that share an axis set."""
+    buckets: Dict[Tuple[str, ...], List[int]] = {}
+    for i, (name, t) in enumerate(zip(names, base)):
+        split = _sharded_axes(name, t, mesh)
+        axes = [a for a in DATA_AXES + ("sp",)
+                if a not in split and mesh.axis_size(a) > 1]
+        if _tp_partial(name) and "tp" not in split \
+                and mesh.axis_size("tp") > 1:
+            axes.append("tp")
+        if axes:
+            buckets.setdefault(tuple(axes), []).append(i)
+    out = list(grads)
+    for axes, idx in buckets.items():
+        flat = torch.cat([out[i].reshape(-1) for i in idx])
+        for a in axes:
+            flat = all_reduce(flat, mesh, a)
+        for i, part in zip(idx, flat.split([out[i].numel() for i in idx])):
+            out[i] = part.view_as(out[i])
+    return out
+
+
+def _global_norm_mesh(names, grads, mesh: Mesh) -> torch.Tensor:
+    """:func:`global_norm` of the full gradients from their shards: each
+    shard's sum of squares summed over the axes it is split on, then the
+    leaves summed in order."""
+    sq = [(g.float() * g.float()).sum() for g in grads]
+    buckets: Dict[Tuple[str, ...], List[int]] = {}
+    for i, (name, g) in enumerate(zip(names, grads)):
+        axes = _sharded_axes(name, g, mesh)
+        if axes:
+            buckets.setdefault(axes, []).append(i)
+    for axes, idx in buckets.items():
+        vec = torch.stack([sq[i] for i in idx])
+        for a in axes:
+            vec = all_reduce(vec, mesh, a)
+        for i, v in zip(idx, vec.unbind()):
+            sq[i] = v
+    return torch.sqrt(sum(sq))
 
 
 def apply_gradients(state: TrainState, grads: Params,
@@ -396,7 +548,7 @@ def _grpo_step(state: TrainState, config: ModelConfig, tokens,
 # shape-stable and skipped from the signature scan.
 _grpo_step = ProfiledFunction(
     _grpo_step, "trainer.grpo_step", skip_args=(0, 1),
-    skip_kwargs=("lora_base", "check", "optimizer", "grpo_config"),
+    skip_kwargs=("lora_base", "check", "optimizer", "grpo_config", "mesh"),
     block=False)
 
 
@@ -404,7 +556,7 @@ def _run_step(state: TrainState, config: ModelConfig, mesh, tokens,
               completion_mask, rewards, group_ids, *, check=None,
               lora_base=None, **kwargs):
     """train_step's refusals, then the profiled step under its span."""
-    _refuse_mesh(mesh)
+    check_mesh(mesh)
     if _has_int8(state.params):
         raise TypeError(
             "train_step received int8-quantized params — quantization is a "
@@ -418,7 +570,7 @@ def _run_step(state: TrainState, config: ModelConfig, mesh, tokens,
                            accum_steps=kwargs.get("accum_steps", 1)):
         return _grpo_step(state, config, tokens, completion_mask, rewards,
                           group_ids, check=check, lora_base=lora_base,
-                          **kwargs)
+                          mesh=mesh, **kwargs)
 
 
 def train_step(state: TrainState, config: ModelConfig, mesh,
@@ -440,7 +592,10 @@ def train_step(state: TrainState, config: ModelConfig, mesh,
 
     Optimizer resolution: an explicit ``optimizer`` wins, else the one
     the state was built with, else the module default. Metrics are 0-d
-    tensors on the params' device (no host sync here)."""
+    tensors on the params' device (no host sync here). On a ``mesh`` the
+    batch is this rank's part as ``data.place_batch_for_mesh`` lays it
+    out for the same ``accum_steps``, and the metrics are equal on every
+    rank."""
     new_state, metrics, _ = _run_step(
         state, config, mesh, tokens, completion_mask, rewards, group_ids,
         old_logp=old_logp, ref_logp=ref_logp,

@@ -188,3 +188,27 @@ def test_patched_copy_differs_only_in_its_hunks(module):
         (tag, want[i1:i2], got[j1:j2]) for tag, i1, i2, j1, j2 in hunks]
     # the port's hunks add or replace; they never drop JAX lines outright
     assert all(tag != "delete" for tag, *_ in hunks)
+
+
+def _spec_tuple(spec):
+    """A JAX PartitionSpec as the port's plain tuple."""
+    return tuple(tuple(e) if isinstance(e, (tuple, list)) else e
+                 for e in spec)
+
+
+@pytest.mark.parametrize("table", ["PARAM_SPECS", "MOE_PARAM_SPECS",
+                                   "MOE_SCALE_SPECS", "ACT_SPEC",
+                                   "LOGITS_SPEC", "KV_CACHE_SPEC"])
+def test_sharding_tables_equal_jax(table):
+    """parallel/sharding.py's tables hold JAX's PartitionSpecs entry by
+    entry as plain tuples (the port's sharding is a rewrite, not a copy:
+    it returns each rank's shards)."""
+    from senweaver_ide_tpu.parallel import sharding as jsh
+    from senweaver_ide_tpu_torch.parallel import sharding as tsh
+    want, got = getattr(jsh, table), getattr(tsh, table)
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k] == _spec_tuple(want[k]), k
+    else:
+        assert got == _spec_tuple(want)

@@ -208,16 +208,29 @@ def _slot_parity(jeng, teng):
 
 @pytest.mark.parametrize("kw", [
     {"engine_config": {"kv_layout": "slots"}},
-    {"mesh": object()},
+    {"mesh": "one device"},
 ])
 def test_slot_layout_requests_raise(weights, kw):
-    """kv_layout='slots' is served now, token for token as the JAX
-    engine; a tensor-parallel mesh still raises, naming its slice."""
+    """kv_layout='slots' is served, token for token as the JAX engine; so
+    is a mesh engine, which falls back to the slot layout as JAX's does
+    (here a one-device mesh; tp meshes in
+    tests/test_torch_mesh_engine.py)."""
     if "mesh" in kw:
-        _, _, tparams, tcfg = weights
-        with pytest.raises(NotImplementedError,
-                           match="parallel-layout slice"):
-            RolloutEngine(tparams, tcfg, device="cpu", **kw)
+        from senweaver_ide_tpu.parallel import make_named_mesh
+        from senweaver_ide_tpu_torch.parallel import single_device_mesh
+        jparams, jcfg, tparams, tcfg = weights
+        jeng = JaxEngine(jparams, jcfg, num_slots=2, max_len=64,
+                         sample=JaxSample(0.0, 0, 1.0),
+                         mesh=make_named_mesh({}, devices=jax.devices()[:1]))
+        teng = RolloutEngine(tparams, tcfg, num_slots=2, max_len=64,
+                             sample=SampleParams(0.0, 0, 1.0), device="cpu",
+                             mesh=single_device_mesh())
+        assert teng.kv_layout == jeng.kv_layout == "slots"
+        assert teng.kv_layout_fallback == jeng.kv_layout_fallback \
+            == "tensor-parallel KV sharding"
+        _slot_parity(jeng, teng)
+        with pytest.raises(TypeError, match="mesh"):
+            RolloutEngine(tparams, tcfg, device="cpu", mesh=object())
         return
     jeng, teng = _slot_engines(weights, **kw)
     assert teng.kv_layout == "slots" and teng.kv_layout_fallback is None

@@ -244,8 +244,10 @@ def test_forward_paged_matches_jax(weights, rng, rung, use_kernel):
 def test_out_of_slice_paths_raise(weights):
     """The contiguous-cache forward is ported (it returns (logits, cache)
     as JAX does, with JAX's logits), and so are MoE layers and int8
-    weights (tests/test_torch_moe.py, tests/test_torch_quantize.py); the
-    parallel layouts still raise, naming their slice."""
+    weights (tests/test_torch_moe.py, tests/test_torch_quantize.py), and
+    the parallel layouts (tests/test_torch_parallel.py): ring attention
+    without an 'sp' mesh raises JAX's error, and only the pipeline names
+    still raise, naming their slice."""
     jparams, jcfg, tparams, tcfg = weights
     toks = np.array([[3, 1, 4, 1, 5]], np.int32)
     jl, jc = jax_tf.forward(jparams, jcfg, jnp.asarray(toks),
@@ -255,14 +257,12 @@ def test_out_of_slice_paths_raise(weights):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
                                atol=LOGITS_ATOL, rtol=LOGITS_ATOL)
     assert int(tc.length) == int(jc.length) == 5
-    with pytest.raises(NotImplementedError, match="parallel-layout slice"):
+    with pytest.raises(ValueError, match="'sp' axis"):
         t_tf.forward(tparams, dataclasses.replace(tcfg, attn_impl="ring"),
                      torch.zeros(1, 2, dtype=torch.long))
-    from senweaver_ide_tpu_torch.parallel import (MoEConfig,
-                                                  moe_ffn_sharded)
-    with pytest.raises(NotImplementedError, match="parallel-layout slice"):
-        moe_ffn_sharded({}, MoEConfig(8, 16), torch.zeros(1, 2, 8),
-                        mesh=object())
+    from senweaver_ide_tpu_torch.parallel import pipeline_forward
+    with pytest.raises(NotImplementedError, match="pipeline"):
+        pipeline_forward(tparams, tcfg, torch.zeros(1, 2, dtype=torch.long))
     moe = t_tf.init_params(t_config.tiny_moe_test(), torch.Generator(),
                            device="cpu")
     assert tuple(moe["layers"]["w_gate"].shape) == (2, 4, 64, 128)
@@ -270,3 +270,23 @@ def test_out_of_slice_paths_raise(weights):
           "w_scale": torch.tensor([0.5, 2.0])}
     out = t_tf._dense(torch.ones(1, 2), lp, "w")
     torch.testing.assert_close(out, torch.tensor([[2.0, 4.0]]))
+
+
+@pytest.mark.parametrize("at", [4, [2, 4]])
+def test_cache_forward_logits_at_picks_rows(weights, at):
+    """``logits_at`` returns each row's logits at its position, (B, V),
+    the full cache forward's values there (the head then runs on those
+    rows alone)."""
+    _, _, tparams, tcfg = weights
+    toks = torch.tensor([[3, 1, 4, 1, 5], [9, 2, 6, 5, 3]])
+    full, _ = t_tf.forward(tparams, tcfg, toks,
+                           cache=t_tf.init_kv_cache(tcfg, 2, 16,
+                                                    device="cpu"))
+    got, cache = t_tf.forward(tparams, tcfg, toks,
+                              cache=t_tf.init_kv_cache(tcfg, 2, 16,
+                                                       device="cpu"),
+                              logits_at=torch.tensor(at))
+    pos = torch.tensor(at).expand(2)
+    assert got.shape == (2, tcfg.vocab_size)
+    torch.testing.assert_close(got, full[torch.arange(2), pos])
+    assert int(cache.length) == 5

@@ -251,7 +251,7 @@ def test_thread_ids_and_refusals(tmp_path, init):
         OnlineImprovementLoop(state, cfg, None, legacy_factory, ["t"],
                               apo=service, collector=collector,
                               max_parallel=8)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         OnlineImprovementLoop(state, cfg, object(), make_session, ["t"],
                               apo=service, collector=collector)
     sink = ExperienceQueue(group_size=2)

@@ -126,7 +126,9 @@ PORTED_MODULES = ("rollout/speculative", "rollout/spec_controller",
                   "services/onboarding", "editor/__init__",
                   "editor/diff_zones", "editor/edit_prediction",
                   "tools/__init__", "tools/search_engines",
-                  "rewards/reference_impl")
+                  "rewards/reference_impl", "parallel/mesh",
+                  "parallel/comm", "parallel/sharding",
+                  "parallel/distributed", "parallel/ring_attention")
 
 
 @pytest.mark.parametrize("module", PORTED_MODULES)
@@ -240,3 +242,44 @@ def test_generator_must_match_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="generator is on cpu"):
         init_params(tiny_test(), torch.Generator(), device="cuda")
+
+
+_PARALLEL_UNDER_BLOCKER = r"""
+import senweaver_ide_tpu_torch.parallel as par
+from senweaver_ide_tpu_torch.parallel import distributed, sharding
+assert distributed.default_backend("cpu") == "gloo"
+assert distributed.default_backend("cuda") == "nccl"
+assert len(sharding.PARAM_SPECS) > 40 and "moe_ffn_sharded" in par.__all__
+m = par.single_device_mesh()
+assert m.size == 1 and m.group("tp") is None
+assert not [k for k in sys.modules if k.split(".")[0] in BANNED]
+print("parallel ok")
+"""
+
+
+def test_parallel_layouts_import_with_jax_blocked():
+    """The parallel package imports, names its backends (NCCL for CUDA,
+    gloo for the CPU: no silent switch) and builds a one-rank mesh with
+    the JAX package blocked."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    code = _BLOCKED_IMPORT.format(banned=BANNED) + _PARALLEL_UNDER_BLOCKER
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split()[-1] == "ok"
+
+
+def test_mesh_pool_ranks_import_no_jax():
+    """The rank processes of the mesh tests import tests/torch_mesh_pool.py
+    and the port only: the helper names no banned module."""
+    path = os.path.join(ROOT, "tests", "torch_mesh_pool.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert names and not [n for n in names if _banned(n)]

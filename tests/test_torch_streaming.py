@@ -327,10 +327,10 @@ def test_async_collector_error_propagates(weights, side):
 
 
 def test_async_on_mesh_raises(weights, rng):
-    """JAX places the batch over a dp/fsdp mesh; the port's trainer
-    refuses a mesh until the parallel-layout slice."""
+    """A mesh argument is a parallel Mesh (the port's dp/fsdp async run
+    is tests/test_torch_mesh_train.py's); anything else raises."""
     _, tstate = _states(weights, 1e-3)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         AsyncGRPOTrainer(tstate, weights[3], object(),
                          lambda: _FakeSession(rng), ["t"])
 

@@ -434,11 +434,12 @@ def test_out_of_slice_training_raises(setup, tmp_path):
     jcfg, jparams, batch, _ = setup
     tparams = params_from_numpy(jax.device_get(jparams), device="cpu")
     state = ttr.make_train_state(tiny_test(), params=tparams)
-    with pytest.raises(NotImplementedError, match="parallel-layout slice"):
+    # meshes train (tests/test_torch_mesh_train.py); a mesh is a Mesh,
+    # and ring/ulysses attention needs one with an 'sp' axis, as in JAX
+    with pytest.raises(TypeError, match="mesh"):
         ttr.train_step(state, tiny_test(), object(), **batch)
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError,
-                           match="parallel-layout slice"):
+        with pytest.raises(ValueError, match="'sp' axis"):
             ttr.train_step(state, dataclasses.replace(tiny_test(),
                                                       attn_impl=impl),
                            None, **batch)
