@@ -275,14 +275,16 @@ Phases, each fatal on failure:
     p90 step ms, device ms a step from a profiled window each); a bf16
     publish into the int8 engine is quantized again (weight_quant 1) and
     serves. K1 = 28 x fused steps of every engine, K2 and K3 0.
-25. Mixture-of-experts (``phase_moe``) at full Qwen3-30B-A3B width and
-    depth (48 layers, 128 experts, top-8) after the Mistral weights are
+25. Mixture-of-experts (``phase_moe``) at full Qwen3-30B-A3B width,
+    MOE_LAYERS of its 48 layers deep (128 experts, top-8; a time cut:
+    the weights and every step scale with the depth) after the Mistral
+    weights are
     freed: K1 (two-entry tiles at rep 8) and K2 (2 x 511) at its 32/4
     heads against their plain versions, timed beside their bounds and
     (K2) beside SDPA with enable_gqa=True;
-    random bf16 weights (61.06 GB); the serving engine (16 slots,
-    max_len 2048, block 16, budget 64) on 8 greedy requests of
-    128-1024 tokens, 32 new, K1 = 48 x fused steps, and the last routed
+    random bf16 weights (61.06 GB at 48 layers); the serving engine (16
+    slots, max_len 2048, block 16, budget 64) on 8 greedy requests of
+    128-1024 tokens, 32 new, K1 = layers x fused steps, and the last routed
     layer of its first fused step against a per-expert loop on that
     step's own flat batch (dropped share, expert load); the same traffic
     under a dropless copy of the config (capacity factor E/k: no batch
@@ -292,8 +294,8 @@ Phases, each fatal on failure:
     figure); one QLoRA GRPO step on the int8 base under the dropless
     copy (rank 16 on wq/wk/wv/wo, flash, remat, accum 4, 2 prompts x 4
     sampled completions of 64 from an int8 engine): only the adapters
-    move, finite metrics, first-step |ratio_mean - 1|, K2 = 384 / 192 /
-    192; materialize_lora re-quantizes, update_params into the int8
+    move, finite metrics, first-step |ratio_mean - 1|, K2 = layers x 4 x
+    (2 / 1 / 1); materialize_lora re-quantizes, update_params into the int8
     engine and one more request.
 26. The parallel layouts (``phase_parallel``, after phase 23): two ranks
     started once (``multiprocessing``'s spawn context) on the one card,
@@ -315,15 +317,27 @@ Phases, each fatal on failure:
     gradients within PAR_SP_RMS_TOL relative RMS of the one-rank flash
     path. (f) moe_ffn_sharded at ep=2 on one Qwen3-30B-A3B layer (128
     experts, top-8, hidden 2048, FFN 768; 4 x 512 tokens) against
-    moe_ffn on each rank's rows, at capacity 1.25 and dropless. Prints
+    moe_ffn on each rank's rows, at capacity 1.25 and dropless; then
+    moe_ffn on a dp=2 mesh (each rank its 2 rows, routed as the global
+    batch) against one rank's moe_ffn over all 4 rows, at capacity 1.25
+    and 1.0 (drops present): outputs, dropped count and aux. (g)
+    Pipeline stages at pp=2 (14 layers a stage, the (b) weights and
+    batch): one GPipe step at M=2 and one 1F1B step at M=4, each rank's
+    stage gradients (and the replicated ones) held per tensor to the
+    one-rank step's as in (b) without a gather (rank 1 recomputes the
+    one-rank gradients), the loss to rank 0's, 1F1B against GPipe, K2
+    exact per rank and schedule (GPipe layers/2 x M x (2, 1, 1) under
+    remat; 1F1B layers/2 x M x (2 on stage 0 for its no-grad forward
+    and the recompute, 1 on the last stage), 1, 1)), step seconds,
+    bytes a tick, the send route and each rank's peak memory. Prints
     each rank's peak memory, collective routes and phase seconds.
 27. A JSON line with every kernel's numbers (``launches_round``,
     ``launches_online``, ``launches_reuse``, ``launches_async``,
     ``launches_spec``, ``launches_group``, ``launches_tenants``,
     ``launches_migrate``, ``launches_fleet``, ``launches_learner``,
     ``launches_control``,
-    ``launches_int8``, ``launches_moe``, ``launches_qlora`` and
-    ``launches_parallel``: the counts of those phases' runs (a rank's, in
+    ``launches_int8``, ``launches_moe``, ``launches_qlora``,
+    ``launches_parallel`` and ``launches_pp``: the counts of those phases' runs (a rank's, in
     ``phase_parallel``; K2's and K3's ``local_heads`` give their checks
     and times at the tp=2 heads); K1's entry
     also its times at the draft's heads, ``d64_*``, at the verify step,
@@ -5574,6 +5588,10 @@ INT8_REQUESTS, INT8_PROMPT_LENS, INT8_NEW = 16, (128, 1024), 64
 PROFILE_STEPS = 4
 # Qwen3-30B-A3B (phase_moe): the serving engine's shape, 32 new tokens
 MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS = 16, 2048, 8
+# Qwen3-30B-A3B's depth in phase_moe: half its 48 layers, a time cut
+# (at 48 the whole script took up to 1,120 s of its 1,200 s limit on an
+# H100 80GB HBM3 at 700 W)
+MOE_LAYERS = 24
 MOE_PROMPT_LENS, MOE_NEW = (128, 1024), 32
 # One routed layer of a fused step against the per-expert loop: the same
 # bf16 expert matmuls at other shapes round differently (2**-9 relative at
@@ -6017,12 +6035,12 @@ def _quantize_in_place(torch, params):
 
 
 def phase_moe(torch, mcfg, seed, smi, timer):
-    """Qwen3-30B-A3B at full width and depth on one card: K1 and K2 at
-    its heads; random bf16 weights; the serving engine on MOE_REQUESTS
-    greedy requests (K1 = 48 x fused steps) with one fused step's routed layer
-    held against the per-expert loop; the same traffic under a dropless
-    copy of the config, every token teacher-forced against the plain
-    forward; int8 in place, the traffic again on int8 weights; a QLoRA
+    """Qwen3-30B-A3B at full width (``mcfg``'s depth) on one card: K1 and
+    K2 at its heads; random bf16 weights; the serving engine on
+    MOE_REQUESTS greedy requests (K1 = layers x fused steps) with one
+    fused step's routed layer held against the per-expert loop; the same
+    traffic under a dropless copy of the config, every token
+    teacher-forced against the plain forward; int8 in place, the traffic again on int8 weights; a QLoRA
     GRPO step on the int8 base (K2) under the dropless copy: at capacity
     factor 1.25 the engine's batches and the trainer's microbatches drop
     different assignments, so the first step's ratio would read that
@@ -6304,6 +6322,14 @@ PAR_SP_B, PAR_SP_S = 2, 4096
 PAR_SP_RMS_TOL = 2e-2
 # (f) expert parallel: one Qwen3-30B-A3B MoE layer, B x S tokens
 PAR_MOE_B, PAR_MOE_S = 4, 512
+# (f) the dp=2 moe_ffn's capacity factors: the config's, and one the
+# random router's loads overflow (drops present)
+PAR_MOE_DP_CAPACITY = (1.25, 1.0)
+# (f) timed forward + backward reps of the dp=2 moe_ffn (after a warm-up)
+PAR_MOE_DP_REPS = 3
+# (g) pipeline stages: pp=2 over the (b) batch, GPipe and 1F1B
+PAR_PP = 2
+PAR_PP_GPIPE_M, PAR_PP_1F1B_M = 2, 4
 PAR_COLLECTIVE_TIMEOUT_S = 300
 PAR_TIMEOUT_S = 900
 
@@ -6496,6 +6522,137 @@ def _par_train(torch, rank, seed):
         out[name] = row
         del state, grads, full_g, full_p
         torch.cuda.empty_cache()
+    out["pp"] = _par_pp(torch, rank, cfg, params, batch, ref)
+    return out
+
+
+def _pp_full(grads, mesh):
+    """A tree of pipeline stages' tensors, gathered over pp and unsplit:
+    (L, ...) layer tensors."""
+    from senweaver_ide_tpu_torch.parallel.pipeline import \
+        gather_pipeline_params
+    full = gather_pipeline_params(grads, mesh)
+    full["layers"] = {n: v.reshape((-1,) + tuple(v.shape[2:]))
+                      for n, v in full["layers"].items()}
+    return full
+
+
+def _stage_view(tree, layers):
+    """``tree`` with its layer tensors replaced by ``layers(tensor)``."""
+    return dict(tree, layers={n: layers(v) for n, v in tree["layers"].items()})
+
+
+def _stage_rel_rms(torch, got, want, first):
+    """``_rel_rms`` of one stage's trees (layers (L/K, ...), the
+    replicated tensors whole); per-layer names carry the global layer
+    index, ``first`` being the stage's first layer. Returns (pooled, the
+    four worst tensors)."""
+    import re
+    pooled, each = _rel_rms(torch, got, want)
+    named = {}
+    for k, v in each.items():
+        m = re.fullmatch(r"(layers/.+)\[(\d+)\]", k)
+        named[f"{m[1]}[{int(m[2]) + first}]" if m else k] = v
+    return pooled, sorted(named.items(), key=lambda kv: -kv[1])[:4]
+
+
+def _par_pp(torch, rank, cfg, params, batch, ref):
+    """(g) pp=2 on the (b) weights and batch: one GPipe step at M=2 and
+    one 1F1B step at M=4 (gradients, then the optimizer). Each rank holds
+    its own stage's gradients (and the replicated ones) to the one-rank
+    step's and 1F1B's to GPipe's, with no gather; K2's launches, step
+    seconds, bytes a tick, the send route and peak memory per
+    schedule."""
+    import torch.distributed as dist
+    from senweaver_ide_tpu_torch.parallel import make_named_mesh
+    from senweaver_ide_tpu_torch.parallel.comm import ROUTES
+    from senweaver_ide_tpu_torch.parallel.pipeline import (
+        place_pipeline_params, pp_gradients, split_layers_for_stages)
+    from senweaver_ide_tpu_torch.training import place_batch_for_mesh
+    from senweaver_ide_tpu_torch.training.trainer import (TrainState,
+                                                          clone_params,
+                                                          grpo_gradients,
+                                                          make_optimizer)
+    mesh = make_named_mesh({"pp": PAR_PP})
+    stage = mesh.coord("pp")
+    per = cfg.num_layers // PAR_PP
+    ref_s = None
+    if rank == 0:
+        want = ref["grads"]
+    else:
+        # this rank's copy of the one-rank step's gradients: the same
+        # deterministic computation as rank 0's (a recompute on the card
+        # rather than its stage's half, ~1.8 GB, sent over gloo, which
+        # stages CUDA tensors through the host)
+        t0 = time.perf_counter()
+        placed = place_batch_for_mesh(None, *batch, accum_steps=PAR_ACCUM,
+                                      device="cuda")
+        want, _ = grpo_gradients(params, cfg, *placed[:4],
+                                 accum_steps=PAR_ACCUM)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    want = _stage_view(want, lambda v: v[stage * per:(stage + 1) * per])
+    staged = place_pipeline_params(split_layers_for_stages(params, PAR_PP),
+                                   mesh)
+    out, kept = {}, {}
+    for schedule, m in (("gpipe", PAR_PP_GPIPE_M), ("1f1b", PAR_PP_1F1B_M)):
+        opt = make_optimizer(PAR_LR)
+        state = TrainState(params=clone_params(staged),
+                           opt_state=opt.init(staged), opt=opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _k2_reset()
+        dist.barrier()
+        t0 = time.perf_counter()
+        grads, met = pp_gradients(state.params, cfg, mesh, *batch,
+                                  n_microbatches=m, schedule=schedule)
+        opt.update(grads, state.opt_state, state.params, met["grad_norm"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        k2 = _k2_count()
+        fwd = per * m * (2 if schedule == "gpipe" or stage < PAR_PP - 1
+                         else 1)
+        k2_want = {"fwd": fwd, "dkdv": per * m, "dq": per * m}
+        _rcheck(k2 == k2_want, f"(g) {schedule} stage {stage}: K2 launches "
+                f"{k2} != {k2_want}")
+        mb, s = PAR_B // m, PAR_S - 1
+        row = {"metrics": _par_floats(met), "k2": k2, "step_s": step_s,
+               "microbatches": m,
+               "ticks": m + PAR_PP - 1 if schedule == "gpipe"
+               else m + 2 * PAR_PP - 1,
+               "tick_bytes": (1 if schedule == "gpipe" else 2) * mb * s
+               * cfg.hidden_size * 2,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "route": ROUTES.get("gloo/cuda/send_recv")}
+        kept[schedule] = _stage_view(grads, lambda v: v[0])
+        row["grad_rel_rms"], row["grad_worst"] = _stage_rel_rms(
+            torch, kept[schedule], want, stage * per)
+        _rcheck(row["grad_worst"][0][1] <= PAR_GRAD_TOL,
+                f"(g) {schedule} stage {stage}: gradient relative RMS per "
+                f"tensor, the worst {row['grad_worst']} > {PAR_GRAD_TOL}")
+        if rank == 0:
+            row["loss_rel"] = abs(row["metrics"]["loss"]
+                                  - ref["metrics"]["loss"]) / max(
+                abs(ref["metrics"]["loss"]), 1e-12)
+            _rcheck(row["loss_rel"] <= PAR_LOSS_RTOL,
+                    f"(g) {schedule}: loss {row['metrics']['loss']} vs one "
+                    f"rank {ref['metrics']['loss']}")
+        del state, grads
+        out[schedule] = row
+        torch.cuda.empty_cache()
+    pooled, worst = _stage_rel_rms(torch, kept["1f1b"], kept["gpipe"],
+                                   stage * per)
+    lrel = abs(out["1f1b"]["metrics"]["loss"]
+               - out["gpipe"]["metrics"]["loss"]) / max(
+        abs(out["gpipe"]["metrics"]["loss"]), 1e-12)
+    _rcheck(worst[0][1] <= PAR_GRAD_TOL and lrel <= PAR_LOSS_RTOL,
+            f"(g) 1f1b vs gpipe, stage {stage}: gradient worst {worst}, "
+            f"loss rel {lrel}")
+    out["1f1b_vs_gpipe"] = {"grad_rel_rms": pooled, "grad_worst": worst,
+                            "loss_rel": lrel}
+    out["ref_recompute_s"] = ref_s
+    del staged, kept, want
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6664,6 +6821,92 @@ def _par_moe(torch, rank, seed):
                 f"{mean_aux}")
         out[label] = {"max_abs_err": e, "ms": ms, "dense_ms": dense_ms,
                       "aux": float(aux)}
+    out["dp2"] = _par_moe_dp(torch, params, base, x)
+    return out
+
+
+def _par_moe_dp(torch, params, base, x):
+    """(f) moe_ffn on a dp=2 mesh, each rank its rows, against one rank's
+    moe_ffn over the whole batch: the outputs of its rows, the dropped
+    assignments and the aux loss (the routing of the global batch), at
+    capacity 1.25 and at 1.0 (the random router's loads overflow it)."""
+    import dataclasses
+    from senweaver_ide_tpu_torch.parallel import make_named_mesh, moe_ffn
+    from senweaver_ide_tpu_torch.parallel import expert
+    from senweaver_ide_tpu_torch.parallel.comm import all_reduce
+    mesh = make_named_mesh({"dp": 2})
+    c, n = mesh.coord("dp"), PAR_MOE_B // 2
+    xl = x[c * n:(c + 1) * n]
+    d, t = x.shape[-1], n * PAR_MOE_S
+    out = {}
+    for cf in PAR_MOE_DP_CAPACITY:
+        cfg = dataclasses.replace(base, capacity_factor=cf)
+        cap = expert._capacity(cfg, PAR_MOE_B * PAR_MOE_S)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        y, aux = moe_ffn(params, cfg, xl, mesh=mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref, ref_aux = moe_ffn(params, cfg, x)
+        mine = expert._route(cfg, params["router"], xl.reshape(-1, d), cap,
+                             mesh, rows=n)
+        one = expert._route(cfg, params["router"], x.reshape(-1, d), cap)
+        dropped = int(all_reduce((~mine.keep).sum(), mesh, "dp"))
+        one_dropped = int((~one.keep).sum())
+        picks = int((mine.expert_idx
+                     != one.expert_idx[c * t:(c + 1) * t]).any(-1).sum())
+        want = ref[c * n:(c + 1) * n].float()
+        diff = (y.float() - want).abs()
+        e = float(diff.max())
+        _rcheck(bool((diff <= MOE_LAYER_ATOL + MOE_LAYER_RTOL
+                      * want.abs()).all()),
+                f"(f) dp=2 moe_ffn at capacity {cf} vs one rank's moe_ffn "
+                f"over the batch: max err {e} ({picks} of this rank's "
+                f"tokens picked other experts)")
+        _rcheck(dropped == one_dropped,
+                f"(f) dp=2 at capacity {cf}: dropped {dropped} != one "
+                f"rank's {one_dropped}")
+        _rcheck(abs(float(aux) - float(ref_aux))
+                <= 1e-5 * max(1.0, abs(float(ref_aux))),
+                f"(f) dp=2 at capacity {cf}: aux {float(aux)} != one "
+                f"rank's {float(ref_aux)}")
+        out[cf] = {"max_abs_err": e, "ms": ms, "dropped": dropped,
+                   "one_dropped": one_dropped, "capacity": cap,
+                   "aux": float(aux), "one_aux": float(ref_aux),
+                   "other_picks": picks}
+    out["train_ms"] = _moe_dp_train_ms(
+        torch, params, dataclasses.replace(
+            base, capacity_factor=PAR_MOE_DP_CAPACITY[0]), xl, mesh)
+    return out
+
+
+def _moe_dp_train_ms(torch, params, cfg, xl, mesh):
+    """(f) one MoE layer's forward and backward on a dp=2 rank, ms (the
+    median of PAR_MOE_DP_REPS after a warm-up; both ranks share the
+    card): routed as the global batch (the buffer at the capacity of all
+    4 rows, every rank running every expert over it) and as this rank's
+    2 rows alone (``rows_split=False``: its own capacity, half the
+    buffer; how a rank routed before the routing became global)."""
+    from senweaver_ide_tpu_torch.parallel import moe_ffn
+    live = {k: v.detach().requires_grad_() for k, v in params.items()}
+    x = xl.detach().requires_grad_()
+    out = {}
+    for label, split in (("global", True), ("local", False)):
+        times = []
+        for _ in range(PAR_MOE_DP_REPS + 1):
+            for t in list(live.values()) + [x]:
+                t.grad = None
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            y, aux = moe_ffn(live, cfg, x, mesh=mesh, rows_split=split)
+            (y.float().square().mean() + aux).backward()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        times = sorted(times[1:])
+        out[label] = times[len(times) // 2]
+    del live, x
     return out
 
 
@@ -6926,6 +7169,48 @@ def phase_parallel(torch, cfg, seed, smi, tie_atol, timer):
             f"{f0['aux']:.4f}; {f0['ms']:.1f} / {f1['ms']:.1f} ms against "
             f"moe_ffn's {f0['dense_ms']:.1f} / {f1['dense_ms']:.1f} ms on the "
             f"same rows")
+    for cf in PAR_MOE_DP_CAPACITY:
+        f0, f1 = r0["f"]["dp2"][cf], r1["f"]["dp2"][cf]
+        log(f"[parallel] (f) dp=2 moe_ffn, {PAR_MOE_B // 2} rows a rank, "
+            f"capacity {cf} ({f0['capacity']} slots over the global "
+            f"{PAR_MOE_B} x {PAR_MOE_S}): max |dp=2 - one rank over the "
+            f"batch| {max(f0['max_abs_err'], f1['max_abs_err']):.3g}, "
+            f"dropped {f0['dropped']} = {f0['one_dropped']}, aux "
+            f"{f0['aux']:.6f} / {f0['one_aux']:.6f}; tokens picking other "
+            f"experts {f0['other_picks']} / {f1['other_picks']}; "
+            f"{f0['ms']:.1f} / {f1['ms']:.1f} ms (rank 0 / 1)")
+    t0_, t1_ = r0["f"]["dp2"]["train_ms"], r1["f"]["dp2"]["train_ms"]
+    log(f"[parallel] (f) dp=2 moe_ffn forward + backward a rank at capacity "
+        f"{PAR_MOE_DP_CAPACITY[0]} (median of {PAR_MOE_DP_REPS}, both ranks "
+        f"on the card): routed as the global batch {t0_['global']:.2f} / "
+        f"{t1_['global']:.2f} ms, as the rank's rows alone "
+        f"{t0_['local']:.2f} / {t1_['local']:.2f} ms (rank 0 / 1)")
+    g0, g1 = r0["b"]["pp"], r1["b"]["pp"]
+    for schedule in ("gpipe", "1f1b"):
+        a, b_ = g0[schedule], g1[schedule]
+        if a["metrics"] != b_["metrics"]:
+            fail(f"parallel (g) {schedule}: the ranks' metrics differ")
+        worst = sorted(a["grad_worst"] + b_["grad_worst"],
+                       key=lambda kv: -kv[1])[:4]
+        log(f"[parallel] (g) pp={PAR_PP} {schedule}, M={a['microbatches']} "
+            f"({a['ticks']} ticks, {cfg.num_layers // PAR_PP} layers a "
+            f"stage): loss {a['metrics']['loss']:.6f} (rel "
+            f"{a['loss_rel']:.3g}, tol {PAR_LOSS_RTOL}), grad_norm "
+            f"{a['metrics']['grad_norm']:.4f}, gradient relative RMS per "
+            f"tensor at most {worst[0][1]:.4g} (tol {PAR_GRAD_TOL}; the "
+            f"worst " + ", ".join(f"{n} {v:.4g}" for n, v in worst)
+            + f"), over each stage's tensors {a['grad_rel_rms']:.4g} / "
+            f"{b_['grad_rel_rms']:.4g}; step {a['step_s']:.2f} / "
+            f"{b_['step_s']:.2f} s (rank 0 / 1); K2 {a['k2']} / {b_['k2']}; "
+            f"{a['tick_bytes'] / 1e6:.2f} MB sent a tick, route "
+            f"{a['route']}; peak {a['peak_gb']:.2f} / {b_['peak_gb']:.2f} GB")
+    v0, v1 = g0["1f1b_vs_gpipe"], g1["1f1b_vs_gpipe"]
+    log(f"[parallel] (g) 1f1b vs gpipe: loss rel {v0['loss_rel']:.3g}, "
+        f"gradient relative RMS per tensor at most "
+        f"{max(v0['grad_worst'][0][1], v1['grad_worst'][0][1]):.4g} (over "
+        f"each stage's tensors {v0['grad_rel_rms']:.4g} / "
+        f"{v1['grad_rel_rms']:.4g}); rank 1's recompute of the one-rank "
+        f"gradients {g1['ref_recompute_s']:.2f} s")
     for r, res in enumerate(results):
         log(f"[parallel] rank {r}: peak {res['peak_gb']:.2f} GB; collectives "
             f"{res['routes']}; (b) {res['b_s']:.1f} s, (d) {res['d_s']:.1f} "
@@ -6934,6 +7219,10 @@ def phase_parallel(torch, cfg, seed, smi, tie_atol, timer):
     return {"k2": {k: {"tp2": b0["tp2"]["k2"][k],
                        "fsdp2": b0["fsdp2"]["k2"][k]}
                    for k in ("fwd", "dkdv", "dq")},
+            "k2_pp": {k: {f"{sched}_stage{r}": res["b"]["pp"][sched]["k2"][k]
+                          for sched in ("gpipe", "1f1b")
+                          for r, res in enumerate(results)}
+                      for k in ("fwd", "dkdv", "dq")},
             "k3": d0["k3"], "kern": kern}
 
 
@@ -7037,7 +7326,8 @@ def main(argv=None) -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    moe = phase_moe(torch, qwen3_30b_a3b(), args.seed, smi, timer)
+    moe = phase_moe(torch, dataclasses.replace(
+        qwen3_30b_a3b(), num_layers=MOE_LAYERS), args.seed, smi, timer)
     rep8 = moe["rep8"]
     kernels = []
     for variant, r in kern.items():
@@ -7138,6 +7428,7 @@ def main(argv=None) -> int:
             "launches_moe": moe["k2_serving"][kname],
             "launches_qlora": moe["k2"][kname],
             "launches_parallel": par["k2"][kname],
+            "launches_pp": par["k2_pp"][kname],
             "local_heads": par["kern"]["k2"][kname],
             "max_abs_err": max(r["max_abs_err"],
                                rep8[kname]["max_abs_err"],

@@ -9,7 +9,9 @@ full width and ``--layers`` deep (random bf16 weights from --seed), with
 attn_impl="flash" and remat, and the batch of chip_smoke.py's
 ``phase_parallel`` check (b): 4 x 1024, accum 2. Rank 0 takes the
 one-rank step (mesh=None); then both ranks take a tp=2, an fsdp=2 and a
-dp=2 step on the same weights and batch. Each mesh step's gathered
+dp=2 step on the same weights and batch, then pp=2 gradients with
+GPipe (M=2) and 1F1B (M=4) over the same batch (``parallel/pipeline.py``:
+the stages' sends are NCCL point-to-point). Each mesh step's gathered
 gradient is held per tensor (each layer's slice of a stacked one) to the
 one-rank step's within chip_smoke's PAR_GRAD_TOL relative RMS, its loss
 within PAR_LOSS_RTOL, and the ranks' metrics must be equal. A second step
@@ -47,7 +49,10 @@ def _rank(rank, port, args, conn):
                                                     tiny_test)
         from senweaver_ide_tpu_torch.parallel import (MeshConfig,
                                                       gather_params,
-                                                      make_mesh)
+                                                      make_mesh,
+                                                      make_named_mesh)
+        from senweaver_ide_tpu_torch.parallel.pipeline import (
+            place_pipeline_params, pp_gradients, split_layers_for_stages)
         from senweaver_ide_tpu_torch.parallel.comm import ROUTES
         from senweaver_ide_tpu_torch.parallel.distributed import (
             DistributedConfig, initialize, shutdown)
@@ -119,6 +124,30 @@ def _rank(rank, port, args, conn):
                     ref_m["loss"])) / max(abs(float(ref_m["loss"])), 1e-12)
             out[name] = row
             del state, grads, g2, full_g
+        mesh = make_named_mesh({"pp": RANKS})
+        staged = place_pipeline_params(split_layers_for_stages(params, RANKS),
+                                       mesh)
+        for name, schedule, m in (("pp2_gpipe", "gpipe", cs.PAR_PP_GPIPE_M),
+                                  ("pp2_1f1b", "1f1b", cs.PAR_PP_1F1B_M)):
+            grads, met = pp_gradients(staged, cfg, mesh, *batch,
+                                      n_microbatches=m, schedule=schedule)
+            full_g = cs._pp_full(grads, mesh)
+            sync()
+            t0 = time.perf_counter()
+            pp_gradients(staged, cfg, mesh, *batch, n_microbatches=m,
+                         schedule=schedule)
+            sync()
+            row = {"metrics": cs._par_floats(met),
+                   "step_s": time.perf_counter() - t0}
+            if rank == 0:
+                pooled, each = cs._rel_rms(torch, full_g, ref_g)
+                row["grad_rel_rms"] = pooled
+                row["grad_worst"] = sorted(each.items(),
+                                           key=lambda kv: -kv[1])[:4]
+                row["loss_rel"] = abs(row["metrics"]["loss"] - float(
+                    ref_m["loss"])) / max(abs(float(ref_m["loss"])), 1e-12)
+            out[name] = row
+            del grads, full_g
         out["routes"] = dict(ROUTES)
         shutdown()
         conn.send(("ok", out))
@@ -186,7 +215,7 @@ def main(argv=None) -> int:
         return 1
     r0, r1 = results
     bad = []
-    for name in ("tp2", "fsdp2", "dp2"):
+    for name in ("tp2", "fsdp2", "dp2", "pp2_gpipe", "pp2_1f1b"):
         row = r0[name]
         if row["metrics"] != r1[name]["metrics"]:
             bad.append(f"{name}: the ranks' metrics differ")

@@ -42,7 +42,9 @@ the attention kernels take as they are), wo and w_down row-parallel with
 an all-reduce, the embedding vocab-parallel, the head's logits
 vocab-sharded (:func:`vocab_parallel_logprobs` reduces them), the
 sequence split over ``sp`` (ring or Ulysses attention, or K/V gathered
-for einsum/flash) and MoE experts over ``ep``.
+for einsum/flash), MoE experts over ``ep`` and each MoE layer routing
+the global batch over the data axes. Pipeline stages over ``pp`` run
+this module's layer function from ``parallel/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -261,16 +263,21 @@ def tp_local_config(config: ModelConfig, tp: int) -> ModelConfig:
 
 class _MeshCtx:
     """One forward's view of the mesh: the local config, which dims to
-    all-gather over fsdp, and the tp/sp coordinates."""
+    all-gather over fsdp, the tp/sp coordinates, and whether the rows are
+    this rank's part of the batch over the data axes (``rows_split``: the
+    no-cache forward) or the whole batch replicated over them (the cache
+    forward)."""
 
     def __init__(self, mesh, config: ModelConfig, params: Params, *,
-                 gather_fsdp: bool = True):
+                 gather_fsdp: bool = True, rows_split: bool = True):
         from ..parallel.sharding import restrict_spec, spec_for_path
         if mesh.shape.get("pp", 1) > 1:
             raise NotImplementedError(
-                "pipeline stages (a 'pp' axis) arrive with the slice that "
-                "ports parallel/pipeline.py")
+                "forward(mesh=) does not run pipeline stages (a 'pp' "
+                "axis): use parallel.pipeline (pipeline_forward, "
+                "pp_train_step)")
         self.mesh = mesh
+        self.rows_split = rows_split
         self.tp = mesh.axis_size("tp")
         self.tp_idx = mesh.coord("tp")
         self.sp = mesh.axis_size("sp")
@@ -514,7 +521,8 @@ def _mlp(c: ModelConfig, lp: Dict[str, torch.Tensor],
                             dtype=c.dtype)
         out, aux = moe_ffn({n: lp[n] for n in _MOE_KEYS if n in lp},
                            moe_cfg, h,
-                           mesh=None if ctx is None else ctx.mesh)
+                           mesh=None if ctx is None else ctx.mesh,
+                           rows_split=ctx is not None and ctx.rows_split)
         return x + out, aux
     h = _tp_in(h, ctx)
     gate = _dense(h, lp, "w_gate")
@@ -837,7 +845,8 @@ def forward(params: Params, config: ModelConfig, tokens: torch.Tensor, *,
     logits its (B_local, S_local, V/tp) block of JAX's global logits.
     The cache forward on a mesh is the tensor-parallel serving path: the
     params are sharded over tp alone, the cache holds this rank's KV
-    heads (``tp_local_config``), rows are replicated, and the logits are
+    heads (``tp_local_config``), rows are replicated (an MoE layer routes
+    them as one batch, as one rank would), and the logits are
     all-gathered over tp to the full vocabulary for sampling.
 
     ``logits_at`` (cache forward only; an int or a (B,) tensor of
@@ -848,7 +857,8 @@ def forward(params: Params, config: ModelConfig, tokens: torch.Tensor, *,
     b, s = tokens.shape
     ctx = None
     if mesh is not None:
-        ctx = _MeshCtx(mesh, config, params, gather_fsdp=cache is None)
+        ctx = _MeshCtx(mesh, config, params, gather_fsdp=cache is None,
+                       rows_split=cache is None)
         if cache is not None and ctx.sp > 1:
             raise ValueError("the cache forward does not split the "
                              "sequence over sp")

@@ -4,8 +4,8 @@ Meshes of ranks with JAX's axis names (``mesh``, ``distributed``), the
 Megatron/FSDP sharding tables and per-rank shards (``sharding``), the
 collectives and their autograd pairs (``comm``), ring and Ulysses
 sequence parallelism (``ring_attention``) and the routed MoE FFN with its
-expert-parallel path (``expert``). Pipeline stages are not ported yet:
-their names raise ``NotImplementedError``.
+expert-parallel path (``expert``), and pipeline stages over a 'pp' axis,
+GPipe and 1F1B (``pipeline``).
 """
 
 from .distributed import (AXIS_ORDER, DistributedConfig, initialize,
@@ -13,30 +13,16 @@ from .distributed import (AXIS_ORDER, DistributedConfig, initialize,
 from .expert import MoEConfig, init_moe_params, moe_ffn, moe_ffn_sharded
 from .mesh import (AXES, Mesh, MeshConfig, data_sharding, make_hybrid_mesh,
                    make_mesh, replicated, single_device_mesh)
+from .pipeline import (make_pp_train_state, pipeline_forward,
+                       pipeline_train_grads_1f1b, place_pipeline_params,
+                       pp_train_step, split_layers_for_stages,
+                       stage_param_specs)
 from .ring_attention import (chunk_attention_lse, make_ring_attention,
                              make_ulysses_attention, merge_partials,
                              ring_attention, ulysses_attention)
 from .sharding import (ACT_SPEC, KV_CACHE_SPEC, LOGITS_SPEC, PARAM_SPECS,
                        gather_params, param_shardings, param_specs,
                        shard_params)
-
-
-def _pipeline_not_ported(name: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: pipeline stages (parallel/pipeline.py, GPipe and "
-            f"1F1B) arrive with the slice of the PyTorch port that ports "
-            f"them")
-    refuse.__name__ = name
-    return refuse
-
-
-make_pp_train_state = _pipeline_not_ported("make_pp_train_state")
-pipeline_forward = _pipeline_not_ported("pipeline_forward")
-place_pipeline_params = _pipeline_not_ported("place_pipeline_params")
-pp_train_step = _pipeline_not_ported("pp_train_step")
-split_layers_for_stages = _pipeline_not_ported("split_layers_for_stages")
-stage_param_specs = _pipeline_not_ported("stage_param_specs")
 
 __all__ = [
     "ACT_SPEC", "AXES", "AXIS_ORDER", "DistributedConfig", "KV_CACHE_SPEC",
@@ -45,8 +31,8 @@ __all__ = [
     "init_moe_params", "make_hybrid_mesh", "make_mesh", "make_named_mesh",
     "make_pp_train_state", "make_ring_attention", "make_ulysses_attention",
     "merge_partials", "moe_ffn", "moe_ffn_sharded", "param_shardings",
-    "param_specs", "pipeline_forward", "place_pipeline_params",
-    "pp_train_step", "replicated", "ring_attention", "shard_params",
-    "single_device_mesh", "split_layers_for_stages", "stage_param_specs",
-    "ulysses_attention",
+    "param_specs", "pipeline_forward", "pipeline_train_grads_1f1b",
+    "place_pipeline_params", "pp_train_step", "replicated",
+    "ring_attention", "shard_params", "single_device_mesh",
+    "split_layers_for_stages", "stage_param_specs", "ulysses_attention",
 ]

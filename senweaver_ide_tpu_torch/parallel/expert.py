@@ -6,8 +6,10 @@ dispatch (capacity = ceil(tokens/E · capacity_factor · top_k)); an
 assignment past its expert's capacity falls through with zero
 contribution, and the gates are renormalised over the selected k before
 any drop. Earlier tokens of the flat batch win capacity slots, so the
-output of a token depends on the batch it ran in. The aux load-balancing
-loss is the Switch formulation, E · Σ_e f_e · p_e.
+output of a token depends on the batch it ran in; on a mesh that batch
+is the global one, as in the JAX version, whatever the data ranks
+(:func:`_route`). The aux load-balancing loss is the Switch formulation,
+E · Σ_e f_e · p_e.
 
 The JAX version builds one-hot ``(T, E, C)`` dispatch and combine
 tensors and contracts them with einsums. Here the kept assignments are
@@ -31,8 +33,12 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from ..device import resolve_device
+from .mesh import DATA_AXES
 
 MoEParams = Dict[str, torch.Tensor]
+# the axes whose ranks hold different tokens of the batch: rows over the
+# data axes, the sequence over sp
+TOKEN_AXES = DATA_AXES + ("sp",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,28 +85,61 @@ class Routing(NamedTuple):
     aux: torch.Tensor          # () fp32 Switch load-balance loss
 
 
+def _positions(expert_idx: torch.Tensor, num_experts: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slot of each (token, k) in its expert's buffer, assignments per
+    expert) for ``expert_idx`` (T, k) in batch order: the slot is the
+    count of earlier assignments to the same expert, token-major then k.
+    The one-hot is scattered: F.one_hot checks its indices on the host, a
+    device sync in every layer."""
+    T, k = expert_idx.shape
+    idx = expert_idx.reshape(T * k, 1)
+    flat = torch.zeros((T * k, num_experts), dtype=torch.int32,
+                       device=idx.device)
+    flat.scatter_(1, idx, 1)
+    before = torch.cumsum(flat, dim=0, dtype=torch.int32) - flat
+    pos = before.gather(1, idx).reshape(T, k).long()
+    return pos, flat.sum(0)
+
+
 def _route(cfg: MoEConfig, router: torch.Tensor, x_flat: torch.Tensor,
-           capacity: int) -> Routing:
-    """x_flat (T, D) → routing. The router runs in fp32."""
+           capacity: int, mesh=None, rows: int = 1) -> Routing:
+    """x_flat (T, D) → routing. The router runs in fp32.
+
+    With a ``mesh`` whose data axes (dp, fsdp, sp) span several ranks,
+    ``x_flat`` is this rank's ``rows`` rows of its sequence chunk and the
+    routing is the one-rank routing of the global batch, restricted to
+    these tokens: the (T, k) expert picks are gathered over the data axes
+    into the global flat (B, S) order, slots are counted over every
+    token, and the aux loss is taken from the global per-expert counts
+    and probability sums (the latter summed with an identity backward:
+    each rank's router gradient is its own tokens' part)."""
     T, E, k = x_flat.shape[0], cfg.num_experts, cfg.top_k
     logits = x_flat.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)                   # (T, E)
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1)    # (T, k)
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(-1, keepdim=True), 1e-9)
-    # slot of each (token, k) in its expert's buffer: the count of earlier
-    # assignments to the same expert, token-major then k. The one-hot is
-    # scattered: F.one_hot checks its indices on the host, a device sync
-    # in every layer.
-    idx = expert_idx.reshape(T * k, 1)
-    flat = torch.zeros((T * k, E), dtype=torch.int32, device=idx.device)
-    flat.scatter_(1, idx, 1)
-    before = torch.cumsum(flat, dim=0, dtype=torch.int32) - flat
-    pos = before.gather(1, idx).reshape(T, k).long()
-    keep = pos < capacity
-    frac = flat.view(T, k, E).sum(1).float().mean(0)        # (E,)
-    aux = (frac * probs.mean(0)).sum() * E
-    return Routing(gate_vals, expert_idx, pos, keep, aux)
+    if mesh is None or mesh.axis_size(TOKEN_AXES) == 1:
+        pos, counts = _positions(expert_idx, E)
+        frac = counts.float() / T                           # (E,)
+        aux = (frac * probs.mean(0)).sum() * E
+        return Routing(gate_vals, expert_idx, pos, pos < capacity, aux)
+    from .comm import gather_grid, reduce_from
+    s = T // rows
+    picks = gather_grid(expert_idx.view(rows, s, k), mesh, DATA_AXES,
+                        ("sp",), 0, 1)                      # (B, S, k)
+    n_rows, n_cols = picks.shape[:2]
+    pos_all, counts = _positions(picks.reshape(n_rows * n_cols, k), E)
+    dev = x_flat.device
+    r0, c0 = mesh.coord(DATA_AXES) * rows, mesh.coord("sp") * s
+    mine = ((r0 + torch.arange(rows, device=dev))[:, None] * n_cols
+            + c0 + torch.arange(s, device=dev)[None, :]).reshape(-1)
+    pos = pos_all[mine]
+    n = n_rows * n_cols
+    prob_sum = reduce_from(probs.sum(0), mesh, TOKEN_AXES)
+    aux = ((counts.float() / n) * (prob_sum / n)).sum() * E
+    return Routing(gate_vals, expert_idx, pos, pos < capacity, aux)
 
 
 def _expert_ffn(w_gate, w_up, w_down, h):
@@ -168,22 +207,32 @@ def _combine(out: torch.Tensor, slot: torch.Tensor, r: Routing
 
 
 def moe_ffn(params: MoEParams, cfg: MoEConfig, x: torch.Tensor, *,
-            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            mesh=None, rows_split: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) → (out (B, S, D), aux loss). The capacity counts every
     row of the flat B·S batch, padding included.
 
     With a ``mesh`` (the model's forward on a mesh), ``x`` is replicated
     over ``ep`` and ``tp``, the banks are this rank's local shards (E/ep
-    experts, F/tp columns) and the result equals the one-device result:
-    every rank routes every token alike, runs its own experts on the
-    buffer (sums over tp), and the expert outputs are all-gathered over
-    ep before the combine."""
+    experts, F/tp columns), and the result is this rank's block of the
+    one-device result: each rank dispatches its own tokens, runs its own
+    experts on the buffer (sums over tp), and the expert outputs are
+    all-gathered over ep before the combine. ``rows_split`` says what
+    ``x`` is over the data axes. True (the no-cache forward, the
+    trainer's): this rank's rows and sequence chunk of the global batch
+    over dp, fsdp and sp, routed as the GLOBAL batch: the capacity, the
+    slots, the drops and the aux loss count every token of every data
+    rank (:func:`_route`), and the buffer has the global capacity. False
+    (the cache forward, the engine's): the whole batch, replicated over
+    the data axes, which every rank routes alike."""
     from .comm import copy_to, gather_grid, reduce_from
     b, s, d = x.shape
     t, E = b * s, cfg.num_experts
     x_flat = x.reshape(t, d)
-    C = _capacity(cfg, t)
-    r = _route(cfg, params["router"], x_flat, C)
+    data = mesh if rows_split else None
+    n_data = 1 if data is None else data.axis_size(TOKEN_AXES)
+    C = _capacity(cfg, t * n_data)
+    r = _route(cfg, params["router"], x_flat, C, data, rows=b)
     n_local = params["w_gate"].shape[0]
     split = mesh is not None and n_local < E
     # the expert path's input: its gradient sums over the ranks whose

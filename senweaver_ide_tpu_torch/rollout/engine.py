@@ -218,10 +218,12 @@ class _DraftMetricsView:
         return name.replace("senweaver_kv_", "senweaver_spec_draft_kv_")
 
     def gauge(self, name, desc=""):
-        return self._registry.gauge(self._rename(name), desc)
+        return self._registry.gauge(     # metric-name: senweaver_spec_draft_kv_*
+            self._rename(name), desc)
 
     def counter(self, name, desc=""):
-        return self._registry.counter(self._rename(name), desc)
+        return self._registry.counter(   # metric-name: senweaver_spec_draft_kv_*
+            self._rename(name), desc)
 
 
 @dataclasses.dataclass
@@ -658,6 +660,11 @@ class RolloutEngine:
                                        device=self.device)
         else:
             self._init_paged(ec)
+            # host-side block table + fill level + decode cursor per row
+            self._tables: List[List[int]] = [[] for _ in range(num_slots)]  # guarded-by: _lock
+            self._row_len: List[int] = [0] * num_slots  # guarded-by: _lock
+            self._cur_tok_host: List[int] = [0] * num_slots  # guarded-by: _lock
+            self._prefill_jobs: Dict[int, _PrefillJob] = {}  # guarded-by: _lock
         self._slot_req: List[Optional[_Request]] = [None] * num_slots  # guarded-by: _lock
         # rid holding each slot's KV across turns (hold_slot), or None
         self._slot_held: List[Optional[int]] = [None] * num_slots  # guarded-by: _lock
@@ -755,7 +762,8 @@ class RolloutEngine:
                 if self.mesh is not None else (tok, logp))
 
     def _init_paged(self, ec: EngineConfig) -> None:
-        """The block pool, its allocator and the host-side row state."""
+        """The block pool, its allocator, the step's token budget and the
+        attention path (the host-side row state is set in ``__init__``)."""
         num_slots, max_len = self.num_slots, self.max_len
         bs = max(1, int(ec.block_size))
         self._blocks_per_row = -(-max_len // bs)
@@ -773,11 +781,6 @@ class RolloutEngine:
             "senweaver_kv_preemption_storms_total",
             "Requests preempted EngineConfig.max_preempts times and "
             "latched non-preemptible (starvation guard).")
-        # host-side block table + fill level + decode cursor per row
-        self._tables: List[List[int]] = [[] for _ in range(num_slots)]  # guarded-by: _lock
-        self._row_len: List[int] = [0] * num_slots  # guarded-by: _lock
-        self._cur_tok_host: List[int] = [0] * num_slots  # guarded-by: _lock
-        self._prefill_jobs: Dict[int, _PrefillJob] = {}  # guarded-by: _lock
         st = ec.step_tokens
         self._step_tokens = max(
             num_slots, int(st) if st else max(4 * num_slots, 64))
@@ -1985,7 +1988,7 @@ class RolloutEngine:
             self._use_paged_kernel)
         sp.propose_forwards += k
         props = profiled_device_get(props_dev,
-                                    fn="engine.spec_propose").tolist()
+                                    fn="engine.spec_propose").numpy()
         plan = {}
         for i, row in enumerate(rows):
             plan[row] = [int(x) for x in props[i]]
@@ -2637,8 +2640,8 @@ class RolloutEngine:
         # token ids (< 2**24) and f32 log-probs are both exact in f64
         host = profiled_device_get(
             torch.stack([next_tok.double(), logp.double()]),
-            fn="engine.fused_step")
-        return [int(x) for x in host[0].tolist()], host[1].tolist()
+            fn="engine.fused_step").numpy()
+        return [int(x) for x in host[0]], [float(x) for x in host[1]]
 
     def _step_paged(self) -> Dict[int, List[int]]:
         # guarded-by: caller
@@ -2827,11 +2830,12 @@ class RolloutEngine:
             host = profiled_device_get(
                 torch.stack([next_tok.double(), logp.double(),
                              self.cache.length.double()]),
-                fn="engine.decode_step")
+                fn="engine.decode_step").numpy()
         if tracer.enabled:
             self._count_step(sum(active_list))
-        toks = [int(x) for x in host[0].tolist()]
-        logps, lengths = host[1].tolist(), host[2].tolist()
+        toks = [int(x) for x in host[0]]
+        logps = [float(x) for x in host[1]]
+        lengths = [float(x) for x in host[2]]
         for slot, req in enumerate(self._slot_req):
             if req is None:
                 continue

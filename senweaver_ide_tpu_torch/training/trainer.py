@@ -42,9 +42,10 @@ over the data axes (dp, fsdp, sp; fsdp-sharded weights already were, by
 their gather's reduce-scatter) and, for replicated tensors that the
 forward applies to tp-split activations (q/k norms, LoRA factors), over
 tp. The global gradient norm sums each shard's squares over the axes it
-is split on. With MoE on data axes each rank routes its own rows (the
-capacity counts the local batch) and the load-balance loss is averaged
-over the data ranks.
+is split on. MoE layers route the global batch of each microbatch
+(``parallel/expert.py``): every rank computes the same load-balance loss,
+and its gradient reaches each rank's router through that rank's tokens
+alone, so the sum over the data axes counts it once.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ from ..models.config import ModelConfig
 from ..models.transformer import (Params, forward, init_params,
                                   vocab_parallel_logprobs)
 from ..obs.runtime_profile import ProfiledFunction
-from ..parallel.comm import all_gather, all_reduce, gather_grid, reduce_from
+from ..parallel.comm import all_gather, all_reduce, gather_grid
 from ..parallel.mesh import DATA_AXES, Mesh
 from ..parallel.sharding import (restrict_spec, shard_params, spec_axes,
                                  spec_for_path)
@@ -370,7 +371,6 @@ def grpo_gradients(params: Params, config: ModelConfig,
                                          mesh=mesh)
             logp = lay.grid(vocab_parallel_logprobs(
                 logits, targets[sl_local], mesh), grad=True)
-            moe_aux = lay.mean(moe_aux)
         olp = old_logp[sl] if old_logp is not None else logp.detach()
         loss, metrics = grpo_objective(
             logp, olp, adv[sl], tgt_mask[sl], grpo_config,
@@ -437,13 +437,6 @@ class _Layout:
             return x
         full = gather_grid(x, self.mesh, DATA_AXES, ("sp",), 0, 1)
         return full if grad else self._interleave(full)
-
-    def mean(self, aux: torch.Tensor) -> torch.Tensor:
-        """A per-rank scalar averaged over the data ranks (sp included)."""
-        n = self.mesh.axis_size(DATA_AXES + ("sp",))
-        if n == 1:
-            return aux
-        return reduce_from(aux, self.mesh, DATA_AXES + ("sp",)) / n
 
 
 # replicated tensors the forward applies to tp-split activations

@@ -56,6 +56,11 @@ COPIES = (
     "services/dashboard", "services/__init__",
     "editor/diff_zones", "editor/edit_prediction", "editor/__init__",
     "tools/search_engines", "rewards/reference_impl",
+    # the static-analysis gate: pure AST and threading, pointed at the
+    # port by the name swap (its package root and lock-order scope)
+    "analysis/__init__", "analysis/__main__", "analysis/findings",
+    "analysis/jit_lint", "analysis/lock_lint", "analysis/lock_order",
+    "analysis/metric_lint", "analysis/resource_lint", "analysis/rpc_lint",
     # the native sources, held to the repo's native/ (a ``.cpp`` entry
     # names the file itself)
     "native/trace_ring.cpp", "native/senweaver_ctl.cpp",

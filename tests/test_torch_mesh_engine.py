@@ -1,9 +1,9 @@
 """The port's tensor-parallel engine (``RolloutEngine(mesh=)``) against
 the JAX package's mesh engine and the port's own one-rank slot engine:
 greedy streams token for token with their log-probs, on a tp=2 mesh
-(tests/test_engine.py:167) and on a dp2/fsdp2/tp2 mesh over int8
-weights (tests/test_weight_quant.py:141), through ``update_params`` and
-a registered prefix.
+(tests/test_engine.py:167), on a dp2/fsdp2/tp2 mesh over int8 weights
+(tests/test_weight_quant.py:141), through ``update_params`` and a
+registered prefix, and with MoE layers on a dp2/tp2 mesh.
 
 The port's ranks run in a pool of gloo processes (``torch_mesh_pool``);
 JAX runs here on the 8 virtual CPU devices of ``conftest.py``."""
@@ -20,6 +20,7 @@ from senweaver_ide_tpu.models.quantize import quantize_weights_int8
 from senweaver_ide_tpu.parallel import MeshConfig as JMeshConfig
 from senweaver_ide_tpu.parallel import make_mesh as jmake_mesh
 from senweaver_ide_tpu.parallel import make_named_mesh as jnamed
+from senweaver_ide_tpu.rollout import EngineConfig as JaxEngineConfig
 from senweaver_ide_tpu.rollout import RolloutEngine as JaxEngine
 from senweaver_ide_tpu.rollout.sampler import SampleParams as JaxSample
 from senweaver_ide_tpu_torch.models import params_from_numpy
@@ -172,3 +173,30 @@ def test_dp_fsdp_tp_quantized_engine(pool, tied):
         _same_streams(o["first"], tfirst)
         _same_streams(o["second"], jsecond)
         _same_streams(o["second"], tsecond)
+
+
+def test_moe_engine_on_data_axes_routes_its_whole_batch(pool):
+    """tiny-moe-test (capacity 1.25: assignments dropped) on a dp2/tp2
+    mesh: the slots are replicated over dp, so each MoE layer routes the
+    engine's whole batch with its own capacity, as the one-rank engine
+    does. Every rank's greedy streams and log-probs equal JAX's slot
+    engine's and the port's one-rank slot engine's."""
+    cfg = jget_config("tiny-moe-test")
+    params = jax_init_params(cfg, jax.random.PRNGKey(0))
+    jeng = JaxEngine(params, cfg, num_slots=4, max_len=64, seed=3,
+                     sample=JaxSample(0.0, 0, 1.0),
+                     engine_config=JaxEngineConfig(kv_layout="slots"))
+    rids = [jeng.submit(p, max_new_tokens=8) for p in PROMPTS]
+    jeng.run()
+    jfirst = [(jeng.result(r), jeng.result_logps(r)) for r in rids]
+    tfirst, _ = _port_slot_streams(
+        params_from_numpy(_np(params), device="cpu"),
+        tconfig.tiny_moe_test(), PROMPTS, 8)
+    _same_streams(tfirst, jfirst)
+    outs = pool.run(tmp.sc_engine, _np(params), "tiny-moe-test", "mesh",
+                    {"dp": 2, "tp": 2}, PROMPTS, 8)
+    for o in outs[:4]:
+        assert o["layout"] == ("slots", "tensor-parallel KV sharding")
+        assert o["first"] == outs[0]["first"]
+        _same_streams(o["first"], jfirst)
+    assert outs[4:] == [None] * 4

@@ -92,13 +92,20 @@ def _jmesh(kind, sizes):
 
 
 def _jax_steps(cfg, params, kind, sizes, batch, accum, steps=1,
-               lora=None):
-    """JAX's step(s) on its mesh, from its own padded placement."""
+               lora=None, sgd=False):
+    """JAX's step(s) on its mesh, from its own padded placement; with
+    ``sgd`` the update is params − grads (optax.sgd(1.0)), so the
+    gradients are the difference."""
     mesh = _jmesh(kind, sizes)
     toks, mask, rew, gids, _ = jdata.place_batch_for_mesh(
         mesh, batch["tokens"], batch["mask"], batch["rewards"],
         batch["group_ids"], accum_steps=accum)
-    if lora is None:
+    if sgd:
+        import optax
+        opt = optax.sgd(1.0)
+        state = jtr.TrainState(params=params, opt_state=opt.init(params),
+                               step=jnp.zeros((), jnp.int32), opt=opt)
+    elif lora is None:
         state = jtr.make_train_state(cfg, None, mesh, params=params,
                                      learning_rate=LR)
     else:
@@ -152,11 +159,18 @@ def _close_tree(got_np, want, atol=PARAM_ATOL):
                                    atol=atol, err_msg=str(path))
 
 
+# the MoE case's gradients against JAX's: fp32 sums through two
+# frameworks (the metrics' bound), and JAX's read back as params − params
+# after one sgd(1.0) step, exact to the params' fp32 rounding (~1e-8)
+GRAD_ATOL = GRAD_RTOL = 1e-5
+
+
 @pytest.mark.parametrize("kind,sizes,accum,over", [
     ("mesh", {"dp": 2, "fsdp": 2}, 2, {"remat": True}),
     ("mesh", {"tp": 2}, 1, {}),
     ("hybrid", {"dp": 2, "fsdp": 2, "tp": 2}, 2, {}),
     ("mesh", {"sp": 2}, 1, {"attn_impl": "ring", "remat": True}),
+    ("mesh", {"dp": 2}, 1, {"config": "tiny-moe-test"}),
 ])
 def test_mesh_train_step_matches_jax_and_unsharded(pool, kind, sizes,
                                                    accum, over):
@@ -164,18 +178,25 @@ def test_mesh_train_step_matches_jax_and_unsharded(pool, kind, sizes,
     rank and within the bound of JAX's step on the same mesh and of the
     port's mesh=None step; the gathered params after the step within
     Adam's sign-step bound of both (tests/test_accum_hybrid.py:94, :175;
-    the sp mesh pads S−1 to a multiple of 2)."""
-    jcfg = dataclasses.replace(jax_tiny_test(), **over)
+    the sp mesh pads S−1 to a multiple of 2). The tiny-moe-test case on
+    dp=2 routes the global batch (capacity 1.25, drops present): its
+    metrics include ``moe_aux``, and every gradient tensor is held
+    against JAX's (JAX's step there is sgd(1.0), so its params are held
+    to the port's mesh=None step alone)."""
+    over = dict(over)
+    name = over.pop("config", "tiny-test")
+    moe = name != "tiny-test"
+    jcfg = dataclasses.replace(jget_config(name), **over)
     params = jax_init_params(jcfg, jax.random.PRNGKey(2))
     batch = _batch()
     jstate, jhist, placed = _jax_steps(jcfg, params, kind, sizes, batch,
-                                       accum)
+                                       accum, sgd=moe)
     # one rank attends the whole sequence: the ring's function is einsum's
-    tcfg = dataclasses.replace(tconfig.tiny_test(), **dict(
+    tcfg = dataclasses.replace(tmp.config(name), **dict(
         over, attn_impl="einsum"))
     nstate, nhist = _port_none_steps(tcfg, _np(params), placed, accum)
-    outs = pool.run(tmp.sc_train, _np(params), "tiny-test", over, kind,
-                    sizes, batch, accum=accum)
+    outs = pool.run(tmp.sc_train, _np(params), name, over, kind,
+                    sizes, batch, accum=accum, grads=moe)
     members = [o for o in outs if o is not None]
     assert len(members) == int(np.prod(list(sizes.values())))
     for o in members:
@@ -183,7 +204,17 @@ def test_mesh_train_step_matches_jax_and_unsharded(pool, kind, sizes,
     got = members[0]["metrics"][0]
     _close_metrics(got, jhist[0])
     _close_metrics(got, nhist[0])
-    _close_tree(outs[0]["params"], _np(jstate.params))
+    if moe:
+        want = jax.tree_util.tree_map(lambda a, b: np.asarray(a - b),
+                                      _np(params), _np(jstate.params))
+        for path, leaf in jax.tree_util.tree_leaves_with_path(want):
+            node = outs[0]["grads"]
+            for p in path:
+                node = node[p.key]
+            np.testing.assert_allclose(node, leaf, atol=GRAD_ATOL,
+                                       rtol=GRAD_RTOL, err_msg=str(path))
+    else:
+        _close_tree(outs[0]["params"], _np(jstate.params))
     _close_tree(outs[0]["params"], {k: (v if not isinstance(v, dict) else
                                         {kk: vv.numpy() for kk, vv in
                                          v.items()})

@@ -246,8 +246,8 @@ def test_out_of_slice_paths_raise(weights):
     as JAX does, with JAX's logits), and so are MoE layers and int8
     weights (tests/test_torch_moe.py, tests/test_torch_quantize.py), and
     the parallel layouts (tests/test_torch_parallel.py): ring attention
-    without an 'sp' mesh raises JAX's error, and only the pipeline names
-    still raise, naming their slice."""
+    without an 'sp' mesh raises JAX's error, and the pipeline split
+    refuses int8 and LoRA params with JAX's TypeErrors."""
     jparams, jcfg, tparams, tcfg = weights
     toks = np.array([[3, 1, 4, 1, 5]], np.int32)
     jl, jc = jax_tf.forward(jparams, jcfg, jnp.asarray(toks),
@@ -260,9 +260,23 @@ def test_out_of_slice_paths_raise(weights):
     with pytest.raises(ValueError, match="'sp' axis"):
         t_tf.forward(tparams, dataclasses.replace(tcfg, attn_impl="ring"),
                      torch.zeros(1, 2, dtype=torch.long))
-    from senweaver_ide_tpu_torch.parallel import pipeline_forward
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        pipeline_forward(tparams, tcfg, torch.zeros(1, 2, dtype=torch.long))
+    # pipeline stages refuse int8 and LoRA leaves with JAX's TypeErrors
+    from senweaver_ide_tpu.models.quantize import \
+        quantize_weights_int8 as jquantize
+    from senweaver_ide_tpu.parallel import split_layers_for_stages as jsplit
+    from senweaver_ide_tpu_torch.models.quantize import quantize_weights_int8
+    from senweaver_ide_tpu_torch.parallel import split_layers_for_stages
+    lora_j = dict(jparams, layers=dict(jparams["layers"],
+                                       wq_lora_a=jparams["layers"]["wq"]))
+    lora_t = dict(tparams, layers=dict(tparams["layers"],
+                                       wq_lora_a=tparams["layers"]["wq"]))
+    for jtree, ttree in ((jquantize(jparams), quantize_weights_int8(tparams)),
+                         (lora_j, lora_t)):
+        with pytest.raises(TypeError) as want:
+            jsplit(jtree, 2)
+        with pytest.raises(TypeError) as got:
+            split_layers_for_stages(ttree, 2)
+        assert str(got.value) == str(want.value)
     moe = t_tf.init_params(t_config.tiny_moe_test(), torch.Generator(),
                            device="cpu")
     assert tuple(moe["layers"]["w_gate"].shape) == (2, 4, 64, 128)

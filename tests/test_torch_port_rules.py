@@ -128,7 +128,12 @@ PORTED_MODULES = ("rollout/speculative", "rollout/spec_controller",
                   "tools/__init__", "tools/search_engines",
                   "rewards/reference_impl", "parallel/mesh",
                   "parallel/comm", "parallel/sharding",
-                  "parallel/distributed", "parallel/ring_attention")
+                  "parallel/distributed", "parallel/ring_attention",
+                  "parallel/pipeline", "analysis/__init__",
+                  "analysis/__main__", "analysis/findings",
+                  "analysis/jit_lint", "analysis/lock_lint",
+                  "analysis/lock_order", "analysis/metric_lint",
+                  "analysis/resource_lint", "analysis/rpc_lint")
 
 
 @pytest.mark.parametrize("module", PORTED_MODULES)

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from senweaver_ide_tpu.analysis.lock_order import LockOrderRecorder
+from senweaver_ide_tpu_torch.analysis.lock_order import LockOrderRecorder
 from senweaver_ide_tpu.serve import rpc as jrpc
 from senweaver_ide_tpu_torch.serve import placement
 from senweaver_ide_tpu_torch.serve import rpc as trpc

@@ -20,7 +20,7 @@ import time
 import pytest
 import torch
 
-from senweaver_ide_tpu.analysis.lock_order import LockOrderRecorder
+from senweaver_ide_tpu_torch.analysis.lock_order import LockOrderRecorder
 from senweaver_ide_tpu_torch.agents.llm import ChatMessage
 from senweaver_ide_tpu_torch.models.tokenizer import ByteTokenizer
 from torch_fleet_sides import (FakeClock, Models, both, bump_in_place,

@@ -257,10 +257,11 @@ def sc_mesh_layout():
 
 def sc_train(np_params, cfg_name, cfg_over, kind, sizes, batch, *,
              accum=1, steps=1, lr=1e-3, num_groups=None, lora_np=None,
-             qlora=False, ranks=None):
+             qlora=False, ranks=None, grads=False):
     """``steps`` mesh train steps on this rank's part of ``batch``; every
     rank's metrics per step and, from rank 0, the gathered params (the
-    adapters for a LoRA run)."""
+    adapters for a LoRA run) and, with ``grads``, the first step's
+    gathered gradients."""
     from senweaver_ide_tpu_torch.models.quantize import \
         quantize_weights_int8
     from senweaver_ide_tpu_torch.parallel import gather_params, shard_params
@@ -286,6 +287,14 @@ def sc_train(np_params, cfg_name, cfg_over, kind, sizes, batch, *,
         mesh, batch["tokens"], batch["mask"], batch["rewards"],
         batch["group_ids"], batch.get("old_logp"), accum_steps=accum,
         device="cpu")
+    first = None
+    if grads:
+        from senweaver_ide_tpu_torch.training import grpo_gradients
+        g, _ = grpo_gradients(state.params, cfg, toks, mask, rew, gids,
+                              old_logp=old, accum_steps=accum,
+                              num_groups=num_groups, lora_base=base,
+                              mesh=mesh)
+        first = gather_params(g, mesh)
     hist = []
     for _ in range(steps):
         state, metrics = train_step(state, cfg, mesh, toks, mask, rew, gids,
@@ -294,10 +303,12 @@ def sc_train(np_params, cfg_name, cfg_over, kind, sizes, batch, *,
         hist.append({k: float(v) for k, v in metrics.items()})
     after = gather_params(state.params, mesh)
     layers = state.params["layers"]
+    lead = mesh.rank == 0
     return {"metrics": hist,
             "local_shape": tuple(layers.get("w_gate", layers[next(iter(
                 layers))]).shape),
-        "params": np_tree(after) if mesh.rank == 0 else None}
+            "params": np_tree(after) if lead else None,
+            "grads": np_tree(first) if lead and grads else None}
 
 
 def sc_place_batch(kind, sizes, batch, accum):
@@ -459,4 +470,120 @@ def sc_streaming_adapter(np_params, sizes, waves, lr):
     for i, rows in enumerate(waves):
         out.append(t.train_on_batch([StreamedEpisode(**r) for r in rows]))
         t.note_published(i + 1)
+    return out
+
+
+# ---- tests/test_torch_parallel.py: MoE over data axes, pipelines ----
+
+def sc_moe_forward(np_params, cfg_over, sizes, tokens):
+    """This rank's block of an MoE ``forward(mesh=)``'s logits, its aux
+    loss, and the mesh=None logits and aux of the whole batch."""
+    from senweaver_ide_tpu_torch.models.transformer import forward
+    from senweaver_ide_tpu_torch.parallel import data_sharding, shard_params
+    mesh = mesh_of("mesh", sizes)
+    if not mesh.is_member:
+        return None
+    cfg = config("tiny-moe-test", **cfg_over)
+    full = tparams(np_params)
+    toks = torch.from_numpy(tokens).long()
+    with torch.no_grad():
+        logits, _, aux = forward(shard_params(full, mesh), cfg,
+                                 data_sharding(mesh).local(toks),
+                                 mesh=mesh, with_aux=True)
+        one, _, one_aux = forward(full, cfg, toks, with_aux=True)
+    return {"coords": coords_of(mesh), "logits": logits.numpy(),
+            "aux": float(aux), "one": one.numpy(), "one_aux": float(one_aux)}
+
+
+def _pp_mesh(pp, dp=1):
+    """pp stages on the first ranks; with ``dp`` > 1 a dp x pp mesh."""
+    sizes = {"dp": dp, "pp": pp} if dp > 1 else {"pp": pp}
+    return mesh_of("named", sizes, ranks=list(range(dp * pp)))
+
+
+def _pp_params(np_params, pp, split_np=None):
+    """This stage's placed params: from JAX's split tree when given, else
+    split here."""
+    from senweaver_ide_tpu_torch.parallel import (place_pipeline_params,
+                                                  split_layers_for_stages)
+    mesh = _pp_mesh(pp)
+    if not mesh.is_member:
+        return mesh, None
+    tree = (tparams(split_np) if split_np is not None
+            else split_layers_for_stages(tparams(np_params), pp))
+    return mesh, place_pipeline_params(tree, mesh)
+
+
+def sc_pp_forward(np_params, pp, tokens, n_micro, mask=None, split_np=None):
+    """``pipeline_forward``'s logits on this rank, and its stage's layer
+    tensors (the split tree's, or the port's split of the full tree)."""
+    from senweaver_ide_tpu_torch.parallel import pipeline_forward
+    mesh, params = _pp_params(np_params, pp, split_np)
+    if not mesh.is_member:
+        return None
+    with torch.no_grad():
+        logits = pipeline_forward(
+            params, config("tiny-test"), torch.from_numpy(tokens), mesh=mesh,
+            n_microbatches=n_micro,
+            attn_mask=None if mask is None else torch.from_numpy(mask))
+    return {"stage": mesh.coord("pp"), "logits": logits.numpy(),
+            "layers": np_tree(params["layers"])}
+
+
+def sc_pp_grad_flow(np_params, pp, tokens, n_micro):
+    """The gradients of mean(pipeline_forward(...)) on this rank: its
+    stage's layers and the replicated tensors."""
+    from senweaver_ide_tpu_torch.parallel import pipeline_forward
+    from senweaver_ide_tpu_torch.training.trainer import (flatten_params,
+                                                          unflatten_params)
+    mesh, params = _pp_params(np_params, pp)
+    if not mesh.is_member:
+        return None
+    pairs = [(n, t.requires_grad_()) for n, t in flatten_params(params)]
+    pipeline_forward(params, config("tiny-test"), torch.from_numpy(tokens),
+                     mesh=mesh, n_microbatches=n_micro).mean().backward()
+    grads = unflatten_params((n, t.grad) for n, t in pairs)
+    return {"stage": mesh.coord("pp"), "grads": np_tree(grads),
+            "layers": sum(float(g.abs().sum())
+                          for g in grads["layers"].values()),
+            "finite": all(bool(torch.isfinite(t.grad).all())
+                          for _, t in pairs)}
+
+
+def sc_pp_steps(np_params, cfg_over, pp, batch, n_micro, schedules, *,
+                steps=1, lr=1e-3, num_groups=None, dp=1):
+    """``steps`` pp_train_steps per schedule, each from a fresh state, on
+    pp stages (over a dp x pp mesh with ``dp`` > 1): every step's metrics
+    and the updated params (stage split undone) from the first rank."""
+    from senweaver_ide_tpu_torch.parallel import (make_pp_train_state,
+                                                  pp_train_step)
+    from senweaver_ide_tpu_torch.parallel.pipeline import \
+        gather_pipeline_params
+    mesh = _pp_mesh(pp, dp)
+    if not mesh.is_member:
+        return None
+    cfg = config("tiny-test", **cfg_over)
+    out = {}
+    for schedule in schedules:
+        state = make_pp_train_state(cfg, mesh=mesh, params=tparams(np_params),
+                                    learning_rate=lr, device="cpu")
+        hist = []
+        for _ in range(steps):
+            state, m = pp_train_step(
+                state, cfg, mesh, batch["tokens"], batch["mask"],
+                batch["rewards"], batch["group_ids"],
+                n_microbatches=n_micro, schedule=schedule,
+                num_groups=num_groups)
+            hist.append({k: float(v) for k, v in m.items()})
+        full = gather_pipeline_params(state.params, mesh)
+        full["layers"] = {n: v.reshape((-1,) + tuple(v.shape[2:]))
+                          for n, v in full["layers"].items()}
+        out[schedule] = {"metrics": hist, "step": state.step,
+                         "params": np_tree(full) if mesh.rank == 0 else None}
+    try:
+        pp_train_step(state, cfg, mesh, batch["tokens"], batch["mask"],
+                      batch["rewards"], batch["group_ids"],
+                      schedule="interleaved-nope")
+    except ValueError as e:
+        out["unknown"] = str(e)
     return out
