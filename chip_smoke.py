@@ -92,6 +92,27 @@ Phases, each fatal on failure:
     card; every tensor and one 256-token prompt's logits must be
     bit-identical to the source. Prints export and load seconds and GB/s,
     then removes the dir.
+13b. The public entry points (``phase_entry``, on the loaded weights).
+    First K1 against its plain version where the tiny engines launch it:
+    tiny-test's heads (4/2, D 16), an f32 query on f32 and int8 pools at
+    block sizes 4 and 16 (its serial kernel, ``pfd_kernel``), ragged
+    lengths and prefill segments at the f32 tolerance, and its times at
+    the QLoRA quickstart's decode step (the kernels line's ``f32`` row).
+    Then each entry point, run in this process as ``__main__`` with its
+    user's argv, its
+    stdout captured, on fresh observability globals that are put back
+    after: ``examples/torch_serve.py --model-dir`` on a new HF export of
+    the weights (full width; K1 = layers x fused steps; prints the
+    tokens and p50 step ms), the other five quickstarts with
+    tests/test_examples.py's arguments and every
+    ``scripts/torch_*_report.py --selftest``. Each must exit cleanly and
+    print its marker; every engine it builds, GRPO step, reward-head
+    batch and diagnostics launch must sit on the card, and each paged
+    engine without speculation must launch K1 layers x fused-step times
+    inside its fused steps. The agent loop's retry backoffs are skipped
+    (their seconds are printed). Prints each entry's seconds and K1 / K3
+    / K2 launches, K1's by query and pool dtype (on the kernels line, the
+    bf16 query's on the pool's row, the f32 query's on the f32 row).
 14. The online improvement loop (``phase_online``, on the loaded
     weights): phase 12's engine and sessions under an
     OnlineImprovementLoop with kl_coef 0.05 and the anchor refreshed every
@@ -332,7 +353,7 @@ Phases, each fatal on failure:
     bytes a tick, the send route and each rank's peak memory. Prints
     each rank's peak memory, collective routes and phase seconds.
 27. A JSON line with every kernel's numbers (``launches_round``,
-    ``launches_online``, ``launches_reuse``, ``launches_async``,
+    ``launches_entry``, ``launches_online``, ``launches_reuse``, ``launches_async``,
     ``launches_spec``, ``launches_group``, ``launches_tenants``,
     ``launches_migrate``, ``launches_fleet``, ``launches_learner``,
     ``launches_control``,
@@ -351,6 +372,7 @@ Exits non-zero, printing no result, without CUDA or without the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -371,6 +393,7 @@ KERNEL_ATOL = KERNEL_RTOL = 1e-2
 # layers. Logits of this random-weight model reach about 4.
 LOGITS_ATOL = 0.25
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # H100 SXM fp32 peak outside the tensor cores
 # K2 kernels vs their plain versions on fp32 copies of the same bf16
 # inputs. Per element |kernel - plain| <= atol + rtol*|plain| +
 # scaled*max|plain|, and the whole tensor's RMS error <= FA_RMS_TOL of its
@@ -564,6 +587,8 @@ def _pool(torch, variant, nb, bs, hkv, d, g):
     from senweaver_ide_tpu_torch.models.transformer import quantize_pool_kv
     kf = torch.randn(nb, bs, hkv, d, generator=g, device="cuda")
     vf = torch.randn(nb, bs, hkv, d, generator=g, device="cuda")
+    if variant == "f32":
+        return kf, vf, None, None
     if variant == "bf16":
         return kf.bfloat16(), vf.bfloat16(), None, None
     dt = torch.int8 if variant == "int8" else torch.float8_e4m3fn
@@ -600,10 +625,11 @@ K1_SEGMENTS = ((984, 40), (0, 8))
 K1_BS, K1_MB = 16, 128
 
 
-def _k1_err(out, ref):
-    """(max |kernel - plain|, whether every element is in tolerance)"""
+def _k1_err(out, ref, tol=(KERNEL_ATOL, KERNEL_RTOL)):
+    """(max |kernel - plain|, whether every element is within ``tol``,
+    (atol, rtol))"""
     diff = (out.float() - ref).abs()
-    within = diff <= KERNEL_ATOL + KERNEL_RTOL * ref.abs()
+    within = diff <= tol[0] + tol[1] * ref.abs()
     return float(diff.max()), bool(within.all())
 
 
@@ -649,11 +675,12 @@ def _k1_nan_poison(torch, pool, tables, lengths, bs, q_tiles=None):
     return tuple(out), tbl.to(tables.device).contiguous()
 
 
-def _k1_check(torch, label, q, pool, tables, lengths, q_tiles=None):
-    """The kernel against its plain version on one batch: within
-    tolerance, exact zeros for length 0, bit-identical across two launches
-    and with NaN in every position no tile reaches. Returns the max
-    error."""
+def _k1_check(torch, label, q, pool, tables, lengths, q_tiles=None,
+              tol=(KERNEL_ATOL, KERNEL_RTOL)):
+    """The kernel against its plain version on one batch: within ``tol``
+    (atol, rtol), exact zeros for length 0, bit-identical across two
+    launches and with NaN in every position no tile reaches. Returns the
+    max error."""
     from senweaver_ide_tpu_torch.ops.paged_attention import (
         paged_flash_decode, paged_flash_decode_plain)
     bs = pool[0].shape[1]
@@ -664,7 +691,7 @@ def _k1_check(torch, label, q, pool, tables, lengths, q_tiles=None):
     torch.cuda.synchronize()
     ref = paged_flash_decode_plain(q.float(), *pool[:2], tables, lengths,
                                    *pool[2:])
-    e, ok = _k1_err(out, ref)
+    e, ok = _k1_err(out, ref, tol)
     if not ok:
         fail(f"paged_flash_decode {label}: kernel vs plain max err {e}")
     if bool(out[lengths == 0].ne(0).any()):
@@ -683,23 +710,24 @@ def _k1_check(torch, label, q, pool, tables, lengths, q_tiles=None):
     return e
 
 
-def _k1_seq_batch(torch, g, variant, cfg, seq_lens, entries):
+def _k1_seq_batch(torch, g, variant, cfg, seq_lens, entries, bs=K1_BS,
+                  mb=K1_MB, q_dtype="bfloat16"):
     """A flat batch over sequences of ``seq_lens`` tokens, each with its
-    own table row of K1_MB random blocks: ``entries`` lists (sequence,
-    position) pairs. Returns (q, pool, tables per entry, lengths, seq_row,
-    positions as host tensors)."""
+    own table row of ``mb`` random blocks of ``bs`` positions:
+    ``entries`` lists (sequence, position) pairs. Returns (q, pool, tables
+    per entry, lengths, seq_row, positions as host tensors)."""
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     n = len(seq_lens)
-    nb = n * K1_MB
-    pool = _pool(torch, variant, nb, K1_BS, hkv, d, g)
+    nb = n * mb
+    pool = _pool(torch, variant, nb, bs, hkv, d, g)
     seq_tables = torch.randperm(nb, generator=g, device="cuda").view(
-        n, K1_MB).to(torch.int32)
+        n, mb).to(torch.int32)
     seq_row = torch.tensor([s for s, _ in entries])
     positions = torch.tensor([p for _, p in entries])
     tables = seq_tables[seq_row.cuda()].contiguous()
     lengths = (positions + 1).to(torch.int32).cuda()
     q = torch.randn(len(entries), hq, d, generator=g,
-                    device="cuda").bfloat16()
+                    device="cuda").to(getattr(torch, q_dtype))
     return q, pool, tables, lengths, seq_row, positions
 
 
@@ -719,11 +747,12 @@ def _k1_bound(pool, q, lengths, reach, n_tiles=0):
     once at its stored width with its scales (``reach``: the positions
     read in each table row), q read and out written once, the live table
     entries, the lengths and the tiles."""
-    hkv, d = pool[0].shape[2], pool[0].shape[3]
+    bs, hkv, d = pool[0].shape[1], pool[0].shape[2], pool[0].shape[3]
     per_pos = hkv * 2 * (d * pool[0].element_size()
                          + (4 if pool[2] is not None else 0))
-    live_blocks = sum(-(-n // K1_BS) for n in reach)
-    nbytes = (sum(reach) * per_pos + 2 * q.numel() * 2 + live_blocks * 4
+    live_blocks = sum(-(-n // bs) for n in reach)
+    nbytes = (sum(reach) * per_pos + 2 * q.numel() * q.element_size()
+              + live_blocks * 4
               + lengths.numel() * 4 + n_tiles * 8)
     flops = 4 * q.shape[1] * d * int(lengths.sum())
     return nbytes, flops
@@ -2184,6 +2213,375 @@ def phase_hf(torch, cfg, params, smi):
         f"{load_s:.3f} s ({file_bytes / load_s / 1e9:.3f} GB/s)")
     return loaded, {"export_s": export_s, "load_s": load_s,
                     "bytes": file_bytes}
+
+
+# K1 at tiny-test's heads (4/2, D 16), where the quickstarts and the
+# selftests run it: f32 engines read f32 and int8 pools with an f32 query,
+# which K1 serves with its serial kernel (pfd_kernel), not the split one
+# that phase_kernel holds at bf16. Block sizes: the selftests' 4 and the
+# engine's default 16; table rows as long as the QLoRA quickstart's engine
+# (max_len 2048). The timing batch is that quickstart's decode step: 4
+# rows reading its ~1.9k-byte assembled prompts, at block size 16.
+K1_TINY_BLOCKS = (4, 16)
+K1_TINY_MAX_LEN = 2048
+K1_TINY_DECODE = (1900, 1933, 1967, 2000)
+
+
+def _k1_tiny_checks(torch, timer):
+    """K1 against its plain version at tiny-test's heads with an f32
+    query, on f32 and int8 pools (scales) at block sizes 4 and 16: ragged
+    lengths with 0 and the block and row edges, then decode rows plus two
+    prefill segments, in query tiles and untiled, at the f32 tolerance;
+    then the kernel, plain and bound times of the QLoRA quickstart's
+    decode step on each pool. Returns the kernels line's row fields."""
+    from senweaver_ide_tpu_torch.models import tiny_test
+    from senweaver_ide_tpu_torch.ops.paged_attention import (
+        paged_flash_decode, paged_flash_decode_plain, query_tiles)
+    tcfg = tiny_test()
+    rep = tcfg.num_heads // tcfg.num_kv_heads
+    g = torch.Generator(device="cuda").manual_seed(7)
+    tol = FD_TOL["f32"]
+    worst = {"f32": 0.0, "int8": 0.0}
+    for pool_dt in worst:
+        for bs in K1_TINY_BLOCKS:
+            mb = K1_TINY_MAX_LEN // bs
+            cap = mb * bs
+            lens = [0, 1, bs - 1, bs, bs + 1, 37, 64, 127, 1900, cap - 1,
+                    cap]
+            q, pool, tables, lengths, _, _ = _k1_seq_batch(
+                torch, g, pool_dt, tcfg, [max(n, 1) for n in lens],
+                [(i, max(n, 1) - 1) for i, n in enumerate(lens)], bs=bs,
+                mb=mb, q_dtype="float32")
+            lengths[0] = 0
+            label = f"tiny-test f32 q, {pool_dt} pool, block size {bs}"
+            errs = [_k1_check(torch, f"{label} ragged", q, pool, tables,
+                              lengths, tol=tol)]
+            decode = [5, 33, 64, 1900]
+            seq_lens = list(decode)
+            entries = [(i, n - 1) for i, n in enumerate(decode)]
+            for p0, n in ((0, 8), (bs + 1, 12)):
+                seq_lens.append(p0 + n)
+                entries += [(len(seq_lens) - 1, p)
+                            for p in range(p0, p0 + n)]
+            q_m, pool_m, tables_m, lengths_m, seq_row, pos = _k1_seq_batch(
+                torch, g, pool_dt, tcfg, seq_lens, entries, bs=bs, mb=mb,
+                q_dtype="float32")
+            for tiles in (query_tiles(seq_row, pos, rep), None):
+                errs.append(_k1_check(
+                    torch, f"{label} segments "
+                    + ("untiled" if tiles is None else "tiled"), q_m, pool_m,
+                    tables_m, lengths_m, tiles, tol=tol))
+            worst[pool_dt] = max([worst[pool_dt]] + errs)
+            log(f"[kernel] {label}: ragged {lens}, decode {decode} with "
+                f"two prefill segments tiled and untiled: max |kernel - "
+                f"plain| " + ", ".join(f"{e:.3g}" for e in errs)
+                + f" (tol {tol[0]} + {tol[1]} * |plain|); length 0 exact "
+                f"zeros, NaN past every reach and a second launch "
+                f"bit-identical")
+    times = {}
+    bs = K1_TINY_BLOCKS[-1]
+    for pool_dt in worst:
+        q, pool, tables, lengths, _, _ = _k1_seq_batch(
+            torch, g, pool_dt, tcfg, list(K1_TINY_DECODE),
+            [(i, n - 1) for i, n in enumerate(K1_TINY_DECODE)], bs=bs,
+            mb=K1_TINY_MAX_LEN // bs, q_dtype="float32")
+        args = (q, pool[0], pool[1], tables, lengths, pool[2], pool[3])
+        e, ok = _k1_err(paged_flash_decode(*args),
+                        paged_flash_decode_plain(*args), tol)
+        if not ok:
+            fail(f"paged_flash_decode tiny-test {pool_dt} timing batch: "
+                 f"kernel vs plain max err {e}")
+        worst[pool_dt] = max(worst[pool_dt], e)
+        nbytes, flops = _k1_bound(pool, q, lengths, list(K1_TINY_DECODE))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS * 1e3
+        times[pool_dt] = {
+            "ms": timer.ms(lambda: paged_flash_decode(*args)),
+            "plain_ms": timer.ms(lambda: paged_flash_decode_plain(*args)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops}
+        t = times[pool_dt]
+        log(f"[kernel] tiny-test f32 q, {pool_dt} pool, QLoRA decode step "
+            f"(lengths {list(K1_TINY_DECODE)}, block size {bs}): kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}, {nbytes} bytes)")
+    return {"max_abs_err": max(worst.values()),
+            "max_abs_err_by_pool": worst, **times["f32"],
+            **{f"int8_{k}": v for k, v in times["int8"].items()},
+            "tolerance": f"{tol[0]} + {tol[1]} * |plain|",
+            "shape": (f"heads {tcfg.num_heads}/{tcfg.num_kv_heads} D "
+                      f"{tcfg.head_dim}, f32 q, decode lengths "
+                      f"{list(K1_TINY_DECODE)}, block size {bs}")}
+
+
+# The public entry points (phase_entry): each quickstart and each report's
+# selftest, run in this process as its user runs it from the shell, on the
+# card. The quickstarts take tests/test_examples.py's arguments.
+ENTRY_EXAMPLES = (
+    ("torch_train_grpo.py", (), "GRPO ROUND OK"),
+    ("torch_online_cycle.py", ("--rounds", "2"), "ONLINE CYCLE OK"),
+    ("torch_qlora_quickstart.py", ("--rounds", "1", "--rank", "4"),
+     "engine serves the folded int8 policy"),
+    ("torch_control_plane.py", (), "JOBS SESSION OK"),
+    ("torch_dashboard_demo.py", ("--once",), "DASHBOARD STATE OK"))
+ENTRY_REPORTS = ("kv_quant", "kv_pressure", "spec", "group_tree",
+                 "migration", "learner", "remote_fleet", "slo", "fleet_obs",
+                 "training_health")
+
+
+@contextlib.contextmanager
+def _entry_ledger():
+    """Record, while an entry point runs, every engine it builds (its
+    device, and the K1 / K3 launches inside each of its fused steps with
+    the step's wall ms), the device of every GRPO step's params, of every
+    reward-head batch and of every diagnostics-head launch; and skip the
+    agent loop's retry-backoff sleeps (their seconds are recorded): the
+    scripted policy's failing patterns exhaust the loop's retries, and the
+    backoffs would add tens of seconds of waiting that measure nothing."""
+    from senweaver_ide_tpu_torch.agents.loop import AgentLoop
+    from senweaver_ide_tpu_torch.models import transformer
+    from senweaver_ide_tpu_torch.rewards import head
+    from senweaver_ide_tpu_torch.rollout.engine import RolloutEngine
+    from senweaver_ide_tpu_torch.training import diagnostics, trainer
+    rec = {"engines": [], "devices": set(), "slept_s": 0.0, "k1_by": {}}
+    init = RolloutEngine.__init__
+    steps = {k: getattr(RolloutEngine, k)
+             for k in ("_step_paged", "_step_slots")}
+    grpo, reward, diag = (trainer._grpo_step, head.reward_head,
+                          diagnostics.dispatch_round_health)
+    # one ProfiledFunction object, bound to the head at import, serves
+    # every batch scorer (score_traces, apo.eval, apo.beam)
+    reward_batch = head.reward_head_batch._fn
+    k1 = transformer.paged_flash_decode
+    sleep = AgentLoop.__init__.__kwdefaults__["sleep"]
+
+    def _init(self, *a, **kw):
+        init(self, *a, **kw)
+        self._entry_steps = []           # (k1, k3, wall ms) per fused step
+        rec["engines"].append(self)
+
+    def _stepper(name):
+        def step(self, *a, **kw):
+            k1, k3, t0 = _k1_count(), _k3_count(), time.perf_counter()
+            out = steps[name](self, *a, **kw)
+            self._entry_steps.append((_k1_count() - k1, _k3_count() - k3,
+                                      (time.perf_counter() - t0) * 1e3))
+            return out
+        return step
+
+    def _grpo(state, *a, **kw):
+        rec["devices"].add(_leaves(state.params)[0].device.type)
+        return grpo(state, *a, **kw)
+
+    def _reward(feats, *a, **kw):
+        rec["devices"].add(feats.device.type)
+        return reward(feats, *a, **kw)
+
+    def _k1(q, k_pool, *a, **kw):
+        # the launches by (query dtype, pool dtype): "f32/int8", ...
+        n = _k1_count()
+        out = k1(q, k_pool, *a, **kw)
+        if _k1_count() > n:
+            key = f"{_dtype_name(q)}/{_dtype_name(k_pool)}"
+            rec["k1_by"][key] = rec["k1_by"].get(key, 0) + _k1_count() - n
+        return out
+
+    def _diag(*a, device="cuda", **kw):
+        rec["devices"].add(str(device).split(":")[0])
+        return diag(*a, device=device, **kw)
+
+    def _skip(seconds):
+        rec["slept_s"] += seconds
+
+    RolloutEngine.__init__ = _init
+    for k in steps:
+        setattr(RolloutEngine, k, _stepper(k))
+    trainer._grpo_step, head.reward_head = _grpo, _reward
+    head.reward_head_batch._fn = _reward
+    transformer.paged_flash_decode = _k1
+    diagnostics.dispatch_round_health = _diag
+    AgentLoop.__init__.__kwdefaults__["sleep"] = _skip
+    try:
+        yield rec
+    finally:
+        RolloutEngine.__init__ = init
+        for k, f in steps.items():
+            setattr(RolloutEngine, k, f)
+        trainer._grpo_step, head.reward_head = grpo, reward
+        head.reward_head_batch._fn = reward_batch
+        transformer.paged_flash_decode = k1
+        diagnostics.dispatch_round_health = diag
+        AgentLoop.__init__.__kwdefaults__["sleep"] = sleep
+
+
+def _dtype_name(x):
+    return {"float32": "f32", "bfloat16": "bf16", "int8": "int8",
+            "float8_e4m3fn": "fp8"}.get(str(x.dtype).rsplit(".", 1)[-1],
+                                        str(x.dtype))
+
+
+def _entry_run(torch, label, path, argv, marker):
+    """Run ``path`` as ``__main__`` with ``argv``, its stdout captured, on
+    fresh observability globals (the process's are put back after); fail
+    unless it exits cleanly and prints ``marker``. Returns the entry's
+    seconds, launches, engines and device record."""
+    import io
+    import runpy
+    import traceback
+
+    from senweaver_ide_tpu_torch.obs.scope import preserved_obs
+    k1, k3, k2 = _k1_count(), _k3_count(), _k2_count()
+    buf, saved_argv, code = io.StringIO(), sys.argv, 0
+    sys.argv = [path, *argv]
+    t0 = time.perf_counter()
+    try:
+        with _entry_ledger() as rec, preserved_obs(), \
+                contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    except Exception:
+        traceback.print_exc()
+        fail(f"entry {label}: raised (its output ended: "
+             f"{buf.getvalue()[-400:]!r})")
+    finally:
+        sys.argv = saved_argv
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    text = buf.getvalue()
+    if code not in (0, None) or marker not in text:
+        fail(f"entry {label}: exit {code!r}, marker {marker!r} "
+             f"{'missing' if marker not in text else 'present'}; its "
+             f"output ended: {text[-400:]!r}")
+    engines = [{"device": e.device.type, "layers": e.config.num_layers,
+                "paged": e.kv_layout == "paged",
+                "spec": getattr(e, "_spec", None) is not None,
+                "steps": e.stats()["decode_steps"],
+                "k1": sum(s[0] for s in e._entry_steps),
+                "k3": sum(s[1] for s in e._entry_steps),
+                "step_ms": [s[2] for s in e._entry_steps]}
+               for e in rec["engines"]]
+    rec["engines"].clear()
+    out = {"s": secs, "k1": _k1_count() - k1, "k3": _k3_count() - k3,
+           "k1_by": dict(rec["k1_by"]),
+           "k2": {k: v - k2[k] for k, v in _k2_count().items()},
+           "engines": engines,
+           "devices": sorted(rec["devices"] | {e["device"]
+                                                for e in engines}),
+           "slept_s": rec["slept_s"], "text": text}
+    if out["devices"] != ["cuda"]:
+        fail(f"entry {label}: tensors on {out['devices']}, expected the "
+             f"card alone")
+    if sum(out["k1_by"].values()) != out["k1"]:
+        fail(f"entry {label}: K1 launched {out['k1']} times, "
+             f"{out['k1_by']} of them through forward_paged")
+    for e in engines:
+        if e["paged"] and not e["spec"] and e["k1"] != e["layers"] * e[
+                "steps"]:
+            fail(f"entry {label}: a paged engine launched K1 {e['k1']} "
+                 f"times in its fused steps, != {e['layers']} layers x "
+                 f"{e['steps']} steps")
+    if any(e["steps"] for e in engines) and not out["k1"] + out["k3"]:
+        fail(f"entry {label}: engines stepped but launched no K1 or K3")
+    return out
+
+
+def _entry_line(label, r):
+    steps = sum(e["steps"] for e in r["engines"])
+    return (f"[entry] {label}: {r['s']:.2f} s, K1 {r['k1']} "
+            f"{_k1_by_text(r['k1_by'])}, K3 "
+            f"{r['k3']}, K2 {r['k2']}, {len(r['engines'])} engines, "
+            f"{steps} fused steps, tensors on {'/'.join(r['devices'])}"
+            + (f", {r['slept_s']:.2f} s of retry backoff skipped"
+               if r["slept_s"] else ""))
+
+
+def _k1_by_text(k1_by):
+    return "(" + (", ".join(f"{k.split('/')[0]} q on {k.split('/')[1]} "
+                            f"pools {n}" for k, n in sorted(k1_by.items()))
+                  or "none") + ")"
+
+
+def phase_entry(torch, cfg, params, smi, timer):
+    """The public entry points on the card: ``examples/torch_serve.py
+    --model-dir`` at full width on an HF export of ``params`` (K1 = layers
+    x fused steps), the other five quickstarts and every report's
+    ``--selftest``, one after another in this process. Each must exit
+    cleanly and print its marker; every engine, GRPO step, reward-head
+    batch and diagnostics launch of each must sit on the card. First K1
+    is held against its plain version where the tiny engines launch it
+    (:func:`_k1_tiny_checks`)."""
+    import shutil
+
+    from senweaver_ide_tpu_torch.models import export_hf_params
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    tiny_k1 = _k1_tiny_checks(torch, timer)
+    out_dir = _scratch_dir(int(_tree_bytes(params) * 1.1),
+                           "chip_smoke_entry_")
+    try:
+        t0 = time.perf_counter()
+        export_hf_params(params, cfg, out_dir)
+        export_s = time.perf_counter() - t0
+        serve = _entry_run(torch, "torch_serve.py --model-dir",
+                           os.path.join(here, "examples", "torch_serve.py"),
+                           ["--model-dir", out_dir], "tokens:")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    head = serve["text"].splitlines()[0]
+    eng = serve["engines"]
+    if (len(eng) != 1 or eng[0]["layers"] != cfg.num_layers
+            or not eng[0]["paged"] or f"[{cfg.name}]" not in head):
+        fail(f"entry serve: expected one paged {cfg.name} engine of "
+             f"{cfg.num_layers} layers, got {eng} ({head!r})")
+    steps, step_ms = eng[0]["steps"], eng[0]["step_ms"]
+    if serve["k1"] != cfg.num_layers * steps or not steps:
+        fail(f"entry serve: K1 {serve['k1']} != {cfg.num_layers} layers "
+             f"x {steps} fused steps")
+    tokens = int(head.split("]")[1].split()[0])
+    log(_entry_line("torch_serve.py --model-dir", serve))
+    log(f"[entry] serve {cfg.name} ({cfg.num_layers} layers, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}) from an HF export of the "
+        f"trained weights (export {export_s:.2f} s), {smi}: {tokens} "
+        f"tokens, {steps} fused steps, p50 step "
+        f"{statistics.median(step_ms):.2f} ms, K1 {serve['k1']} = "
+        f"{cfg.num_layers} x {steps}")
+    runs = {"serve": serve}
+    for name, argv, marker in ENTRY_EXAMPLES:
+        runs[name] = _entry_run(torch, name,
+                                os.path.join(here, "examples", name),
+                                list(argv), marker)
+        log(_entry_line(f"{name} {' '.join(argv)}".strip(), runs[name]))
+    for name in ENTRY_REPORTS:
+        script = f"torch_{name}_report.py"
+        runs[name] = _entry_run(torch, script,
+                                os.path.join(here, "scripts", script),
+                                ["--selftest"], '"mode": "selftest"')
+        log(_entry_line(f"{script} --selftest", runs[name]))
+    k1_by = {}
+    for r in runs.values():
+        for k, n in r["k1_by"].items():
+            k1_by[k] = k1_by.get(k, 0) + n
+    total = {"k1": sum(r["k1"] for r in runs.values()), "k1_by": k1_by,
+             "k3": sum(r["k3"] for r in runs.values()),
+             "k2": {k: sum(r["k2"][k] for r in runs.values())
+                    for k in ("fwd", "dkdv", "dq")}}
+    checked = ({f"bf16/{v}" for v in ("bf16", "int8", "fp8")}
+               | {f"f32/{v}" for v in tiny_k1["max_abs_err_by_pool"]})
+    if set(k1_by) - checked:
+        fail(f"entry: K1 launched on query/pool dtypes that no check held "
+             f"against its plain version: {sorted(set(k1_by) - checked)}")
+    if not any(k.startswith("f32/") for k in k1_by):
+        fail(f"entry: the tiny engines launched no f32-query K1 ({k1_by})")
+    log(f"[entry] {len(runs)} entry points, {smi}: "
+        f"{time.perf_counter() - t_phase:.1f} s, K1 {total['k1']} "
+        f"{_k1_by_text(k1_by)}, K3 {total['k3']}, K2 {total['k2']}")
+    return {**total, "tiny_k1": tiny_k1,
+            "serve": {"tokens": tokens, "steps": steps,
+                               "p50_step_ms": statistics.median(step_ms),
+                               "k1": serve["k1"]},
+            "seconds": {k: r["s"] for k, r in runs.items()}}
 
 
 def phase_online(torch, cfg, params, seed, smi):
@@ -7276,6 +7674,7 @@ def main(argv=None) -> int:
     train_launches = phase_train(torch, cfg, params, args.seed, smi)
     round_launches = phase_round(torch, cfg, params, args.seed, smi)
     loaded, _ = phase_hf(torch, cfg, params, smi)
+    entry = phase_entry(torch, cfg, loaded, smi, timer)
     online_launches, _ = phase_online(torch, cfg, loaded, args.seed, smi)
     reuse_launches = phase_reuse(torch, cfg, loaded, args.seed, smi)
     async_launches = phase_async(torch, cfg, loaded, args.seed, smi)
@@ -7339,6 +7738,7 @@ def main(argv=None) -> int:
             "launches": launches[variant],
             "launches_round": (round_launches["k1"] if variant == "bf16"
                                else None),
+            "launches_entry": entry["k1_by"].get(f"bf16/{variant}", 0),
             "launches_online": (online_launches["k1"] if variant == "bf16"
                                 else None),
             "launches_reuse": {"bf16": reuse_launches["k1"],
@@ -7401,6 +7801,28 @@ def main(argv=None) -> int:
             "max_abs_err_rep8": (rep8["k1_err"] if variant == "bf16"
                                  else None),
             "resources": r["resources"]})
+    tiny = entry["tiny_k1"]
+    kernels.append({
+        "name": "paged_flash_decode", "variant": "f32",
+        "kernel": "pfd_kernel", "route": "cuda",
+        "source": "senweaver_ide_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "senweaver_ide_tpu/ops/paged_attention.py:53",
+        "launches": sum(n for k, n in entry["k1_by"].items()
+                        if k.startswith("f32/")),
+        "launches_entry": {k.split("/")[1]: n
+                           for k, n in entry["k1_by"].items()
+                           if k.startswith("f32/")},
+        "max_abs_err": tiny["max_abs_err"],
+        "max_abs_err_by_pool": tiny["max_abs_err_by_pool"],
+        "tolerance": tiny["tolerance"],
+        "ms": tiny["ms"], "kernel_ms": tiny["ms"],
+        "plain_ms": tiny["plain_ms"], "bound_ms": tiny["bound_ms"],
+        "bound_by": tiny["bound_by"], "bytes": tiny["bytes"],
+        "flops": tiny["flops"], "library_ms": None,
+        "library_note": "no single PyTorch call reads KV through a block "
+                        "table",
+        **{k: tiny[k] for k in ("int8_ms", "int8_plain_ms", "int8_bound_ms",
+                                "int8_bound_by", "int8_bytes", "shape")}})
     replaces = {"fwd": "senweaver_ide_tpu/ops/flash_attention.py:48",
                 "dkdv": "senweaver_ide_tpu/ops/flash_attention.py:177",
                 "dq": "senweaver_ide_tpu/ops/flash_attention.py:177"}
@@ -7414,6 +7836,7 @@ def main(argv=None) -> int:
             "replaces": replaces[kname],
             "launches": train_launches[kname],
             "launches_round": round_launches[kname],
+            "launches_entry": entry["k2"][kname],
             "launches_online": online_launches[kname],
             "launches_reuse": reuse_launches[kname],
             "launches_async": async_launches[kname],
@@ -7452,6 +7875,7 @@ def main(argv=None) -> int:
         "replaces": "senweaver_ide_tpu/ops/flash_decode.py:44",
         "launches": slot_launches,
         "launches_int8_slots_qwen": int8_launches,
+        "launches_entry": entry["k3"],
         "launches_reuse": reuse_launches["k3"],
         "launches_async": async_launches["k3"],
         "launches_spec": spec_launches["k3"],

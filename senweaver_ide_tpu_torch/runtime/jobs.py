@@ -38,7 +38,7 @@ class JobRunner:
                  train_state=None, model_config=None, mesh=None,
                  reward_override=None, pad_id: int = 0,
                  max_len: Optional[int] = None,
-                 apo=None, collector=None, engine=None):
+                 apo=None, collector=None, engine=None, device=None):
         # Factory contract: make_session() for rollout episodes;
         # make_session(rules=[...]) for rule-scored eval sessions (the
         # rules render into the session's APO prompt section);
@@ -57,6 +57,9 @@ class JobRunner:
         self.apo = apo
         self.collector = collector
         self.engine = engine
+        # where eval_rules jobs score their traces (None: evaluate_rules'
+        # default, the card)
+        self.device = device
         self._queue: "queue.Queue[Job]" = queue.Queue()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -200,5 +203,7 @@ class JobRunner:
     def _run_eval_rules(self, spec: Dict[str, Any]) -> Dict[str, Any]:
         from ..apo.eval import evaluate_rules
         rules = list(spec.get("rules", []))
-        score = evaluate_rules(rules, lambda r: self.make_session(rules=r))
+        score = evaluate_rules(rules, lambda r: self.make_session(rules=r),
+                               **({} if self.device is None
+                                  else {"device": self.device}))
         return {"rules": rules, "final_reward": score}

@@ -47,8 +47,7 @@ COPIES = (
     "serve/prefix_store", "serve/frontend", "serve/scheduler",
     "serve/autoscale", "serve/learner",
     "serve/learner_server", "serve/__init__",
-    "runtime/msgpack_lite", "runtime/control", "runtime/jobs",
-    "runtime/__init__",
+    "runtime/msgpack_lite", "runtime/control", "runtime/__init__",
     "transport/providers", "transport/http_client",
     "transport/native_clients", "transport/__init__",
     "services/config", "services/metrics", "services/collaboration",
@@ -64,6 +63,10 @@ COPIES = (
     # the native sources, held to the repo's native/ (a ``.cpp`` entry
     # names the file itself)
     "native/trace_ring.cpp", "native/senweaver_ctl.cpp",
+    # the JSONL reports, host-pure: a ``.py`` entry names a script of the
+    # repo, and its copy is the ``torch_`` file beside it
+    "scripts/serve_report.py", "scripts/prefix_report.py",
+    "scripts/resilience_report.py", "scripts/analysis_report.py",
 )
 
 # Copies with a few hunks of their own, each named with its reason; the
@@ -93,11 +96,81 @@ PATCHED = {
     # paths with the Makefile's flags (two), build_native's docstring
     # and body (two), the pipeline the tokenizer feeds (one)
     "runtime/native": 7,
+    # the runner takes the device its eval_rules jobs score on and passes
+    # it to evaluate_rules (the signature, the attribute, the call); the
+    # docstring's "TPU steps serialize on the chip" says the card
+    "runtime/jobs": 4,
     # the accelerator posture is 'gpu' or 'cpu', probed in a killable
     # subprocess that imports torch and round-trips a CUDA tensor: the
     # module docstring's posture, the validator, the step's description
     # and the probe's docstring and code (two hunks)
     "services/onboarding": 5,
+    # the public entry points. A quickstart runs on the card unless given
+    # --cpu: the flag and the device it resolves (resolve_device) replace
+    # JAX's forced CPU platform; torch.Generator seeds replace PRNGKeys;
+    # every engine, train state and collector's reward head gets the
+    # device; and the usage lines name the torch_ file.
+    # serve: the docstring's card and usage, the flag's help, import
+    # torch and resolve_device, the device after the imports,
+    # load_hf_params, init_params and the engine, each a hunk
+    "examples/serve.py": 8,
+    # train_grpo: usage, two imports, the flag with import torch and
+    # resolve_device, two imports, the device after them, the train
+    # state, the session's collector
+    "examples/train_grpo.py": 8,
+    # online_cycle: usage, an import, the platform line, two imports, the
+    # flag, the device, the train state with the collector, the APO
+    # service's device
+    "examples/online_cycle.py": 9,
+    # qlora: usage, the card in the docstring, an import, import torch,
+    # the platform line, two imports, the flag, the device, init_params,
+    # the adapters' generator, the engine, the session's collector
+    "examples/qlora_quickstart.py": 13,
+    # control_plane: the ctl source path in the docstring, usage, the
+    # import line, import torch, three imports, the flag with the device,
+    # the train state, the session's collector, the runner's device, the
+    # rebuild hint's source path
+    "examples/control_plane.py": 12,
+    # dashboard_demo: usage, an import, the platform line, an import, the
+    # flag, the device, the collector
+    "examples/dashboard_demo.py": 7,
+    # The report selftests take ``device`` (default the card; --cpu on the
+    # command line), resolve it first, run under preserved_obs (the
+    # process's observability globals come back as they were) and draw
+    # the tiny weights on the host from a torch.Generator seed before
+    # moving them to the device, so the card and the CPU run the same
+    # weights. Hunks common to each: the docstring's "CPU" proof (the
+    # card or the CPU), the two module-level imports, the decorated
+    # signature, resolve_device for the platform line, the model imports,
+    # the weights, the --cpu flag and its use in main; then each
+    # engine's device and:
+    # kv_quant: the acceptance the docstring names by a number, the
+    # pools' device (two), the host tier's and the export's host tensors
+    # (two) where JAX asserts numpy arrays
+    "scripts/kv_quant_report.py": 14,
+    # kv_pressure: the acceptance named, the host-tier export's host
+    # tensors
+    "scripts/kv_pressure_report.py": 11,
+    # spec: _drifted on host draws over flatten_params, the draft
+    # teacher's weights, a second engine
+    "scripts/spec_report.py": 12,
+    # group_tree: the acceptance named
+    "scripts/group_tree_report.py": 10,
+    "scripts/migration_report.py": 9,
+    # learner: the trainer's weight bump over flatten_params, its import
+    "scripts/learner_report.py": 11,
+    "scripts/remote_fleet_report.py": 9,
+    "scripts/slo_report.py": 9,
+    # fleet_obs: the acceptance named; the two engine scenarios take the
+    # device (signature, imports, weights and engine each), the second
+    # scenario's publish weights, the selftest passing the device on
+    "scripts/fleet_obs_report.py": 17,
+    # training_health: no weights; the diagnostics head's device through
+    # _round_health (its signature, the launch and three calls); the
+    # selftest flag's help without "CPU"
+    "scripts/training_health_report.py": 11,
+    # obs: --health reads the torch_ training-health report beside it
+    "scripts/obs_report.py": 1,
 }
 
 # 1-based lines of the JAX files whose comment dates a feature by the
@@ -114,9 +187,8 @@ REWORDED_LINES = {
     "obs/propagation": (3,),
     "obs/telemetry": (63, 184, 191),
     "obs/training_health": (3, 45),
-    # a TPU step and TPU memory (HBM) in comments, a numbered change and
-    # an earlier round; the metric names stay
-    "runtime/jobs": (8,),
+    # a numbered change and TPU memory (HBM) in comments; the metric
+    # names stay
     "services/dashboard": (192, 626),
     "transport/native_clients": (6,),
     # the control server's path named the JAX package
@@ -143,11 +215,16 @@ def _one_torch_thread():
 
 
 def _sources(module):
-    """(original, copy): a module of each package, or for a ``.cpp``
-    entry the repo's native/ file and the port's copy of it."""
+    """(original, copy): a module of each package; for a ``.cpp`` entry
+    the repo's native/ file and the port's copy of it; for a ``.py`` entry
+    a script of the repo and its ``torch_`` copy beside it."""
     if module.endswith(".cpp"):
         return (os.path.join(ROOT, module),
                 os.path.join(ROOT, "senweaver_ide_tpu_torch", module))
+    if module.endswith(".py"):
+        folder, name = os.path.split(module)
+        return (os.path.join(ROOT, module),
+                os.path.join(ROOT, folder, "torch_" + name))
     return (os.path.join(ROOT, "senweaver_ide_tpu", module + ".py"),
             os.path.join(ROOT, "senweaver_ide_tpu_torch", module + ".py"))
 
@@ -170,8 +247,7 @@ def test_copy_matches_jax_original(module):
     if module in ALLOWED_TO_DIFFER:
         assert got != want, f"{module} is allowlisted but no longer differs"
         return
-    assert got == want, (f"senweaver_ide_tpu_torch/{module}.py drifted from "
-                         f"its JAX original")
+    assert got == want, f"the copy {copy} drifted from its JAX original"
 
 
 def test_allowlist_and_edits_name_copies():

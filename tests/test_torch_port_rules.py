@@ -42,10 +42,16 @@ def _banned(module: str) -> bool:
     return module.split(".")[0] in BANNED
 
 
+def _entry_files(folder):
+    """The port's scripts in ``folder`` of the repo: the ``torch_`` files."""
+    return sorted(os.path.join(ROOT, folder, f)
+                  for f in os.listdir(os.path.join(ROOT, folder))
+                  if f.startswith("torch_") and f.endswith(".py"))
+
+
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "scripts", "torch_serving_profile.py"),
-           os.path.join(ROOT, "scripts", "torch_train_profile.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += _entry_files("scripts") + _entry_files("examples")
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -139,6 +145,27 @@ PORTED_MODULES = ("rollout/speculative", "rollout/spec_controller",
 @pytest.mark.parametrize("module", PORTED_MODULES)
 def test_scan_covers_module(module):
     assert os.path.join(PKG, module + ".py") in _port_files()
+
+
+# the public entry points: the quickstarts, and the reports with a device
+# selftest (the JSONL-only reports touch no device)
+EXAMPLES = ("serve", "train_grpo", "online_cycle", "qlora_quickstart",
+            "control_plane", "dashboard_demo")
+REPORTS = ("kv_quant", "kv_pressure", "spec", "group_tree", "migration",
+           "learner", "remote_fleet", "slo", "fleet_obs", "training_health")
+JSONL_REPORTS = ("obs", "serve", "prefix", "resilience", "analysis")
+
+
+def test_scan_covers_every_port_script():
+    files = _port_files()
+    for name in EXAMPLES:
+        assert os.path.join(ROOT, "examples", f"torch_{name}.py") in files
+    for name in REPORTS + JSONL_REPORTS:
+        assert os.path.join(ROOT, "scripts",
+                            f"torch_{name}_report.py") in files
+    for name in ("serving_profile", "train_profile", "flash_ab",
+                 "k1_host_cost", "mesh_nccl", "smoke_parallel"):
+        assert os.path.join(ROOT, "scripts", f"torch_{name}.py") in files
 
 
 def test_port_imports_with_jax_blocked():
@@ -237,6 +264,67 @@ def test_serve_and_chaos_import_with_jax_blocked():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     code = _BLOCKED_IMPORT.format(banned=BANNED) + _SERVE_UNDER_BLOCKER
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split()[-1] == "ok"
+
+
+def _entry_argv(kind, name):
+    """(path, argv) of an entry point as its user runs it on the card."""
+    if kind == "example":
+        return os.path.join(ROOT, "examples", f"torch_{name}.py"), []
+    return (os.path.join(ROOT, "scripts", f"torch_{name}_report.py"),
+            ["--selftest"])
+
+
+ENTRY_POINTS = ([("example", n) for n in EXAMPLES]
+                + [("report", n) for n in REPORTS])
+
+
+@pytest.mark.parametrize("kind,name", ENTRY_POINTS,
+                         ids=[f"{k}-{n}" for k, n in ENTRY_POINTS])
+def test_entry_point_refuses_without_a_card(kind, name, no_cuda,
+                                            monkeypatch):
+    """Without a card and without --cpu an entry point raises, naming
+    CUDA; it never carries on on the CPU."""
+    import runpy
+    path, argv = _entry_argv(kind, name)
+    monkeypatch.setattr(sys, "argv", [path, *argv])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runpy.run_path(path, run_name="__main__")
+
+
+_ENTRIES_UNDER_BLOCKER = r"""
+import runpy, torch
+torch.cuda.is_available = lambda: False
+for path, argv in {entries!r}:
+    sys.argv = [path, *argv]
+    try:
+        runpy.run_path(path, run_name="__main__")
+    except RuntimeError as e:
+        assert "CUDA is not available" in str(e), (path, e)
+    else:
+        raise AssertionError(path + " ran without a card")
+for path in {jsonl!r}:
+    runpy.run_path(path)            # its imports, not its main
+assert not [k for k in sys.modules if k.split(".")[0] in BANNED]
+print("entries ok")
+"""
+
+
+def test_entry_points_import_with_jax_blocked():
+    """Every port example and report imports with the JAX package
+    blocked: the quickstarts and selftests run up to their refusal of a
+    missing card (the quickstarts that run at module level import all
+    they use before it), the JSONL reports import their modules."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    entries = [_entry_argv(k, n) for k, n in ENTRY_POINTS]
+    jsonl = [os.path.join(ROOT, "scripts", f"torch_{n}_report.py")
+             for n in JSONL_REPORTS]
+    code = _BLOCKED_IMPORT.format(banned=BANNED) + \
+        _ENTRIES_UNDER_BLOCKER.format(entries=entries, jsonl=jsonl)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
