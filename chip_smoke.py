@@ -968,12 +968,12 @@ def phase_kernel(torch, cfg, timer):
 K1_SPEC_DEPTH = 4
 
 
-def _k1_head_checks(torch, g, hcfg, tag):
+def _k1_head_checks(torch, g, hcfg, tag, seg=10):
     """K1 against its plain version at ``hcfg``'s heads: ragged lengths,
-    the split plan's chunk and tile edges and 0, decode rows plus prefill
-    segments in query tiles (TILE_ROWS // rep entries) and untiled, NaN
-    past every reach and a second launch bit-identical. Returns the
-    worst |kernel - plain|."""
+    the split plan's chunk and tile edges and 0, decode rows plus three
+    ``seg``-token prefill segments in query tiles (TILE_ROWS // rep
+    entries; ``seg`` must fill one) and untiled, NaN past every reach and
+    a second launch bit-identical. Returns the worst |kernel - plain|."""
     from senweaver_ide_tpu_torch.ops.flash_decode import split_plan
     from senweaver_ide_tpu_torch.ops.paged_attention import (TILE_ROWS,
                                                              query_tiles)
@@ -991,8 +991,10 @@ def _k1_head_checks(torch, g, hcfg, tag):
                                  tables_r, lengths_r))
     # lengths on the batch's split-plan chunk and tile edges, and 0
     _, chunk = split_plan(11, hkv, cap, sms)
-    lens = [0, 1, 63, 64, 65, chunk - 1, chunk, chunk + 1, 2 * chunk + 1,
-            cap - 1, cap]
+    # (a plan that does not split, as at 32 KV heads, has chunk = cap:
+    # the lengths past the row's capacity drop out)
+    lens = [n for n in (0, 1, 63, 64, 65, chunk - 1, chunk, chunk + 1,
+                        2 * chunk + 1, cap - 1, cap) if n <= cap]
     q_e, pool_e, tables_e, lengths_e, _, _ = _k1_seq_batch(
         torch, g, "bf16", hcfg, lens,
         [(i, max(n, 1) - 1) for i, n in enumerate(lens)])
@@ -1004,10 +1006,11 @@ def _k1_head_checks(torch, g, hcfg, tag):
     decode = torch.linspace(128, 2048, 16).round().int().tolist()
     seq_lens = list(decode)
     entries = [(i, n - 1) for i, n in enumerate(decode)]
-    _, chunk_t = split_plan(16 + 3 * 5, hkv, cap, sms)
-    for p0 in (16, chunk_t - 5, 31):
-        seq_lens.append(p0 + 10)
-        entries += [(len(seq_lens) - 1, p) for p in range(p0, p0 + 10)]
+    tiles_per_seg = -(-seg // (TILE_ROWS // rep))
+    _, chunk_t = split_plan(16 + 3 * tiles_per_seg, hkv, cap, sms)
+    for p0 in (16, min(chunk_t - 5, cap - seg), 31):
+        seq_lens.append(p0 + seg)
+        entries += [(len(seq_lens) - 1, p) for p in range(p0, p0 + seg)]
     q_m, pool_m, tables_m, lengths_m, seq_row, pos = _k1_seq_batch(
         torch, g, "bf16", hcfg, seq_lens, entries)
     errs = []
@@ -1023,7 +1026,7 @@ def _k1_head_checks(torch, g, hcfg, tag):
         errs.append(e)
     log(f"[kernel] {tag} heads {hq}/{hkv} D {d} (rep {rep}), bf16 pool: "
         f"ragged {ragged}, edges {lens} (chunk {chunk}), T={len(entries)} "
-        f"with three 10-token segments in {TILE_ROWS // rep}-entry tiles "
+        f"with three {seg}-token segments in {TILE_ROWS // rep}-entry tiles "
         f"(max |kernel - plain| {errs[0]:.3g}) and untiled ({errs[1]:.3g}); "
         f"length 0 exact zeros, NaN past every reach and a second launch "
         f"bit-identical; worst {worst:.3g}")
@@ -1133,7 +1136,7 @@ def _sdpa_pregathered_ms(torch, timer, args, hkv, bs):
 # K3 (flash_decode) head shapes: (Hq, Hkv, D) of the models that decode
 # from the slot cache, and what the timing runs at.
 FD_HEADS = {"qwen2.5-coder-1.5b": (12, 2, 128), "mistral-7b": (32, 8, 128),
-            "qwen2.5-coder-0.5b": (14, 2, 64)}
+            "qwen2.5-coder-0.5b": (14, 2, 64), "8/8 (rep 1)": (8, 8, 128)}
 # K3 vs plain on fp32 copies of the same inputs: bf16 output rounds at
 # 2**-9 relative (K1's tolerance and reason); f32 differs by summation
 # order only. (atol, rtol)
@@ -1203,9 +1206,10 @@ def _fd_split_cases(torch, split_plan, sms):
 
 def phase_flash_decode(torch, timer):
     """K3 (flash_decode over the contiguous slot cache) against its plain
-    version on the card: three head shapes, bf16 and f32, lengths
-    0..Smax on a tile-aligned and a ragged Smax and a strided cache view,
-    then bf16 batches at the split kernel's chunk and tile edges and on
+    version on the card: four head shapes (12/2, 32/8, 14/2 and 8/8, the
+    last one query head per KV head), bf16 and f32, lengths 0..Smax on a
+    tile-aligned and a ragged Smax and a strided cache view, then bf16
+    batches at the split kernel's chunk and tile edges and on
     short grids; poisoned positions at or past each length must leave the
     output bit-identical, and two launches must agree bit for bit. Then
     kernel / plain / SDPA times at 16 slots x 4096 positions at the
@@ -2335,14 +2339,19 @@ def _entry_ledger():
     """Record, while an entry point runs, every engine it builds (its
     device, and the K1 / K3 launches inside each of its fused steps with
     the step's wall ms), the device of every GRPO step's params, of every
-    reward-head batch and of every diagnostics-head launch; and skip the
+    reward-head batch, of every diagnostics-head launch, of the target's
+    and the draft's params of every speculative decoder and of the params
+    of every ``generate_scan`` decode it reaches by its module; and skip the
     agent loop's retry-backoff sleeps (their seconds are recorded): the
     scripted policy's failing patterns exhaust the loop's retries, and the
     backoffs would add tens of seconds of waiting that measure nothing."""
     from senweaver_ide_tpu_torch.agents.loop import AgentLoop
     from senweaver_ide_tpu_torch.models import transformer
     from senweaver_ide_tpu_torch.rewards import head
+    from senweaver_ide_tpu_torch.rollout import sampler
     from senweaver_ide_tpu_torch.rollout.engine import RolloutEngine
+    from senweaver_ide_tpu_torch.rollout.speculative import (
+        SpeculativeDecoder)
     from senweaver_ide_tpu_torch.training import diagnostics, trainer
     rec = {"engines": [], "devices": set(), "slept_s": 0.0, "k1_by": {}}
     init = RolloutEngine.__init__
@@ -2355,6 +2364,7 @@ def _entry_ledger():
     reward_batch = head.reward_head_batch._fn
     k1 = transformer.paged_flash_decode
     sleep = AgentLoop.__init__.__kwdefaults__["sleep"]
+    spec_init, scan = SpeculativeDecoder.__init__, sampler.generate_scan
 
     def _init(self, *a, **kw):
         init(self, *a, **kw)
@@ -2391,6 +2401,17 @@ def _entry_ledger():
         rec["devices"].add(str(device).split(":")[0])
         return diag(*a, device=device, **kw)
 
+    def _spec_init(self, target_params, target_config, draft_params,
+                   *a, **kw):
+        rec["devices"].update(_leaves(p)[0].device.type
+                              for p in (target_params, draft_params))
+        spec_init(self, target_params, target_config, draft_params, *a,
+                  **kw)
+
+    def _scan(params, *a, **kw):
+        rec["devices"].add(_leaves(params)[0].device.type)
+        return scan(params, *a, **kw)
+
     def _skip(seconds):
         rec["slept_s"] += seconds
 
@@ -2402,6 +2423,7 @@ def _entry_ledger():
     transformer.paged_flash_decode = _k1
     diagnostics.dispatch_round_health = _diag
     AgentLoop.__init__.__kwdefaults__["sleep"] = _skip
+    SpeculativeDecoder.__init__, sampler.generate_scan = _spec_init, _scan
     try:
         yield rec
     finally:
@@ -2413,6 +2435,7 @@ def _entry_ledger():
         transformer.paged_flash_decode = k1
         diagnostics.dispatch_round_health = diag
         AgentLoop.__init__.__kwdefaults__["sleep"] = sleep
+        SpeculativeDecoder.__init__, sampler.generate_scan = spec_init, scan
 
 
 def _dtype_name(x):
@@ -2426,19 +2449,28 @@ def _entry_run(torch, label, path, argv, marker):
     fresh observability globals (the process's are put back after); fail
     unless it exits cleanly and prints ``marker``. Returns the entry's
     seconds, launches, engines and device record."""
-    import io
     import runpy
+
+    def run():
+        runpy.run_path(path, run_name="__main__")
+    return _entry_call(torch, label, run, marker, argv=[path, *argv])
+
+
+def _entry_call(torch, label, run, marker, argv=None):
+    """:func:`_entry_run`'s ledger around ``run()`` (``sys.argv`` set to
+    ``argv`` meanwhile)."""
+    import io
     import traceback
 
     from senweaver_ide_tpu_torch.obs.scope import preserved_obs
     k1, k3, k2 = _k1_count(), _k3_count(), _k2_count()
     buf, saved_argv, code = io.StringIO(), sys.argv, 0
-    sys.argv = [path, *argv]
+    sys.argv = list(argv or [label])
     t0 = time.perf_counter()
     try:
         with _entry_ledger() as rec, preserved_obs(), \
                 contextlib.redirect_stdout(buf):
-            runpy.run_path(path, run_name="__main__")
+            run()
     except SystemExit as e:
         code = e.code
     except Exception:
@@ -2582,6 +2614,322 @@ def phase_entry(torch, cfg, params, smi, timer):
                                "p50_step_ms": statistics.median(step_ms),
                                "k1": serve["k1"]},
             "seconds": {k: r["s"] for k, r in runs.items()}}
+
+
+# The research evals (phase_eval): K1, K2 and K3 with one query head per KV
+# head first, at DeepSeek-Coder-6.7B's heads (32/32, D 128): K2 at the
+# shape of a short QLoRA trajectory, K3 at 8/8 and 4/1 heads; K1's
+# segments long enough to fill its 16-entry tiles at rep 1.
+K2_REP1_B, K2_REP1_S = 1, 127
+K1_REP1_SEG = 40
+K3_REP1_HEADS = ((8, 8), (4, 1))
+# torch_eval_sevenb.py at DeepSeek-Coder-6.7B's width and 4 of its 32
+# layers (a time cut: the 32-layer run's numpy init alone takes minutes)
+EVAL_SEVENB_LAYERS = 4
+EVAL_PARITY_TOL = 3e-2                   # torch_eval_flash_chip's parity
+# tests/test_learning.py's arguments: serial collection (max_parallel=1)
+# makes the sample stream deterministic
+EVAL_LEARNING = dict(rounds=6, lr=0.02, group_size=12, max_new_tokens=12,
+                     ppo_epochs=2, seed=0, window=2, max_parallel=1)
+
+
+def _eval_others(scratch):
+    """(script, argv) of the evals run at the knobs of their CPU tests;
+    checkpoints go under ``scratch`` (never a default path an earlier
+    run may have left a checkpoint in)."""
+    cap = os.path.join(scratch, "cap_ckpt")
+    return (
+        ("torch_eval_uplift.py", ["--tasks", "2", "--beam-rounds", "1"]),
+        ("torch_eval_uplift_real.py", ["--rounds", "1", "--group-size", "2",
+                                       "--beam-rounds", "1",
+                                       "--max-attempts", "2"]),
+        ("torch_eval_online_real.py", [
+            "--rounds", "2", "--ckpt", os.path.join(scratch, "uplift_ckpt"),
+            "--pretrain-rounds", "1", "--group-size", "2"]),
+        ("torch_eval_prompt_frontier.py", ["--lengths", "0", "--rounds", "1",
+                                           "--attempts", "1"]),
+        ("torch_eval_seed_robustness.py", ["--seeds", "10", "--rounds", "1",
+                                           "--configs", "baseline",
+                                           "--group-size", "2"]),
+        ("torch_eval_uplift_generative.py", [
+            "--rounds", "1", "--pretrain-attempts", "1", "--beam-rounds",
+            "1", "--proposer-steps", "10", "--max-attempts", "2"]),
+        ("torch_eval_capacity.py", ["--schedule", "0,64", "--stage0-rounds",
+                                    "1", "--stage-rounds", "1", "--attempts",
+                                    "1", "--group-size", "2", "--save-dir",
+                                    cap]),
+        ("torch_eval_capacity_probe.py", ["--load-dir", cap, "--prefixes",
+                                          "0,64", "--episodes", "2"]),
+        ("torch_eval_moe_int8.py", ["--rounds", "1"]))
+
+
+def phase_kernel_rep1(torch, timer):
+    """K1, K2 and K3 with one query head per KV head against their plain
+    versions, where the 6.7B eval and the flash-decode eval put them: K1
+    at DeepSeek-Coder-6.7B's heads (32/32, D 128) on a bf16 pool (ragged,
+    edges, three 40-token segments in 16-entry tiles and untiled) and on
+    an int8 pool (ragged; a decode row and a segment, tiled and untiled),
+    and its decode-step time; K2's forward, dK/dV and dQ at (1, 127)
+    with their times; K3 at 8/8 and 4/1 heads on split-plan edges, timed
+    at 8/8."""
+    from senweaver_ide_tpu_torch.models.config import deepseek_coder_6_7b
+    from senweaver_ide_tpu_torch.ops.flash_decode import split_plan
+    from senweaver_ide_tpu_torch.ops.paged_attention import query_tiles
+    hcfg = deepseek_coder_6_7b()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    out = {"k1_err": _k1_head_checks(torch, g, hcfg, "rep 1",
+                                     seg=K1_REP1_SEG)}
+    ragged = [1, 15, 16, 17, 1000, 2048]
+    q, pool, tables, lengths, _, _ = _k1_seq_batch(
+        torch, g, "int8", hcfg, ragged,
+        [(i, n - 1) for i, n in enumerate(ragged)])
+    errs = [_k1_check(torch, "rep 1 int8 pool ragged", q, pool, tables,
+                      lengths)]
+    seq_lens = [300, 16 + K1_REP1_SEG]
+    entries = [(0, 299)] + [(1, p) for p in range(16, 16 + K1_REP1_SEG)]
+    q, pool, tables, lengths, seq_row, pos = _k1_seq_batch(
+        torch, g, "int8", hcfg, seq_lens, entries)
+    for tiles in (query_tiles(seq_row, pos, 1), None):
+        errs.append(_k1_check(
+            torch, "rep 1 int8 pool segment "
+            + ("untiled" if tiles is None else "tiled"), q, pool, tables,
+            lengths, tiles))
+    out["k1_err_int8"] = max(errs)
+    log(f"[kernel] rep 1 heads {hcfg.num_heads}/{hcfg.num_kv_heads} D "
+        f"{hcfg.head_dim}, int8 pool: ragged {ragged}, a decode row and a "
+        f"{K1_REP1_SEG}-token segment tiled and untiled: max |kernel - "
+        f"plain| " + ", ".join(f"{e:.3g}" for e in errs))
+    ms, plain_ms, bound, nbytes = _k1_decode_time(torch, g, hcfg, timer)
+    out["k1"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bytes=nbytes)
+    log(f"[kernel] rep 1 decode step, heads {hcfg.num_heads}/"
+        f"{hcfg.num_kv_heads} D {hcfg.head_dim}, T=16 lengths 128..2048: "
+        f"kernel {ms:.4f} ms = {bound / ms:.3f} of the bound, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} bytes)")
+    out.update(_k2_heads(torch, timer, g, K2_REP1_B, K2_REP1_S,
+                         hcfg.num_heads, hcfg.num_kv_heads, hcfg.head_dim,
+                         "rep 1"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    d, b, smax = 128, 8, 1024
+    worst = 0.0
+    for hq, hkv in K3_REP1_HEADS:
+        _, chunk = split_plan(b, hkv, smax, sms)
+        lens = [1, 5, chunk - 1, chunk, chunk + 1, 512, smax - 1, smax]
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        qd = torch.randn(b, hq, d, generator=g, device="cuda").bfloat16()
+        kc = torch.randn(b, smax, hkv, d, generator=g,
+                         device="cuda").bfloat16()
+        vc = torch.randn(b, smax, hkv, d, generator=g,
+                         device="cuda").bfloat16()
+        e = _fd_check(torch, f"heads {hq}/{hkv} lengths {lens}", qd, kc, vc,
+                      lengths, FD_TOL["bf16"])
+        worst = max(worst, e)
+        log(f"[flash_decode] heads {hq}/{hkv} D {d} bf16, B={b} Smax={smax},"
+            f" lengths {lens} (chunk {chunk}): max |kernel - plain| {e:.3g};"
+            f" NaN past every length and a second launch bit-identical")
+    t = _fd_time(torch, timer, g, dict(b=16, smax=4096, heads="8/8 (rep 1)",
+                                       lo=512, hi=4096), sms)
+    out["k3"] = t
+    out["k3_err"] = max(worst, t["max_abs_err"])
+    return out
+
+
+@contextlib.contextmanager
+def _cut_config(name, **over):
+    """``models.get_config(name)`` returns the preset with ``over`` applied
+    while the block runs (a script's own ``get_config`` call picks it
+    up)."""
+    from senweaver_ide_tpu_torch import models
+    real = models.get_config
+
+    def get_config(n):
+        c = real(n)
+        return dataclasses.replace(c, **over) if n == name else c
+    models.get_config = get_config
+    try:
+        yield
+    finally:
+        models.get_config = real
+
+
+def _eval_report(label, r):
+    """The JSON line an eval printed last; fails on an ``error`` key."""
+    lines = [ln for ln in r["text"].splitlines() if ln.startswith("{")]
+    if not lines:
+        fail(f"eval {label}: no JSON line (output ended "
+             f"{r['text'][-400:]!r})")
+    report = json.loads(lines[-1])
+    if "error" in report:
+        fail(f"eval {label}: {report['error']}")
+    return report
+
+
+def _finite(xs):
+    import math
+    return all(math.isfinite(x) for x in xs)
+
+
+def phase_eval(torch, smi, timer, tiny_pools):
+    """The research evals (``torch_eval_*.py``) on the card, each in this
+    process under the entry points' ledger (seconds, K1 / K2 / K3
+    launches, every engine's K1 = layers x fused steps, tensors on the
+    card): first K1, K2 and K3 at rep 1 (:func:`phase_kernel_rep1`); then
+    the flash-kernel eval whole (every parity key within 3e-2); the 1.5B
+    GRPO round in full and QLoRA modes at 28 layers; the 6.7B-width int8
+    serve and QLoRA step at EVAL_SEVENB_LAYERS layers; the learning proof
+    with tests/test_learning.py's arguments and assertions; speculation at
+    its defaults (exact outputs, acceptance rising); the other evals at
+    the knobs of their CPU tests. ``tiny_pools``: the pool dtypes K1's
+    f32-query checks covered (phase_entry)."""
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    rep1 = phase_kernel_rep1(torch, timer)
+    t_evals = time.perf_counter()
+    scratch = _scratch_dir(2 ** 30, "chip_smoke_eval_")
+    runs = {}
+
+    def script(name, argv, marker='"metric"'):
+        # each eval's peak CUDA memory is its own
+        torch.cuda.reset_peak_memory_stats()
+        r = _entry_run(torch, f"{name} {' '.join(argv)}".strip(),
+                       os.path.join(here, name), list(argv), marker)
+        log(_entry_line(f"{name} {' '.join(argv)}".strip(), r))
+        return r
+
+    try:
+        # (b) the flash-kernel eval, writing its file under scratch
+        import torch_eval_flash_chip as flash_chip
+        torch.cuda.reset_peak_memory_stats()
+        flash_chip.OUT_PATH = os.path.join(scratch, "FLASH_torch.json")
+        r = _entry_call(torch, "torch_eval_flash_chip.py",
+                        lambda: flash_chip.main([]), '"kernels_ok"')
+        log(_entry_line("torch_eval_flash_chip.py", r))
+        runs["flash_chip"] = r
+        rep = _eval_report("flash_chip", r)
+        parity = {k: v for k, v in rep.items() if "parity" in k}
+        if not rep["kernels_ok"] or len(parity) != 4 or max(
+                parity.values()) >= EVAL_PARITY_TOL:
+            fail(f"eval flash_chip: parity {parity} (tol {EVAL_PARITY_TOL}),"
+                 f" kernels_ok {rep['kernels_ok']}")
+        if not r["k2"]["fwd"] or not r["k3"]:
+            fail(f"eval flash_chip: K2 {r['k2']}, K3 {r['k3']}: a kernel "
+                 f"was not launched")
+        log(f"[eval] flash_chip, {smi}: decode tok/s einsum "
+            f"{rep['decode_einsum_tok_s']} / flash {rep['decode_flash_tok_s']}"
+            f" (x{rep['decode_flash_speedup']}); 4k forward ms einsum "
+            f"{rep['fwd4k_einsum_ms']} / flash {rep['fwd4k_flash_ms']} "
+            f"(x{rep['fwd4k_flash_speedup']}); worst parity "
+            f"{max(parity.values()):.3g}")
+        # (c) one GRPO round at the full 1.5B shape, full and QLoRA
+        for mode in ("full", "qlora"):
+            r = script("torch_eval_onepointfiveb.py", ["--mode", mode])
+            rep = _eval_report(f"onepointfiveb {mode}", r)
+            eng, steps = r["engines"], rep["config"]["steps"]
+            train = rep["phases"]["train"]
+            want = steps * 28
+            if (len(eng) != 1 or eng[0]["layers"] != 28 or not eng[0]["paged"]
+                    or r["k1"] != 28 * eng[0]["steps"]
+                    or r["k2"] != {"fwd": want, "dkdv": want, "dq": want}
+                    or not _finite(train["losses"] + train["grad_norms"])
+                    or not train["update_signal"]):
+                fail(f"eval onepointfiveb {mode}: engines {eng}, K1 "
+                     f"{r['k1']}, K2 {r['k2']} (want {want} each for {steps} "
+                     f"steps x 28 layers), train {train}")
+            runs[f"onepointfiveb_{mode}"] = r
+            log(f"[eval] onepointfiveb {mode}, {smi}: K1 {r['k1']} = 28 x "
+                f"{eng[0]['steps']} fused steps, K2 {r['k2']}, losses "
+                f"{train['losses']}, grad norms {train['grad_norms']}, "
+                f"step walls {train['step_walls_s']} s, peak CUDA "
+                f"{rep['peak_cuda_gb']} GB, peak RSS {rep['peak_rss_gb']} GB")
+        # (d) the 6.7B width: int8 serve through the int8 pool, QLoRA step
+        with _cut_config("deepseek-coder-6.7b",
+                         num_layers=EVAL_SEVENB_LAYERS):
+            r = script("torch_eval_sevenb.py", ["--update-step"])
+        rep = _eval_report("sevenb", r)
+        eng, upd = r["engines"], rep["qlora_update"]
+        n = EVAL_SEVENB_LAYERS
+        if (len(eng) != 1 or eng[0]["layers"] != n or not eng[0]["paged"]
+                or r["k1"] != n * eng[0]["steps"] or not eng[0]["steps"]
+                or set(r["k1_by"]) != {"bf16/int8"}
+                or r["k2"] != {"fwd": n, "dkdv": n, "dq": n}
+                or not _finite([upd["loss"], upd["grad_norm"]])):
+            fail(f"eval sevenb: engines {eng}, K1 {r['k1']} {r['k1_by']}, "
+                 f"K2 {r['k2']} (want {n} each), update {upd}")
+        runs["sevenb"] = r
+        log(f"[eval] sevenb at {n} of 32 layers, {smi}: K1 {r['k1']} = {n} x "
+            f"{eng[0]['steps']} fused steps (rep 1, int8 pool), K2 "
+            f"{r['k2']}, QLoRA loss {upd['loss']} grad norm "
+            f"{upd['grad_norm']}, init {rep['int8_init']['wall_s']} s, "
+            f"step {upd['step_wall_s']} s, peak CUDA {upd['peak_cuda_gb']} "
+            f"GB, sizing card {rep['sizing']['card']} "
+            f"{rep['sizing']['hbm_gb']} GB")
+        # (e) the learning proof
+        import torch_eval_learning as learning
+
+        def learn():
+            print(json.dumps(learning.run_learning_eval(**EVAL_LEARNING,
+                                                        device="cuda")))
+        torch.cuda.reset_peak_memory_stats()
+        r = _entry_call(torch, "torch_eval_learning.py", learn, '"metric"')
+        log(_entry_line("torch_eval_learning.py (tests/test_learning.py's "
+                        "arguments)", r))
+        rep = _eval_report("learning", r)
+        if not (len(rep["curve"]) == EVAL_LEARNING["rounds"]
+                and rep["reward_final"] > rep["reward_initial"] + 0.5
+                and rep["reward_final"] > 0.3 and rep["learned"]):
+            fail(f"eval learning: curve {rep['curve']}, initial "
+                 f"{rep['reward_initial']}, final {rep['reward_final']}, "
+                 f"learned {rep['learned']}")
+        runs["learning"] = r
+        log(f"[eval] learning, {smi}: curve {rep['curve']}, reward "
+            f"{rep['reward_initial']} -> {rep['reward_final']}")
+        # (f) speculation at its defaults
+        r = script("torch_eval_speculative.py", [])
+        rep = _eval_report("speculative", r)
+        if not (rep["outputs_exact"]
+                and rep["acceptance_after"] > rep["acceptance_before"]):
+            fail(f"eval speculative: {rep}")
+        runs["speculative"] = r
+        log(f"[eval] speculative: acceptance {rep['acceptance_before']} -> "
+            f"{rep['acceptance_after']}, outputs exact")
+        # (g) the other evals
+        for name, argv in _eval_others(scratch):
+            # the scripted uplift report has no "metric" key
+            r = script(name, argv, '"baseline_final_reward"'
+                       if name == "torch_eval_uplift.py" else '"metric"')
+            _eval_report(name, r)
+            runs[name] = r
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    try:
+        import transformers  # noqa: F401
+        hf = "transformers is importable here, but "
+    except ImportError:
+        hf = "no transformers on this machine; "
+    log(f"[eval] torch_eval_hf_roundtrip.py: not run on the card ({hf}its "
+        f"tokenizer directory needs tokenizers and transformers; the CPU "
+        f"tests hold it, and phase_hf holds the full-width weights round "
+        f"trip)")
+    k1_by = {}
+    for r in runs.values():
+        for k, v in r["k1_by"].items():
+            k1_by[k] = k1_by.get(k, 0) + v
+    checked = ({"bf16/bf16", "bf16/int8"}
+               | {f"f32/{p}" for p in tiny_pools})
+    if set(k1_by) - checked:
+        fail(f"eval: K1 launched on query/pool dtypes that no check held "
+             f"against its plain version: {sorted(set(k1_by) - checked)}")
+    total = {"k1": sum(r["k1"] for r in runs.values()), "k1_by": k1_by,
+             "k3": sum(r["k3"] for r in runs.values()),
+             "k2": {k: sum(r["k2"][k] for r in runs.values())
+                    for k in ("fwd", "dkdv", "dq")}}
+    secs = {k: r["s"] for k, r in runs.items()}
+    log(f"[eval] {len(runs)} eval runs, {smi}: rep-1 checks "
+        f"{t_evals - t_phase:.1f} s, evals {time.perf_counter() - t_evals:.1f}"
+        f" s, phase {time.perf_counter() - t_phase:.1f} s; K1 {total['k1']} "
+        f"{_k1_by_text(k1_by)}, K3 {total['k3']}, K2 {total['k2']}; seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return {**total, "rep1": rep1, "seconds": secs}
 
 
 def phase_online(torch, cfg, params, seed, smi):
@@ -3579,9 +3927,10 @@ def phase_async(torch, cfg, params, seed, smi):
 # The speculation path (phase_spec): the serving phase's paged engine,
 # greedy, at full qwen2.5-coder-1.5b width, with a qwen2.5-coder-0.5b
 # draft (random weights from --seed + 1); SPEC_REQUESTS prompts of
-# SPEC_PROMPT_LENS tokens, SPEC_NEW_TOKENS new each.
+# SPEC_PROMPT_LENS tokens, SPEC_NEW_TOKENS new each (16, a time cut
+# that makes room for phase_eval; 32 before it).
 SPEC_SLOTS, SPEC_MAX_LEN, SPEC_REQUESTS = 16, 2048, 16
-SPEC_PROMPT_LENS, SPEC_NEW_TOKENS = (128, 1024), 32
+SPEC_PROMPT_LENS, SPEC_NEW_TOKENS = (128, 1024), 16
 SPEC_DEPTHS = (2, 4, 8)
 SPEC_SELF_REQUESTS = 4
 # The self-draft (draft = target) at depth 4 must accept at least this
@@ -3592,9 +3941,10 @@ SPEC_SELF_ACCEPT_MIN = 0.5
 # The draft's distillation: DRAFT_DISTILL_STEPS CE steps on the depth-4
 # run's harvested outcomes, attn_impl="flash" (K2)
 DRAFT_DISTILL_STEPS, DRAFT_DISTILL_BATCH = 8, 8
-# SpeculativeDecoder: one prompt, k, new tokens; the slot cache at a
-# 128-aligned length (K3 serves the draft's one-token feeds)
-DECODER_PROMPT, DECODER_NEW, DECODER_K, DECODER_MAX_LEN = 512, 64, 4, 640
+# SpeculativeDecoder: one prompt, k, new tokens (32, the same time cut;
+# 64 before); the slot cache at a 128-aligned length (K3 serves the
+# draft's one-token feeds)
+DECODER_PROMPT, DECODER_NEW, DECODER_K, DECODER_MAX_LEN = 512, 32, 4, 640
 # The logit paths whose rounding may flip a near-tie argmax: each of
 # TIE_ROWS prompts' last TIE_DEPTH tokens as one verify window on the
 # pool and on a slot cache, as single decode entries (alone and one per
@@ -6280,7 +6630,6 @@ def phase_kernel_rep8(torch, mcfg, timer):
     checks (two-entry tiles) and its decode-step time; K2's forward, dK/dV
     and dQ against their plain versions at the QLoRA step's shape
     (2 x 511), each timed beside its bound and its plain version."""
-    from senweaver_ide_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(5)
     out = {"k1_err": _k1_head_checks(torch, g, mcfg, "rep 8")}
     ms, plain_ms, bound, nbytes = _k1_decode_time(torch, g, mcfg, timer)
@@ -6289,8 +6638,19 @@ def phase_kernel_rep8(torch, mcfg, timer):
         f"{mcfg.num_kv_heads} D {mcfg.head_dim}, T=16 lengths 128..2048: "
         f"kernel {ms:.4f} ms = {bound / ms:.3f} of the bound, plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes} bytes)")
-    hq, hkv, d = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
-    b, s = K2_REP8_B, K2_REP8_S
+    out.update(_k2_heads(torch, timer, g, K2_REP8_B, K2_REP8_S,
+                         mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim,
+                         "rep 8"))
+    return out
+
+
+def _k2_heads(torch, timer, g, b, s, hq, hkv, d, tag):
+    """K2's forward, dK/dV and dQ against their plain versions on one
+    causal bf16 (B, S) batch at heads ``hq``/``hkv``, two launches
+    bit-identical, each timed beside its bound, its plain version and
+    SDPA. Returns {kernel: times and worst error}."""
+    from senweaver_ide_tpu_torch.ops import flash_attention as fa
+    out = {}
     names = ("out", "lse", "dq", "dk", "dv")
     args = _fa_case(torch, fa, g, b, s, hq, hkv, d)
     got, again = _fa_run(fa, *args), _fa_run(fa, *args)
@@ -6299,10 +6659,10 @@ def phase_kernel_rep8(torch, mcfg, timer):
     errs = {}
     for name, a, a2, r in zip(names, got, again, ref):
         if not torch.equal(a, a2):
-            fail(f"flash rep 8: {name} differs between two launches")
+            fail(f"flash {tag}: {name} differs between two launches")
         e, ok = _fa_err(a, r, *FA_TOL[name])
         if not ok:
-            fail(f"flash rep 8 B={b} S={s}: {name} kernel vs plain max err "
+            fail(f"flash {tag} B={b} S={s}: {name} kernel vs plain max err "
                  f"{e} (tol {_fa_tol_text(FA_TOL[name])})")
         errs[name] = e
     q, k, v, gout, bias, kw = args
@@ -6325,7 +6685,7 @@ def phase_kernel_rep8(torch, mcfg, timer):
         out[kname] = dict(ms=t[kname], plain_ms=plain, bound_ms=bound,
                           library_ms=lib,
                           max_abs_err=max(errs[n] for n in FA_ERR_OF[kname]))
-        log(f"[flash] rep 8 {kname} at B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+        log(f"[flash] {tag} {kname} at B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
             f"bf16 causal: kernel {t[kname]:.4f} ms = {bound / t[kname]:.3f} "
             f"of the bound, plain {plain:.4f} ms, bound {bound:.4f} ms, SDPA "
             f"({gqa_note}) {lib:.4f} ms"
@@ -7675,6 +8035,10 @@ def main(argv=None) -> int:
     round_launches = phase_round(torch, cfg, params, args.seed, smi)
     loaded, _ = phase_hf(torch, cfg, params, smi)
     entry = phase_entry(torch, cfg, loaded, smi, timer)
+    evals = phase_eval(torch, smi, timer,
+                       entry["tiny_k1"]["max_abs_err_by_pool"])
+    gc.collect()
+    torch.cuda.empty_cache()
     online_launches, _ = phase_online(torch, cfg, loaded, args.seed, smi)
     reuse_launches = phase_reuse(torch, cfg, loaded, args.seed, smi)
     async_launches = phase_async(torch, cfg, loaded, args.seed, smi)
@@ -7728,6 +8092,7 @@ def main(argv=None) -> int:
     moe = phase_moe(torch, dataclasses.replace(
         qwen3_30b_a3b(), num_layers=MOE_LAYERS), args.seed, smi, timer)
     rep8 = moe["rep8"]
+    rep1 = evals["rep1"]
     kernels = []
     for variant, r in kern.items():
         kernels.append({
@@ -7739,6 +8104,7 @@ def main(argv=None) -> int:
             "launches_round": (round_launches["k1"] if variant == "bf16"
                                else None),
             "launches_entry": entry["k1_by"].get(f"bf16/{variant}", 0),
+            "launches_eval": evals["k1_by"].get(f"bf16/{variant}", 0),
             "launches_online": (online_launches["k1"] if variant == "bf16"
                                 else None),
             "launches_reuse": {"bf16": reuse_launches["k1"],
@@ -7769,8 +8135,11 @@ def main(argv=None) -> int:
             "launches_qlora": (moe["k1"]["qlora"] if variant == "bf16"
                                else None),
             "max_abs_err": (max(r["max_abs_err"], kspec["max_abs_err_d64"],
-                                kspec["max_abs_err_verify"], rep8["k1_err"])
-                            if variant == "bf16" else r["max_abs_err"]),
+                                kspec["max_abs_err_verify"], rep8["k1_err"],
+                                rep1["k1_err"])
+                            if variant == "bf16" else
+                            max(r["max_abs_err"], rep1["k1_err_int8"])
+                            if variant == "int8" else r["max_abs_err"]),
             "tolerance": f"{KERNEL_ATOL} + {KERNEL_RTOL} * |plain|",
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -7800,6 +8169,11 @@ def main(argv=None) -> int:
                for key in ("ms", "plain_ms", "bound_ms", "bytes")},
             "max_abs_err_rep8": (rep8["k1_err"] if variant == "bf16"
                                  else None),
+            **{f"rep1_{key}": (rep1["k1"][key] if variant == "bf16"
+                               else None)
+               for key in ("ms", "plain_ms", "bound_ms", "bytes")},
+            "max_abs_err_rep1": {"bf16": rep1["k1_err"],
+                                 "int8": rep1["k1_err_int8"]}.get(variant),
             "resources": r["resources"]})
     tiny = entry["tiny_k1"]
     kernels.append({
@@ -7812,6 +8186,9 @@ def main(argv=None) -> int:
         "launches_entry": {k.split("/")[1]: n
                            for k, n in entry["k1_by"].items()
                            if k.startswith("f32/")},
+        "launches_eval": {k.split("/")[1]: n
+                          for k, n in evals["k1_by"].items()
+                          if k.startswith("f32/")},
         "max_abs_err": tiny["max_abs_err"],
         "max_abs_err_by_pool": tiny["max_abs_err_by_pool"],
         "tolerance": tiny["tolerance"],
@@ -7837,6 +8214,7 @@ def main(argv=None) -> int:
             "launches": train_launches[kname],
             "launches_round": round_launches[kname],
             "launches_entry": entry["k2"][kname],
+            "launches_eval": evals["k2"][kname],
             "launches_online": online_launches[kname],
             "launches_reuse": reuse_launches[kname],
             "launches_async": async_launches[kname],
@@ -7855,6 +8233,7 @@ def main(argv=None) -> int:
             "local_heads": par["kern"]["k2"][kname],
             "max_abs_err": max(r["max_abs_err"],
                                rep8[kname]["max_abs_err"],
+                               rep1[kname]["max_abs_err"],
                                par["kern"]["k2"][kname]["max_abs_err"]),
             "tolerance": _fa_tol_text(FA_TOL[FA_ERR_OF[kname][0]]),
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
@@ -7868,7 +8247,11 @@ def main(argv=None) -> int:
             **{f"rep8_{key}": rep8[kname][key]
                for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                            "max_abs_err")},
-            "rep8_shape": f"B={K2_REP8_B} S={K2_REP8_S} heads 32/4 D 128"})
+            "rep8_shape": f"B={K2_REP8_B} S={K2_REP8_S} heads 32/4 D 128",
+            **{f"rep1_{key}": rep1[kname][key]
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                           "max_abs_err")},
+            "rep1_shape": f"B={K2_REP1_B} S={K2_REP1_S} heads 32/32 D 128"})
     kernels.append({
         "name": "flash_decode", "route": "cuda",
         "source": "senweaver_ide_tpu_torch/csrc/flash_decode.cu",
@@ -7876,6 +8259,7 @@ def main(argv=None) -> int:
         "launches": slot_launches,
         "launches_int8_slots_qwen": int8_launches,
         "launches_entry": entry["k3"],
+        "launches_eval": evals["k3"],
         "launches_reuse": reuse_launches["k3"],
         "launches_async": async_launches["k3"],
         "launches_spec": spec_launches["k3"],
@@ -7890,7 +8274,12 @@ def main(argv=None) -> int:
         "launches_parallel": par["k3"],
         "local_heads": par["kern"]["k3"],
         "max_abs_err": max(fd["max_abs_err"],
-                           par["kern"]["k3"]["max_abs_err"]),
+                           par["kern"]["k3"]["max_abs_err"],
+                           rep1["k3_err"]),
+        **{f"rep1_{key}": rep1["k3"][key]
+           for key in ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                       "bytes")},
+        "rep1_shape": "B=16 Smax=4096 heads 8/8 D 128, lengths 512..4096",
         "max_abs_err_f32": fd["max_abs_err_f32"],
         "tolerance": f"{FD_TOL['bf16'][0]} + {FD_TOL['bf16'][1]} * |plain|",
         "ms": fd["kernel_ms"], "kernel_ms": fd["kernel_ms"],

@@ -67,6 +67,8 @@ COPIES = (
     # repo, and its copy is the ``torch_`` file beside it
     "scripts/serve_report.py", "scripts/prefix_report.py",
     "scripts/resilience_report.py", "scripts/analysis_report.py",
+    # the flash-kernel eval, rewritten (ALLOWED_TO_DIFFER)
+    "eval_flash_chip.py",
 )
 
 # Copies with a few hunks of their own, each named with its reason; the
@@ -171,6 +173,73 @@ PATCHED = {
     "scripts/training_health_report.py": 11,
     # obs: --health reads the torch_ training-health report beside it
     "scripts/obs_report.py": 1,
+    # The research evals at the repo root (torch_eval_*.py beside each
+    # eval_*.py). Each runs on the card unless given --cpu: the flag and
+    # the device it resolves replace JAX's forced CPU platform (the flag
+    # and the device are one hunk each wherever they stand apart);
+    # torch.Generator seeds replace PRNGKeys; every engine, train state,
+    # reward head and session collector gets the device; a sibling eval
+    # is imported as its torch_ file; the usage line names the torch_
+    # file; the error line's comment says whom it is for (the caller).
+    # Then each file's own hunks:
+    # uplift_real (the base): device_collector (a TraceCollector whose
+    # reward head scores on the run's device), load_policy's signature,
+    # imports, template and engine (four), pretrain's signature,
+    # docstring, imports, device, train state and engine (six), the
+    # pretrain and probe sessions' collectors, the scorer's docstring
+    # with its torch import, its sessions' collector, its batch scored
+    # on the engine's device, the run's corpus (a comment where the
+    # collector import stood, the collector, make_local_apo's device),
+    # main's device passed to load_policy and pretraining
+    "eval_uplift_real.py": 26,
+    # online_real: the signature, device_collector imported where the
+    # collector import stood, load_policy's and pretraining's device,
+    # the shared collector and the APO service on the engine's device;
+    # --ckpt has no default path (a fixed directory may hold another
+    # package's or another checkout's checkpoint): it pretrains
+    "eval_online_real.py": 13,
+    "eval_prompt_frontier.py": 8,
+    "eval_seed_robustness.py": 8,
+    # generative: the proposer LM trains and serves on the device
+    "eval_uplift_generative.py": 10,
+    # capacity: --accel accepted and changing nothing (its help), the
+    # device through both pretraining paths and load_policy; --init-from's
+    # help names the port's checkpoint, not a fixed directory
+    "eval_capacity.py": 12,
+    # capacity_probe: --load-dir is required (no fixed directory that
+    # may hold another package's or another checkout's checkpoint)
+    "eval_capacity_probe.py": 8,
+    # learning: --accel as in capacity; the generator helper, the
+    # session's collector
+    "eval_learning.py": 13,
+    # moe_int8: the forward returns the logits alone (no cache), under
+    # no_grad, on the params' device; the greedy loop likewise
+    "eval_moe_int8.py": 13,
+    # speculative: two seeded generators on the device (the unrelated
+    # draft init as JAX's two keys); two docstring lines say what the
+    # artifact is without naming who reads it
+    "eval_speculative.py": 10,
+    # uplift: the scripted policy's reward head and the --model-dir
+    # engine on the device (the checkpoint loads there)
+    "eval_uplift.py": 5,
+    # onepointfiveb: cuda_gb (peak CUDA memory beside peak RSS), the
+    # training forward on the flash-attention kernel (attn_impl="flash";
+    # its plain version on CPU tensors), host batches as tensors
+    "eval_onepointfiveb.py": 13,
+    # sevenb: sizing_table against the card's own memory (card, hbm_gb,
+    # fits_card and the decode slots; None on the CPU) in place of the
+    # 16 GB TPU budget, its docstring lines; streamed_int8_init's numpy
+    # stream unchanged, each finished tensor moved to the device; the
+    # leaf count over dicts; the fsdp=8 note without its TPU claim; the
+    # engine serves from the paged int8 pool (K1 dequantizes as it
+    # reads; kv_quant's slot cache decodes with plain attention); the
+    # QLoRA step's forward on the flash-attention kernel; peak CUDA
+    # memory beside peak RSS
+    "eval_sevenb.py": 38,
+    # hf_roundtrip: leaves compared by flatten_params, the load and both
+    # engines on the params' device; --ckpt has no default path (as
+    # online_real's): it pretrains
+    "eval_hf_roundtrip.py": 17,
 }
 
 # 1-based lines of the JAX files whose comment dates a feature by the
@@ -195,9 +264,15 @@ REWORDED_LINES = {
     "native/senweaver_ctl.cpp": (7,),
 }
 
-# module -> why the port's file differs from the JAX one (none today:
-# the trimmed package __init__s and the torch rewrites are not copies)
-ALLOWED_TO_DIFFER = {}
+# module -> why the port's file differs from the JAX one (the trimmed
+# package __init__s and the torch rewrites are not copies)
+ALLOWED_TO_DIFFER = {
+    "eval_flash_chip.py": "its sections are functions the tests run "
+    "alone (parity on the CPU through the plain versions), a failing "
+    "section raises where JAX's catches it into an *_error key, and the "
+    "card's name, power limit and kernels_ok replace interpret_mode and "
+    "lowered_on_tpu",
+}
 
 _NAME = re.compile(r"\bsenweaver_ide_tpu\b")
 

@@ -49,9 +49,16 @@ def _entry_files(folder):
                   if f.startswith("torch_") and f.endswith(".py"))
 
 
+def _eval_files():
+    """The research evals' ports: ``torch_eval_*.py`` at the repo root."""
+    return sorted(os.path.join(ROOT, f) for f in os.listdir(ROOT)
+                  if f.startswith("torch_eval_") and f.endswith(".py"))
+
+
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     out += _entry_files("scripts") + _entry_files("examples")
+    out += _eval_files()
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -154,6 +161,14 @@ EXAMPLES = ("serve", "train_grpo", "online_cycle", "qlora_quickstart",
 REPORTS = ("kv_quant", "kv_pressure", "spec", "group_tree", "migration",
            "learner", "remote_fleet", "slo", "fleet_obs", "training_health")
 JSONL_REPORTS = ("obs", "serve", "prefix", "resilience", "analysis")
+# the research evals (torch_eval_<name>.py at the repo root)
+EVALS = ("capacity", "capacity_probe", "flash_chip", "hf_roundtrip",
+         "learning", "moe_int8", "onepointfiveb", "online_real",
+         "prompt_frontier", "seed_robustness", "sevenb", "speculative",
+         "uplift", "uplift_generative", "uplift_real")
+# the flags an eval cannot start without (the probe reads a checkpoint it
+# is given; the card is refused before anything is read)
+EVAL_ARGV = {"capacity_probe": ["--load-dir", "no_such_ckpt"]}
 
 
 def test_scan_covers_every_port_script():
@@ -166,6 +181,16 @@ def test_scan_covers_every_port_script():
     for name in ("serving_profile", "train_profile", "flash_ab",
                  "k1_host_cost", "mesh_nccl", "smoke_parallel"):
         assert os.path.join(ROOT, "scripts", f"torch_{name}.py") in files
+    for name in EVALS:
+        assert os.path.join(ROOT, f"torch_eval_{name}.py") in files
+
+
+def test_every_jax_eval_has_its_port():
+    jax_evals = sorted(f[len("eval_"):-3] for f in os.listdir(ROOT)
+                       if f.startswith("eval_") and f.endswith(".py"))
+    assert jax_evals == sorted(EVALS)
+    assert [os.path.basename(p) for p in _eval_files()] == sorted(
+        f"torch_eval_{n}.py" for n in EVALS)
 
 
 def test_port_imports_with_jax_blocked():
@@ -325,6 +350,72 @@ def test_entry_points_import_with_jax_blocked():
              for n in JSONL_REPORTS]
     code = _BLOCKED_IMPORT.format(banned=BANNED) + \
         _ENTRIES_UNDER_BLOCKER.format(entries=entries, jsonl=jsonl)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split()[-1] == "ok"
+
+
+def _refused(code, out, err=None):
+    """A refusal of a missing card: the RuntimeError itself, or an eval's
+    JSON error line with exit 1 (the evals print one for any failure)."""
+    if err is not None:
+        return "CUDA is not available" in str(err)
+    last = out.strip().splitlines()[-1] if out.strip() else ""
+    return code == 1 and last.startswith('{"error": ') and \
+        "CUDA is not available" in last
+
+
+@pytest.mark.parametrize("name", EVALS)
+def test_eval_refuses_without_a_card(name, no_cuda, monkeypatch, capsys):
+    """Without a card and without --cpu an eval raises, naming CUDA (or
+    exits 1 with the error line naming it); it never carries on on the
+    CPU."""
+    import runpy
+    path = os.path.join(ROOT, f"torch_eval_{name}.py")
+    monkeypatch.setattr(sys, "argv", [path, *EVAL_ARGV.get(name, [])])
+    monkeypatch.syspath_prepend(ROOT)
+    code, err = 0, None
+    try:
+        runpy.run_path(path, run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    except RuntimeError as e:
+        err = e
+    assert _refused(code, capsys.readouterr().out, err), (code, err)
+
+
+_EVALS_UNDER_BLOCKER = r"""
+import contextlib, io, runpy, torch
+torch.cuda.is_available = lambda: False
+sys.path.insert(0, {root!r})
+for path, argv in {evals!r}:
+    sys.argv = [path, *argv]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 1 and "CUDA is not available" in buf.getvalue(), (
+            path, buf.getvalue())
+    except RuntimeError as e:
+        assert "CUDA is not available" in str(e), (path, e)
+    else:
+        raise AssertionError(path + " ran without a card")
+assert not [k for k in sys.modules if k.split(".")[0] in BANNED]
+print("evals ok")
+"""
+
+
+def test_evals_import_with_jax_blocked():
+    """Every eval port, and the sibling evals each imports, run up to
+    their refusal of a missing card with the JAX package blocked."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    code = _BLOCKED_IMPORT.format(banned=BANNED) + \
+        _EVALS_UNDER_BLOCKER.format(root=ROOT, evals=[
+            (p, EVAL_ARGV.get(os.path.basename(p)[len("torch_eval_"):-3],
+                              [])) for p in _eval_files()])
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
