@@ -113,6 +113,21 @@ Phases, each fatal on failure:
     (their seconds are printed). Prints each entry's seconds and K1 / K3
     / K2 launches, K1's by query and pool dtype (on the kernels line, the
     bf16 query's on the pool's row, the f32 query's on the f32 row).
+13c. The root entry points (``phase_bench``, after ``phase_eval``), each
+    call in this process under phase 13b's ledger: ``torch_bench.py``'s
+    primary row (qwen2.5-coder-1.5b, 8 x 512 + 128 new, slope-timed
+    ``generate_scan``) at full width and depth; ``qwen1.5b_b8_flash`` at the
+    same shape and depth (K3 = 28 x decode steps), both
+    deepseek-coder-6.7b rows (int8 KV; int8 weights) and
+    ``mistral7b_b4_swa`` at BENCH_CUT_LAYERS (4) layers of full width; the paged protocol cases (prefix_fleet,
+    paged_vs_slots, kv_pressure, kv_quant, group_rollout) on tiny-test,
+    K1 = layers x fused steps of each paged engine, outputs exact across
+    arms; ``scripts/torch_perf_gate.py``'s selftest and its eleven cases
+    (no kernel build inside a timed window); ``torch_graft_entry.py``'s
+    ``entry()`` at full width and ``dryrun_multichip(2)`` on tiny-test,
+    two ranks sharing the card over gloo, started with the phase and
+    running beside the decode rows. Prints each call's seconds, rates and
+    launches.
 14. The online improvement loop (``phase_online``, on the loaded
     weights): phase 12's engine and sessions under an
     OnlineImprovementLoop with kl_coef 0.05 and the anchor refreshed every
@@ -353,7 +368,8 @@ Phases, each fatal on failure:
     bytes a tick, the send route and each rank's peak memory. Prints
     each rank's peak memory, collective routes and phase seconds.
 27. A JSON line with every kernel's numbers (``launches_round``,
-    ``launches_entry``, ``launches_online``, ``launches_reuse``, ``launches_async``,
+    ``launches_entry``, ``launches_eval``, ``launches_bench``,
+    ``launches_online``, ``launches_reuse``, ``launches_async``,
     ``launches_spec``, ``launches_group``, ``launches_tenants``,
     ``launches_migrate``, ``launches_fleet``, ``launches_learner``,
     ``launches_control``,
@@ -2341,8 +2357,9 @@ def _entry_ledger():
     the step's wall ms), the device of every GRPO step's params, of every
     reward-head batch, of every diagnostics-head launch, of the target's
     and the draft's params of every speculative decoder and of the params
-    of every ``generate_scan`` decode it reaches by its module; and skip the
-    agent loop's retry-backoff sleeps (their seconds are recorded): the
+    of every ``generate_scan`` and ``decode_step`` decode it reaches by
+    its module; and skip the agent loop's retry-backoff sleeps (their
+    seconds are recorded): the
     scripted policy's failing patterns exhaust the loop's retries, and the
     backoffs would add tens of seconds of waiting that measure nothing."""
     from senweaver_ide_tpu_torch.agents.loop import AgentLoop
@@ -2365,6 +2382,7 @@ def _entry_ledger():
     k1 = transformer.paged_flash_decode
     sleep = AgentLoop.__init__.__kwdefaults__["sleep"]
     spec_init, scan = SpeculativeDecoder.__init__, sampler.generate_scan
+    decode = sampler.decode_step
 
     def _init(self, *a, **kw):
         init(self, *a, **kw)
@@ -2412,6 +2430,10 @@ def _entry_ledger():
         rec["devices"].add(_leaves(params)[0].device.type)
         return scan(params, *a, **kw)
 
+    def _decode(params, *a, **kw):
+        rec["devices"].add(params["embed"].device.type)
+        return decode(params, *a, **kw)
+
     def _skip(seconds):
         rec["slept_s"] += seconds
 
@@ -2424,6 +2446,7 @@ def _entry_ledger():
     diagnostics.dispatch_round_health = _diag
     AgentLoop.__init__.__kwdefaults__["sleep"] = _skip
     SpeculativeDecoder.__init__, sampler.generate_scan = _spec_init, _scan
+    sampler.decode_step = _decode
     try:
         yield rec
     finally:
@@ -2436,6 +2459,7 @@ def _entry_ledger():
         diagnostics.dispatch_round_health = diag
         AgentLoop.__init__.__kwdefaults__["sleep"] = sleep
         SpeculativeDecoder.__init__, sampler.generate_scan = spec_init, scan
+        sampler.decode_step = decode
 
 
 def _dtype_name(x):
@@ -2626,6 +2650,12 @@ K3_REP1_HEADS = ((8, 8), (4, 1))
 # torch_eval_sevenb.py at DeepSeek-Coder-6.7B's width and 4 of its 32
 # layers (a time cut: the 32-layer run's numpy init alone takes minutes)
 EVAL_SEVENB_LAYERS = 4
+# torch_eval_flash_chip.py's decode and 4k-forward sections at 4 of
+# Qwen2.5-Coder-1.5B's 28 layers, full width (a time cut: phase_bench's
+# qwen1.5b_b8_flash row decodes the same batch through K3 at all 28
+# layers; the 4096-token forward's full-depth time is taken only by the
+# whole eval, run on its own)
+EVAL_FLASH_LAYERS = 4
 EVAL_PARITY_TOL = 3e-2                   # torch_eval_flash_chip's parity
 # tests/test_learning.py's arguments: serial collection (max_parallel=1)
 # makes the sample stream deterministic
@@ -2773,7 +2803,8 @@ def phase_eval(torch, smi, timer, tiny_pools):
     process under the entry points' ledger (seconds, K1 / K2 / K3
     launches, every engine's K1 = layers x fused steps, tensors on the
     card): first K1, K2 and K3 at rep 1 (:func:`phase_kernel_rep1`); then
-    the flash-kernel eval whole (every parity key within 3e-2); the 1.5B
+    the flash-kernel eval at EVAL_FLASH_LAYERS layers (every parity key
+    within 3e-2); the 1.5B
     GRPO round in full and QLoRA modes at 28 layers; the 6.7B-width int8
     serve and QLoRA step at EVAL_SEVENB_LAYERS layers; the learning proof
     with tests/test_learning.py's arguments and assertions; speculation at
@@ -2801,8 +2832,10 @@ def phase_eval(torch, smi, timer, tiny_pools):
         import torch_eval_flash_chip as flash_chip
         torch.cuda.reset_peak_memory_stats()
         flash_chip.OUT_PATH = os.path.join(scratch, "FLASH_torch.json")
-        r = _entry_call(torch, "torch_eval_flash_chip.py",
-                        lambda: flash_chip.main([]), '"kernels_ok"')
+        with _cut_config("qwen2.5-coder-1.5b",
+                         num_layers=EVAL_FLASH_LAYERS):
+            r = _entry_call(torch, "torch_eval_flash_chip.py",
+                            lambda: flash_chip.main([]), '"kernels_ok"')
         log(_entry_line("torch_eval_flash_chip.py", r))
         runs["flash_chip"] = r
         rep = _eval_report("flash_chip", r)
@@ -2814,7 +2847,8 @@ def phase_eval(torch, smi, timer, tiny_pools):
         if not r["k2"]["fwd"] or not r["k3"]:
             fail(f"eval flash_chip: K2 {r['k2']}, K3 {r['k3']}: a kernel "
                  f"was not launched")
-        log(f"[eval] flash_chip, {smi}: decode tok/s einsum "
+        log(f"[eval] flash_chip at {EVAL_FLASH_LAYERS} layers, {smi}: "
+            f"decode tok/s einsum "
             f"{rep['decode_einsum_tok_s']} / flash {rep['decode_flash_tok_s']}"
             f" (x{rep['decode_flash_speedup']}); 4k forward ms einsum "
             f"{rep['fwd4k_einsum_ms']} / flash {rep['fwd4k_flash_ms']} "
@@ -2930,6 +2964,192 @@ def phase_eval(torch, smi, timer, tiny_pools):
         f"{_k1_by_text(k1_by)}, K3 {total['k3']}, K2 {total['k2']}; seconds "
         + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     return {**total, "rep1": rep1, "seconds": secs}
+
+
+# The root entry points (phase_bench): torch_bench.py's rows and paged
+# protocol cases, torch_perf_gate.py and torch_graft_entry.py, run in this
+# process on the card. BENCH_CUT_LAYERS cuts the depth of the 7B-class
+# rows (a time cut: every step scales with the depth; the whole
+# torch_bench.py runs every row at full depth). The 1.5B rows, the
+# flash-decode row through K3 included, run at all 28 layers.
+BENCH_CUT_LAYERS = 4
+# the slope's timed runs at each length in the phase's decode rows (the
+# script's own TIMED_ITERS is 3): a time cut of repetition
+BENCH_TIMED_ITERS = 1
+BENCH_PROTOCOL = ("prefix_fleet", "paged_vs_slots", "kv_pressure",
+                  "kv_quant", "group_rollout")
+
+
+def phase_bench(torch, smi, tiny_pools):
+    """The last three root entry points on the card, each call in this
+    process under the entry points' ledger (seconds, K1 / K2 / K3
+    launches, every paged engine's K1 = layers x fused steps, tensors on
+    the card), each decode row's slope timed over BENCH_TIMED_ITERS runs
+    a length: ``torch_bench.py``'s primary row (qwen2.5-coder-1.5b b8
+    p512 n128 at full width and depth), ``qwen1.5b_b8_flash`` at the same
+    shape (K3 = 28 layers x the decode steps of its runs), the two
+    deepseek-coder-6.7b rows and the mistral-7b row, these three at
+    BENCH_CUT_LAYERS layers of full width, and the paged protocol cases
+    on tiny-test (K1);
+    ``torch_perf_gate.py``'s selftest and its measure() (no kernel build
+    inside any timed window, the gate passing with no baseline);
+    ``torch_graft_entry.py``'s entry() at full width (finite logits of
+    (1, 128, vocab)) and dryrun_multichip(2) at tiny-test, two ranks
+    sharing the card over gloo (finite losses, the ranks agreeing). The
+    dry run's ranks start with the phase and run while the decode rows
+    and protocol cases are timed (a wall-time cut: most of their ≈ 15 s
+    is each process reaching the card), so those rates are read beside
+    them. A raised case, a non-positive slope (the measure raises), a
+    build inside a gate window or a K1 launch on query / pool dtypes no
+    check held against its plain version (``tiny_pools``, from
+    phase_entry) fails the run."""
+    import importlib.util
+    import math
+    import threading
+
+    import torch_bench as bench
+    import torch_graft_entry as graft
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_perf_gate", os.path.join(here, "scripts", "torch_perf_gate.py"))
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    t_phase = time.perf_counter()
+    runs, rates = {}, {}
+    dry = {}
+
+    def dryrun():
+        t0 = time.perf_counter()
+        try:
+            dry["losses"] = graft.dryrun_multichip(2, device="cuda")
+        except BaseException as e:      # reported by the phase below
+            dry["error"] = e
+        dry["s"] = time.perf_counter() - t0
+    dry_thread = threading.Thread(target=dryrun, daemon=True)
+    dry_thread.start()
+
+    def row(label, fn):
+        def run():
+            print(json.dumps({"rate": fn()}))
+        r = _entry_call(torch, f"torch_bench {label}", run, '"rate"')
+        rates[label] = json.loads(r["text"].strip().splitlines()[-1])[
+            "rate"]
+        runs[label] = r
+        log(_entry_line(f"torch_bench {label}", r)
+            + f": {rates[label]:.2f} tok/s")
+        return r
+
+    shape = (bench.BATCH, bench.PROMPT_LEN, bench.DECODE_TOKENS)
+    cut, timed = BENCH_CUT_LAYERS, bench.TIMED_ITERS
+    bench.TIMED_ITERS = BENCH_TIMED_ITERS
+    try:
+        row("primary", lambda: bench._measure(
+            "qwen2.5-coder-1.5b", *shape, timing_key="primary",
+            device="cuda"))
+        r = row("qwen1.5b_b8_flash", lambda: bench._measure(
+            "qwen2.5-coder-1.5b", *shape, decode_attn_impl="flash",
+            timing_key="qwen1.5b_b8_flash", device="cuda"))
+    finally:
+        bench.TIMED_ITERS = timed
+    # generate_scan decodes n - 1 steps a run: two warm runs, then at
+    # least one timed pair of BENCH_TIMED_ITERS runs at each length
+    from senweaver_ide_tpu_torch.models import get_config
+    layers = get_config("qwen2.5-coder-1.5b").num_layers
+    n_lo, n_hi = 16, 16 + bench.DECODE_TOKENS
+    least = layers * (1 + BENCH_TIMED_ITERS) * (n_lo - 1 + n_hi - 1)
+    if r["k3"] < least or r["k3"] % layers:
+        fail(f"bench qwen1.5b_b8_flash: K3 launched {r['k3']} times, "
+             f"expected a multiple of {layers} layers and at least {least}")
+    for name, b, p, n, key, quant, wq in (
+            ("deepseek-coder-6.7b", 16, 128, 96, "deepseek6.7b_b16_int8kv",
+             True, False),
+            ("deepseek-coder-6.7b", 16, 128, 96,
+             "deepseek6.7b_b16_int8w_int8kv", True, True),
+            ("mistral-7b", 4, 128, 64, "mistral7b_b4_swa", False, False)):
+        with _cut_config(name, num_layers=cut):
+            row(f"{key} at {cut} layers",
+                lambda: bench._measure_steps(
+                    name, b, p, n, quantized=quant, weight_quant=wq,
+                    timing_key=key, device="cuda"))
+    for key in BENCH_PROTOCOL:
+        case = getattr(bench, f"_measure_{key}")
+        r = _entry_call(torch, f"torch_bench {key}", lambda: print(
+            json.dumps({key: case(device="cuda")})), f'"{key}"')
+        rep = json.loads(r["text"].strip().splitlines()[-1])[key]
+        if not r["k1"] or not r["engines"]:
+            fail(f"bench {key}: K1 {r['k1']} over {len(r['engines'])} "
+                 f"engines: the paged kernel was not launched")
+        if "outputs_exact" in rep and not rep["outputs_exact"]:
+            fail(f"bench {key}: outputs not exact across its arms: {rep}")
+        runs[key] = r
+        log(_entry_line(f"torch_bench {key}", r) + f": {json.dumps(rep)}")
+    # the dry run's ranks, joined before the gate times its windows
+    dry_thread.join()
+    if "error" in dry:
+        fail(f"bench: dryrun_multichip(2) raised: {dry['error']}")
+    losses = dry["losses"]
+    if set(losses) != {"train", "qlora", "pp_1f1b"} or not all(
+            math.isfinite(v) for v in losses.values()):
+        fail(f"bench: dryrun_multichip(2) losses {losses}")
+    log(f"[bench] torch_graft_entry: dryrun_multichip(2), two ranks sharing "
+        f"the card over gloo, {dry['s']:.2f} s from the phase's start, "
+        f"losses {losses}")
+    # the perf gate: its selftest (no model code: no ledger), then every
+    # case on the card
+    from senweaver_ide_tpu_torch.obs.scope import preserved_obs
+    with preserved_obs():
+        if gate.selftest(device="cuda") != 0:
+            fail("bench: torch_perf_gate selftest failed")
+    r = _entry_call(torch, "torch_perf_gate measure", lambda: print(
+        json.dumps(gate.measure(device="cuda"))), '"perf_gate/v1"')
+    art = json.loads(r["text"].strip().splitlines()[-1])
+    dirty = {k: m["steady_compiles"] for k, m in art["metrics"].items()
+             if m["steady_compiles"]}
+    if dirty or set(art["metrics"]) != set(gate.CASES):
+        fail(f"bench: perf gate cases {sorted(art['metrics'])}, builds "
+             f"inside a timed window {dirty}")
+    runs["gate_measure"] = r
+    log(_entry_line("torch_perf_gate measure", r) + ", " + ", ".join(
+        f"{k} {m['step_s']:.6f} s ({m['compiles_total']} builds in warmup)"
+        for k, m in art["metrics"].items()))
+    # the driver entry points
+    t0 = time.perf_counter()
+    fn, args = graft.entry(device="cuda")
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    vocab = args[0]["embed"].shape[0]
+    if tuple(logits.shape) != (1, 128, vocab) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"bench: entry() logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    entry_s = time.perf_counter() - t0
+    del fn, args, logits
+    log(f"[bench] torch_graft_entry: entry() at full width {entry_s:.2f} s "
+        f"(logits (1, 128, {vocab}) finite)")
+    k1_by = {}
+    for r in runs.values():
+        for k, v in r["k1_by"].items():
+            k1_by[k] = k1_by.get(k, 0) + v
+    checked = {"bf16/bf16", "bf16/int8"} | {f"f32/{p}" for p in tiny_pools}
+    if set(k1_by) - checked:
+        fail(f"bench: K1 launched on query/pool dtypes that no check held "
+             f"against its plain version: {sorted(set(k1_by) - checked)}")
+    total = {"k1": sum(r["k1"] for r in runs.values()), "k1_by": k1_by,
+             "k3": sum(r["k3"] for r in runs.values()),
+             "k2": {k: sum(r["k2"][k] for r in runs.values())
+                    for k in ("fwd", "dkdv", "dq")}}
+    if not total["k1"] or not total["k3"]:
+        fail(f"bench: K1 {total['k1']}, K3 {total['k3']}: a kernel of the "
+             f"phase was not launched")
+    secs = {k: round(r["s"], 2) for k, r in runs.items()}
+    log(f"[bench] {len(runs)} runs, {smi}: rates "
+        + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
+        + f" tok/s; phase {time.perf_counter() - t_phase:.1f} s; K1 "
+        f"{total['k1']} {_k1_by_text(k1_by)}, K3 {total['k3']}, K2 "
+        f"{total['k2']}; seconds " + ", ".join(
+            f"{k} {v}" for k, v in secs.items())
+        + f", entry {entry_s:.2f}, dryrun {dry['s']:.2f} (beside the rows)")
+    return {**total, "rates": rates, "seconds": secs}
 
 
 def phase_online(torch, cfg, params, seed, smi):
@@ -8037,6 +8257,7 @@ def main(argv=None) -> int:
     entry = phase_entry(torch, cfg, loaded, smi, timer)
     evals = phase_eval(torch, smi, timer,
                        entry["tiny_k1"]["max_abs_err_by_pool"])
+    bench = phase_bench(torch, smi, entry["tiny_k1"]["max_abs_err_by_pool"])
     gc.collect()
     torch.cuda.empty_cache()
     online_launches, _ = phase_online(torch, cfg, loaded, args.seed, smi)
@@ -8105,6 +8326,7 @@ def main(argv=None) -> int:
                                else None),
             "launches_entry": entry["k1_by"].get(f"bf16/{variant}", 0),
             "launches_eval": evals["k1_by"].get(f"bf16/{variant}", 0),
+            "launches_bench": bench["k1_by"].get(f"bf16/{variant}", 0),
             "launches_online": (online_launches["k1"] if variant == "bf16"
                                 else None),
             "launches_reuse": {"bf16": reuse_launches["k1"],
@@ -8189,6 +8411,9 @@ def main(argv=None) -> int:
         "launches_eval": {k.split("/")[1]: n
                           for k, n in evals["k1_by"].items()
                           if k.startswith("f32/")},
+        "launches_bench": {k.split("/")[1]: n
+                           for k, n in bench["k1_by"].items()
+                           if k.startswith("f32/")},
         "max_abs_err": tiny["max_abs_err"],
         "max_abs_err_by_pool": tiny["max_abs_err_by_pool"],
         "tolerance": tiny["tolerance"],
@@ -8215,6 +8440,7 @@ def main(argv=None) -> int:
             "launches_round": round_launches[kname],
             "launches_entry": entry["k2"][kname],
             "launches_eval": evals["k2"][kname],
+            "launches_bench": bench["k2"][kname],
             "launches_online": online_launches[kname],
             "launches_reuse": reuse_launches[kname],
             "launches_async": async_launches[kname],
@@ -8260,6 +8486,7 @@ def main(argv=None) -> int:
         "launches_int8_slots_qwen": int8_launches,
         "launches_entry": entry["k3"],
         "launches_eval": evals["k3"],
+        "launches_bench": bench["k3"],
         "launches_reuse": reuse_launches["k3"],
         "launches_async": async_launches["k3"],
         "launches_spec": spec_launches["k3"],

@@ -17,6 +17,7 @@ from senweaver_ide_tpu_torch.models import (init_params, params_from_numpy,
                                             tiny_test)
 from senweaver_ide_tpu_torch.rollout import (PagedSeqKV, RolloutEngine,
                                              init_paged_pool)
+from test_torch_copies import RENAMED
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(senweaver_ide_tpu_torch.__file__)
@@ -55,10 +56,14 @@ def _eval_files():
                   if f.startswith("torch_eval_") and f.endswith(".py"))
 
 
+# the root entry points' ports (bench.py, __graft_entry__.py)
+ROOT_ENTRIES = ("torch_bench.py", "torch_graft_entry.py")
+
+
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     out += _entry_files("scripts") + _entry_files("examples")
-    out += _eval_files()
+    out += _eval_files() + [os.path.join(ROOT, f) for f in ROOT_ENTRIES]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -183,6 +188,34 @@ def test_scan_covers_every_port_script():
         assert os.path.join(ROOT, "scripts", f"torch_{name}.py") in files
     for name in EVALS:
         assert os.path.join(ROOT, f"torch_eval_{name}.py") in files
+    for name in ROOT_ENTRIES:
+        assert os.path.join(ROOT, name) in files
+    assert os.path.join(ROOT, "scripts", "torch_perf_gate.py") in files
+
+
+def test_every_jax_root_entry_point_has_its_port():
+    """Every script outside the JAX package and the tests that imports
+    the JAX package has a torch_ file beside it."""
+    missing = []
+    for folder in ("", "scripts", "examples"):
+        here = os.path.join(ROOT, folder)
+        for f in sorted(os.listdir(here)):
+            if not f.endswith(".py") or f.startswith("torch_") \
+                    or f == "chip_smoke.py":
+                continue
+            with open(os.path.join(here, f)) as fh:
+                tree = ast.parse(fh.read())
+            names = [a.name for n in ast.walk(tree)
+                     if isinstance(n, ast.Import) for a in n.names]
+            names += [n.module or "" for n in ast.walk(tree)
+                      if isinstance(n, ast.ImportFrom) and n.level == 0]
+            if not any(n.split(".")[0] == "senweaver_ide_tpu"
+                       for n in names):
+                continue
+            port = RENAMED.get(f, "torch_" + f)
+            if not os.path.exists(os.path.join(here, port)):
+                missing.append(os.path.join(folder, f))
+    assert missing == []
 
 
 def test_every_jax_eval_has_its_port():
@@ -467,3 +500,42 @@ def test_mesh_pool_ranks_import_no_jax():
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module or "")
     assert names and not [n for n in names if _banned(n)]
+
+
+_ROOT_ENTRIES_UNDER_BLOCKER = r"""
+import contextlib, io, runpy, torch
+torch.cuda.is_available = lambda: False
+sys.path.insert(0, {root!r})
+for path, argv in {entries!r}:
+    sys.argv = [path, *argv]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    except RuntimeError as e:
+        assert "CUDA is not available" in str(e), (path, e)
+    else:
+        raise AssertionError(path + " ran without a card")
+    assert buf.getvalue() == "", (path, buf.getvalue())
+assert not [k for k in sys.modules if k.split(".")[0] in BANNED]
+print("root entries ok")
+"""
+
+
+def test_root_entry_points_refuse_without_a_card_with_jax_blocked():
+    """torch_bench.py, scripts/torch_perf_gate.py (its selftest and its
+    measure) and torch_graft_entry.py run as their users run them, with
+    the JAX package blocked and no card: each raises naming CUDA and
+    prints nothing (no line, no replayed number)."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    gate = os.path.join(ROOT, "scripts", "torch_perf_gate.py")
+    entries = [(os.path.join(ROOT, "torch_bench.py"), []),
+               (gate, ["--selftest"]), (gate, []),
+               (os.path.join(ROOT, "torch_graft_entry.py"), [])]
+    code = _BLOCKED_IMPORT.format(banned=BANNED) + \
+        _ROOT_ENTRIES_UNDER_BLOCKER.format(root=ROOT, entries=entries)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split()[-1] == "ok"
